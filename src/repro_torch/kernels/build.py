@@ -1,0 +1,84 @@
+"""Build and load the port's CUDA kernels.
+
+Each source ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a
+shared library with a plain C interface and loaded with ``ctypes``.  Builds
+happen at first use, into ``kernels/_build/`` (listed in ``.gitignore``),
+under a file name that carries a hash of the source and flags, so an edited
+source is rebuilt and an unchanged one is loaded as it is.  A failed build
+raises; there is no fallback.
+
+Nothing here runs at import: the CPU tests import every module of the port.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+# name -> loaded library, and name -> (seconds, ptxas report) of the build
+_libs: dict[str, ctypes.CDLL] = {}
+build_reports: dict[str, tuple[float, str]] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = Path(home) / "bin" / "nvcc"
+    if not path.exists():
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+    return str(path)
+
+
+def _target(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def _start(name: str) -> tuple[subprocess.Popen, Path, Path, float]:
+    out = _target(name)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, out, time.perf_counter()
+
+
+def _finish(name: str, proc: subprocess.Popen, tmp: Path, out: Path, t0: float) -> None:
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed on {name}.cu (exit {proc.returncode}):\n{log}")
+    os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+    build_reports[name] = (time.perf_counter() - t0, log)
+
+
+def build_all(names) -> None:
+    """Compile every named source that has no current build, one ``nvcc``
+    each, all started together."""
+    todo = [n for n in names if n not in _libs and not _target(n).exists()]
+    started = [(n, *_start(n)) for n in todo]
+    for n, proc, tmp, out, t0 in started:
+        _finish(n, proc, tmp, out, t0)
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built first if needed."""
+    lib = _libs.get(name)
+    if lib is None:
+        build_all([name])
+        lib = _libs[name] = ctypes.CDLL(str(_target(name)))
+    return lib

@@ -1,0 +1,57 @@
+"""Dispatch to the port's kernels, mirroring ``repro.kernels.ops``.
+
+Backends:
+  * "auto"  — the CUDA kernel for a CUDA tensor, the plain version for a CPU
+              tensor (the wrappers decide by the tensor's device, nothing
+              else).
+  * "cuda"  — the CUDA kernel; a CPU tensor raises.
+  * "torch" — the plain PyTorch version on any device (the reference the
+              kernels are held to on the card).
+"""
+from __future__ import annotations
+
+from typing import Literal
+
+import torch
+
+from repro_torch.kernels import decode_attention as _dec
+from repro_torch.kernels import exit_confidence as _exit
+from repro_torch.kernels import ref
+
+Backend = Literal["auto", "cuda", "torch"]
+BACKENDS = ("auto", "cuda", "torch")
+
+_backend: Backend = "auto"
+
+
+def set_backend(backend: Backend) -> None:
+    global _backend
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
+    _backend = backend
+
+
+def get_backend() -> str:
+    return _backend
+
+
+def _plain(x: torch.Tensor) -> bool:
+    if _backend == "torch":
+        return True
+    if _backend == "cuda" and not x.is_cuda:
+        raise ValueError(f"kernel backend 'cuda' was asked for a tensor on {x.device}")
+    return False
+
+
+def decode_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lengths: torch.Tensor
+) -> torch.Tensor:
+    if _plain(q):
+        return ref.decode_attention_ref(q, k, v, lengths)
+    return _dec.decode_attention(q, k, v, lengths)
+
+
+def exit_confidence(h: torch.Tensor, w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    if _plain(h):
+        return ref.exit_confidence_ref(h, w)
+    return _exit.exit_confidence(h, w)

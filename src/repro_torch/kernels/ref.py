@@ -1,0 +1,76 @@
+"""Plain PyTorch versions of the ported kernels, op for op with
+``repro.kernels.ref``.
+
+They are the ground truth the CUDA kernels are held to on the card, and
+what the kernel wrappers run for tensors that lie on the CPU.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+NEG_INF = -1e30
+
+
+def decode_attention_ref(
+    q: torch.Tensor,  # [B, Hq, hd]
+    k: torch.Tensor,  # [B, S, kv, hd]
+    v: torch.Tensor,  # [B, S, kv, hd]
+    lengths: torch.Tensor,  # [B] valid prefix length of each cache row
+) -> torch.Tensor:
+    B, Hq, hd = q.shape
+    kvh = k.shape[2]
+    G = Hq // kvh
+    qg = q.reshape(B, kvh, G, hd)
+    # * (1/sqrt) rather than /sqrt, as the reference and the kernels scale
+    scores = torch.einsum("bkgd,bskd->bkgs", qg, k).float() * float(1.0 / math.sqrt(hd))
+    valid = torch.arange(k.shape[1], device=k.device)[None, :] < lengths[:, None]  # [B, S]
+    scores = torch.where(valid[:, None, None, :], scores, NEG_INF)
+    # probabilities are normalised in f32, then cast to v's dtype
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum("bkgs,bskd->bkgd", probs, v)
+    return out.reshape(B, Hq, hd)
+
+
+def decode_attention_f32_scores_ref(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lengths: torch.Tensor
+) -> torch.Tensor:
+    """The decode kernels' f32 softmax in plain PyTorch.
+
+    Scores, probabilities and the P.V sums stay in f32 and the output is
+    rounded once, after the division by l (l > 0 guarded), as the CUDA
+    kernel does; the Pallas body differs only in casting the unnormalised
+    probabilities to ``v``'s dtype for P.V.  ``decode_attention_ref`` rounds
+    the scores to the input dtype first, as ``repro.kernels.ref`` does,
+    which at bf16 moves the output by more than its own rounding; the CUDA
+    kernel is held to this version as well.
+    """
+    B, Hq, hd = q.shape
+    kvh = k.shape[2]
+    qg = q.reshape(B, kvh, Hq // kvh, hd).float()
+    scores = torch.einsum("bkgd,bskd->bkgs", qg, k.float()) * float(1.0 / math.sqrt(hd))
+    valid = (torch.arange(k.shape[1], device=k.device)[None, :] < lengths[:, None])[:, None, None, :]
+    scores = torch.where(valid, scores, NEG_INF)
+    m = scores.amax(dim=-1, keepdim=True)
+    p = torch.where(valid, torch.exp(scores - m), 0.0)
+    l = p.sum(dim=-1, keepdim=True)
+    acc = torch.einsum("bkgs,bskd->bkgd", p, v.float())
+    out = acc / torch.where(l > 0, l, 1.0)
+    return out.to(q.dtype).reshape(B, Hq, hd)
+
+
+def exit_confidence_ref(h: torch.Tensor, w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """h: [B, d], w: [d, V] -> (top-1 softmax prob [B] f32, argmax [B] i32).
+
+    ``w`` is cast to ``h``'s dtype and the product accumulates in f32: the
+    f32 matmul of the cast operands (products of bf16 values are exact in
+    f32, so only the summation order differs from an f32-accumulating bf16
+    GEMM).
+    """
+    logits = torch.matmul(h.float(), w.to(h.dtype).float())
+    m = torch.max(logits, dim=-1).values
+    l = torch.sum(torch.exp(logits - m[:, None]), dim=-1)
+    conf = 1.0 / l
+    idx = torch.argmax(logits, dim=-1).to(torch.int32)
+    return conf, idx

@@ -1,0 +1,626 @@
+"""Collaborative serving engine: the paper's system with a real model inside.
+
+The counterpart of ``repro.serving.engine`` for the dense slot layout, in
+both decode modes.  A model is partitioned into ``cfg.num_stages`` stages;
+each stage ``h`` is served by ``n_h`` logical replicas.  The engine routes
+each request hop by hop by sampling the DTO-EE offloading strategy ``p``,
+runs the REAL stage forwards on the device (exit decisions use the model's
+branch confidences against the thresholds C), and advances a simulated
+clock with M/D/1 service at each replica, so the reported ``delays`` follow
+the queueing model the optimizer uses.  The delays are simulated; the
+device work is real.
+
+Data plane: ``serve(..., gen_len=N)`` decodes up to N tokens per request.
+The first pass is a prefill hop chain; in cached mode each stage writes its
+KV caches into a slot of the replica's resident store, the route is pinned
+per stage (``Request.path``), and every later token is a one-token cached
+step through the flash-decode kernel.  ``decode_mode="stateless"`` re-runs
+the padded prefix instead.  Replicas own rings of cache slots; new prompts
+are admitted into running batches at stage boundaries, and early-exited
+rows retire without stalling the batch (continuous batching).  Exit and
+final heads go through the fused ``exit_confidence`` kernel.
+
+Hidden states travel between replicas as device tensors (each request
+keeps its row of the stage output; a batch is assembled with ``torch.cat``);
+the confidences and tokens of a batch come to the host once.
+
+Not ported yet (each raises ``NotImplementedError``): the paged layout,
+scenarios, the online controller, telemetry, tracing and metrics.
+"""
+from __future__ import annotations
+
+import dataclasses
+import heapq
+import itertools
+from collections import deque
+from time import perf_counter
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core import dto_ee
+from repro_torch.core.simulator import RoutingCdf
+from repro_torch.core.thresholds import ExitProfile
+from repro_torch.core.types import DtoHyperParams, ModelProfile, Topology
+from repro_torch.models import model as model_lib
+from repro_torch.obs.stream import build_stream
+from repro_torch.runtime import elastic
+from repro_torch.serving import steps
+from repro_torch.serving.batching import (
+    ExitPredictor,
+    Request,
+    ShapeBucketBatcher,
+    SlotRing,
+    batch_tokens,
+    pack_decode_batch,
+    padded_batch_size,
+    pow2_floor,
+)
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a torch.device; asking for CUDA without a card raises."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "device 'cuda' was asked for but no CUDA device is available; "
+            "pass device='cpu' to run on the CPU"
+        )
+    return dev
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP: {item})")
+
+
+# ---------------------------------------------------------------------------
+# Stage programs
+# ---------------------------------------------------------------------------
+
+
+class StagePrograms:
+    """Per-stage forwards and fused heads of a partitioned model on one
+    device.  The parameters are moved to ``device`` (default ``cuda``)."""
+
+    def __init__(self, params: Any, cfg: ArchConfig, device="cuda"):
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.params = model_lib.params_to(params, self.device)
+
+    def embed(self, tokens: np.ndarray) -> torch.Tensor:
+        toks = torch.as_tensor(np.asarray(tokens, np.int64), device=self.device)
+        return steps.embed_step(self.params, toks)
+
+    def run_stage(self, stage_idx: int, x: torch.Tensor) -> torch.Tensor:
+        """Forward hidden states through stage ``stage_idx`` (1-indexed)."""
+        return steps.stage_forward(self.params, x, self.cfg, stage_idx)
+
+    def stage_prefill(self, stage_idx: int, x: torch.Tensor, max_len: int):
+        """(x_out, stage caches [n_periods, B, max_len, ...]) for one stage."""
+        return steps.stage_prefill(self.params, x, self.cfg, stage_idx, max_len)
+
+    def stage_decode(self, stage_idx: int, x, slot_caches, slots: np.ndarray) -> torch.Tensor:
+        """One cached token per row against the replica's store (in place)."""
+        idx = torch.as_tensor(slots, dtype=torch.int64, device=self.device)
+        return steps.stage_decode(self.params, x, slot_caches, idx, self.cfg, stage_idx)
+
+    def slot_write(self, slot_caches, new_caches, slots: np.ndarray) -> None:
+        idx = torch.as_tensor(slots, dtype=torch.int64, device=self.device)
+        steps.slot_write(slot_caches, new_caches, idx)
+
+    def init_slot_caches(self, stage_idx: int, num_slots: int, max_len: int):
+        return model_lib.init_stage_slot_caches(
+            self.cfg, stage_idx, num_slots, max_len, device=self.device
+        )
+
+    def exit_head(self, stage_idx: int, x_last: torch.Tensor):
+        """(confidence, token) of the exit branch after stage ``stage_idx``."""
+        return steps.exit_head_step(self.params, x_last, self.cfg, stage_idx)
+
+    def final_head(self, x_last: torch.Tensor):
+        """(confidence, token) of the final head — fused, no [B, vocab] logits."""
+        return steps.final_head_step(self.params, x_last, self.cfg)
+
+
+# ---------------------------------------------------------------------------
+# Engine
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class ServeStats:
+    delays: list = dataclasses.field(default_factory=list)
+    exit_stage: list = dataclasses.field(default_factory=list)
+    confidences: list = dataclasses.field(default_factory=list)
+    tokens: list = dataclasses.field(default_factory=list)  # last emitted token
+    rids: list = dataclasses.field(default_factory=list)
+    gen_tokens: list = dataclasses.field(default_factory=list)  # full sequences
+    arrivals: list = dataclasses.field(default_factory=list)
+    dones: list = dataclasses.field(default_factory=list)
+    num_batches: int = 0
+    num_forward_rows: int = 0  # padded rows pushed through stage forwards
+    num_real_rows: int = 0  # live rows among them (the rest is padding waste)
+    peak_in_flight: int = 0
+    capacity_estimates: dict = dataclasses.field(default_factory=dict)
+
+    def summary(self) -> dict:
+        d = np.asarray(self.delays)
+        es = np.asarray(self.exit_stage)
+        total_tokens = int(sum(len(g) for g in self.gen_tokens))
+        makespan = float(max(self.dones) - min(self.arrivals)) if self.dones else float("nan")
+        nan = float("nan")
+        return {
+            "num_completed": int(d.size),
+            "mean_delay": float(d.mean()) if d.size else nan,
+            "delay_std": float(d.std()) if d.size else nan,
+            "p50_delay": float(np.percentile(d, 50)) if d.size else nan,
+            "p95_delay": float(np.percentile(d, 95)) if d.size else nan,
+            "p99_delay": float(np.percentile(d, 99)) if d.size else nan,
+            "exit_histogram": {int(s): int((es == s).sum()) for s in np.unique(es)},
+            "num_batches": self.num_batches,
+            "num_forward_rows": self.num_forward_rows,
+            "num_real_rows": self.num_real_rows,
+            "padded_row_frac": (
+                1.0 - self.num_real_rows / self.num_forward_rows if self.num_forward_rows else 0.0
+            ),
+            "generated_tokens": total_tokens,
+            "sim_tokens_per_s": (
+                total_tokens / makespan if makespan and makespan > 0 else nan
+            ),
+            "peak_in_flight": self.peak_in_flight,
+            "capacity_estimates": dict(self.capacity_estimates),
+        }
+
+    def by_rid(self) -> dict[int, tuple[int, int]]:
+        """rid -> (exit_stage, token); completion-order independent view."""
+        return {r: (s, t) for r, s, t in zip(self.rids, self.exit_stage, self.tokens)}
+
+    def sequences_by_rid(self) -> dict[int, tuple[int, tuple[int, ...]]]:
+        """rid -> (exit_stage, full token sequence)."""
+        return {r: (s, tuple(g)) for r, s, g in zip(self.rids, self.exit_stage, self.gen_tokens)}
+
+
+class CollaborativeEngine:
+    """End-to-end: Poisson arrivals -> DTO-EE routing -> staged model on
+    ``device`` (default ``cuda``; pass ``device="cpu"`` to run on the CPU)."""
+
+    def __init__(
+        self,
+        params: Any,
+        cfg: ArchConfig,
+        topo: Topology,
+        profile: ModelProfile,
+        exit_profile: ExitProfile,
+        hyper: DtoHyperParams | None = None,
+        seed: int = 0,
+        device="cuda",
+    ):
+        if topo.num_stages != cfg.num_stages:
+            raise ValueError("topology stages must match the model's stages")
+        self.programs = StagePrograms(params, cfg, device)
+        self.cfg = cfg
+        self.topo = topo
+        self.profile = profile
+        self.exit_profile = exit_profile
+        self.hyper = hyper or DtoHyperParams()
+        self.rng = np.random.default_rng(seed)
+        self.state = dto_ee.init_state(topo, profile, exit_profile)
+        self._round_step = dto_ee.make_round_step(topo, profile, self.hyper)
+        self.stage_to_branch = {s: b for b, s in enumerate(exit_profile.branch_stage[:-1])}
+        # live capacity tracker: every stage batch folds its (GFLOPs, service
+        # time) into the EWMA, the measurement half of the control loop
+        self.straggler = elastic.StragglerMonitor.from_topology(topo)
+
+    # -- control plane ------------------------------------------------------
+    def update_topology(self, new_topo: Topology) -> None:
+        """Capacities / arrival rates changed between slots; the offloading
+        state (p, thresholds) warm-starts."""
+        if new_topo.num_edges != self.topo.num_edges:
+            raise ValueError("edge set changed; use runtime.elastic helpers first")
+        self.topo = new_topo
+        self._round_step = dto_ee.make_round_step(new_topo, self.profile, self.hyper)
+
+    def configuration_phase(self, adapt_thresholds: bool = True) -> None:
+        """One time-slot configuration update (Algorithm 3)."""
+        res = dto_ee.run_configuration_phase(
+            self.topo,
+            self.profile,
+            self.exit_profile,
+            self.hyper,
+            state=self.state,
+            adapt_thresholds=adapt_thresholds,
+            round_step=self._round_step,
+        )
+        self.state = res.state
+
+    @property
+    def p(self) -> np.ndarray:
+        return self.state.carry.p.numpy().astype(np.float64)
+
+    @property
+    def thresholds(self) -> np.ndarray:
+        return self.state.thresholds
+
+    # -- data plane ---------------------------------------------------------
+    def _stage_input(self, stage: int, reqs: list[Request], batch_size: int,
+                     pad_to: int | None = None) -> torch.Tensor:
+        """Assemble the padded [B, S, d] residual stream for one batch.
+
+        ``pad_to`` right-pads the token batch to a fixed length (stateless
+        decode passes: a fixed shape keeps every pass's reductions
+        length-stable, so re-prefill matches the fixed-arena cached path).
+        """
+        if stage == 1:
+            toks = batch_tokens(reqs, batch_size)
+            if pad_to is not None and toks.shape[1] < pad_to:
+                toks = np.pad(toks, ((0, 0), (0, pad_to - toks.shape[1])))
+            return self.programs.embed(toks)
+        return _cat_hidden(reqs, padded_batch_size(len(reqs), batch_size))
+
+    def serve(
+        self,
+        prompts: list[np.ndarray],
+        duration: float = 5.0,
+        arrival_rate: float | None = None,
+        batch_size: int = 1,
+        gen_len: int = 1,
+        decode_mode: str | None = None,
+        num_slots: int | None = None,
+        cache_layout: str = "dense",
+        batch_policy: str = "fifo",
+        controller=None,
+        scenario=None,
+        telemetry=None,
+        tracer=None,
+        metrics=None,
+    ) -> ServeStats:
+        """Serve ``prompts`` arriving as a Poisson stream at ``arrival_rate``
+        (default: the topology's total external rate), as
+        ``repro.serving.engine.CollaborativeEngine.serve`` does.
+
+        ``decode_mode``: ``"cached"`` (default for gen_len > 1: slot-resident
+        KV caches, continuous batching) or ``"stateless"`` (default for
+        gen_len == 1: every token re-runs the padded prefix).  Both emit
+        token-identical sequences.  ``batch_policy="threshold"`` packs decode
+        batches by predicted retirement class.
+        """
+        if cache_layout == "paged":
+            raise _not_ported("cache_layout='paged'", "next slice, paged layout")
+        if scenario is not None:
+            raise _not_ported("scenario", "slice 2, obs/ and control/")
+        if controller is not None:
+            raise _not_ported("controller", "slice 2, obs/ and control/")
+        if telemetry is not None:
+            raise _not_ported("telemetry", "slice 2, obs/ and control/")
+        if tracer is not None or metrics is not None:
+            raise _not_ported("tracer/metrics", "slice 2, obs/ and control/")
+        if batch_size < 1:
+            raise ValueError("batch_size must be >= 1")
+        if gen_len < 1:
+            raise ValueError("gen_len must be >= 1")
+        if cache_layout != "dense":
+            raise ValueError("cache_layout must be 'dense' or 'paged'")
+        if decode_mode is None:
+            decode_mode = "cached" if gen_len > 1 else "stateless"
+        if decode_mode not in ("cached", "stateless"):
+            raise ValueError("decode_mode must be 'cached' or 'stateless'")
+        cached = decode_mode == "cached"
+        if any(int(p.shape[0]) < 1 for p in prompts):
+            raise ValueError("prompts must be non-empty")
+        if batch_policy not in ("fifo", "threshold"):
+            raise ValueError("batch_policy must be 'fifo' or 'threshold'")
+        profile = self.profile
+        topo = self.topo
+        programs = self.programs
+        H = profile.num_stages
+        eds = topo.nodes_at_stage(0)
+        rate = float(arrival_rate) if arrival_rate is not None else float(topo.phi_ext.sum())
+        n = len(prompts)
+        if rate > 0 and np.isfinite(rate):
+            arrivals = np.cumsum(self.rng.exponential(1.0 / rate, size=n))
+        else:
+            arrivals = np.sort(self.rng.uniform(0.0, duration, size=n))
+        # arrival nodes follow the optimizer's traffic model: each request
+        # lands on an ED with probability proportional to its phi_ext
+        ed_w = topo.phi_ext[eds]
+        if n and ed_w.sum() > 0:
+            ed_idx = self.rng.choice(len(eds), size=n, p=ed_w / ed_w.sum())
+        else:
+            ed_idx = np.arange(n) % max(len(eds), 1)
+        packer = None
+        if batch_policy == "threshold":
+            packer = ExitPredictor(lambda: self.thresholds, gen_len)
+        # the emission sites of the reference engine; no observer is ported
+        # yet, so the stream is None and every emission is skipped
+        stream = build_stream(telemetry, tracer, metrics)
+        wants_wall = stream is not None and stream.wants_wall
+
+        stats = ServeStats()
+        route = RoutingCdf(topo, self.p)
+        # event heap: (time, seq, kind, payload)
+        #   kind 0: transfer done, request joins ``node``   payload (req, node)
+        #   kind 1: batch service done at ``node``          payload (node, reqs,
+        #           conf [B] | None, tok [B] | None, is_decode_pass)
+        heap: list = []
+        seq = itertools.count()
+        wait_seq = itertools.count()  # FIFO order shared across queue kinds
+        es_nodes = [int(v) for v in range(topo.num_nodes) if topo.node_stage[v] > 0]
+        pending = {v: ShapeBucketBatcher(batch_size, seq=wait_seq) for v in es_nodes}
+        busy_until = {v: 0.0 for v in es_nodes}
+        decode_q: dict[int, deque] = {v: deque() for v in es_nodes}
+        rings: dict[int, SlotRing] = {}
+        slot_store: dict[int, Any] = {}
+        trash = -1
+        max_len = max((int(p.shape[0]) for p in prompts), default=1) + gen_len
+        if cached:
+            n_slots = num_slots if num_slots is not None else max(2 * batch_size, 4)
+            trash = n_slots  # extra store row absorbing padded-row writes
+            for v in es_nodes:
+                rings[v] = SlotRing(n_slots)
+                slot_store[v] = programs.init_slot_caches(int(topo.node_stage[v]), n_slots + 1, max_len)
+        live_reqs = 0  # admitted somewhere, not yet retired
+
+        def run_prefill(node: int, reqs: list[Request], now: float) -> None:
+            nonlocal live_reqs
+            wall_t0 = perf_counter() if wants_wall else 0.0
+            h = int(topo.node_stage[node])
+            # stateless decode passes run at a FIXED padded length: causal
+            # masking makes the pad rows inert and the valid rows match the
+            # fixed-size cached arena
+            stateless_decode = not cached and reqs[0].phase == "decode"
+            pad_to = max_len if stateless_decode else None
+            x_in = self._stage_input(h, reqs, batch_size, pad_to=pad_to)
+            if cached:
+                x, caches = programs.stage_prefill(h, x_in, max_len)
+                slots = np.full((int(x.shape[0]),), trash, np.int64)
+                for i, r in enumerate(reqs):
+                    s = rings[node].alloc()
+                    if s is None:
+                        raise RuntimeError("dispatch admitted beyond ring capacity")
+                    if not r.slots:  # first residency anywhere: now in flight
+                        live_reqs += 1
+                        stats.peak_in_flight = max(stats.peak_in_flight, live_reqs)
+                    r.slots[node] = s
+                    slots[i] = s
+                programs.slot_write(slot_store[node], caches, slots)
+            else:
+                x = programs.run_stage(h, x_in)
+            last = int(reqs[0].all_tokens().shape[0]) if stateless_decode else None
+            finish_pass(node, reqs, x, now, h, is_decode_pass=False, last_valid=last,
+                        wall_t0=wall_t0)
+
+        def run_decode(node: int, reqs: list[Request], now: float) -> None:
+            wall_t0 = perf_counter() if wants_wall else 0.0
+            h = int(topo.node_stage[node])
+            B = len(reqs)
+            Bp = padded_batch_size(B, batch_size)
+            slots = np.full((Bp,), trash, np.int64)
+            for i, r in enumerate(reqs):
+                slots[i] = r.slots[node]
+            if h == 1:
+                toks = np.zeros((Bp, 1), np.int32)
+                for i, r in enumerate(reqs):
+                    toks[i, 0] = r.generated[-1]
+                x_in = programs.embed(toks)
+            else:
+                x_in = _cat_hidden(reqs, Bp)
+            x = programs.stage_decode(h, x_in, slot_store[node], slots)
+            finish_pass(node, reqs, x, now, h, is_decode_pass=True, wall_t0=wall_t0)
+
+        def finish_pass(node: int, reqs: list[Request], x: torch.Tensor, now: float, h: int,
+                        is_decode_pass: bool, last_valid: int | None = None,
+                        wall_t0: float = 0.0) -> None:
+            """Shared tail of a stage batch: heads, handoff rows, clock.
+
+            ``last_valid`` points the heads at the last REAL position of a
+            right-padded stateless decode pass.
+            """
+            b = self.stage_to_branch.get(h)
+            x_heads = x if last_valid is None else x[:, last_valid - 1 : last_valid]
+            conf = tok = None
+            if h == H:
+                conf, tok = programs.final_head(x_heads)
+            elif b is not None:
+                conf, tok = programs.exit_head(h, x_heads)
+            if h < H:
+                for i, r in enumerate(reqs):
+                    r.hidden = x[i : i + 1]
+            if conf is not None:
+                conf = conf.cpu().numpy()[: len(reqs)]
+                tok = tok.cpu().numpy()[: len(reqs)]
+            stats.num_batches += 1
+            stats.num_forward_rows += int(x.shape[0])
+            stats.num_real_rows += len(reqs)
+            if is_decode_pass:
+                # alpha[h] is the profiled cost of one TASK (= its prompt) at
+                # stage h, so one cached token is charged alpha / prompt_len
+                gflops = profile.alpha[h - 1] * sum(1.0 / r.prompt_len for r in reqs)
+            else:
+                gflops = len(reqs) * profile.alpha[h - 1]
+            service = gflops / float(topo.mu[node])
+            start = max(now, busy_until[node])
+            done = start + service
+            busy_until[node] = done
+            self.straggler.observe(node, gflops, service)
+            if stream is not None:
+                stream.on_batch(
+                    done, node, gflops, service,
+                    len(pending[node]) + len(decode_q[node]),
+                    stage=h,
+                    rids=tuple(r.rid for r in reqs),
+                    t_dispatch=now,
+                    t_start=start,
+                    n_rows=int(x.shape[0]),
+                    n_tokens=int(x.shape[0]) * int(x.shape[1]),
+                    is_decode=is_decode_pass,
+                    wall_clock_s=(perf_counter() - wall_t0) if wants_wall else 0.0,
+                )
+            heapq.heappush(heap, (done, next(seq), 1, (node, reqs, conf, tok, is_decode_pass)))
+
+        def dispatch(node: int, now: float) -> None:
+            """If ``node`` is free, form one batch and run it: FIFO across
+            work kinds by arrival order, except that prompts blocked on slot
+            space never stall waiting decode rows."""
+            if now < busy_until[node]:
+                return
+            ph = pending[node].head_seq()
+            if ph is not None and cached and rings[node].available == 0:
+                ph = None  # admission blocked until a retirement frees a slot
+            dq = decode_q[node]
+            dh = dq[0][0] if dq else None
+            if ph is None and dh is None:
+                return
+            if dh is not None and (ph is None or dh < ph):
+                if packer is not None:
+                    take, rest = pack_decode_batch(list(dq), batch_size, packer)
+                    dq.clear()
+                    dq.extend(rest)
+                    reqs = [r for _, r in take]
+                else:
+                    reqs = [dq.popleft()[1] for _ in range(min(batch_size, len(dq)))]
+                run_decode(node, reqs, now)
+                return
+            max_take = rings[node].available if cached else None
+            if packer is not None:
+                # trim the prefill take so the padded batch holds no dead rows
+                cap = min(pending[node].head_len(), batch_size)
+                if max_take is not None:
+                    cap = min(cap, max_take)
+                if cap >= 1:
+                    trim = pow2_floor(cap)
+                    max_take = trim if max_take is None else min(max_take, trim)
+            popped = pending[node].pop_batch(max_take)
+            if popped is None:
+                return
+            run_prefill(node, popped[1], now)
+
+        def enqueue(req: Request, node: int, now: float) -> None:
+            h = int(topo.node_stage[node])
+            req.node = node
+            req.stage = h
+            if stream is not None:
+                stream.on_enqueue(now, req.rid, node)
+            if req.phase == "decode" and cached:
+                decode_q[node].append((next(wait_seq), req))
+            else:
+                if req.phase == "decode":
+                    # stateless decode pass: padded shapes are uniform, so
+                    # bucket by the VALID prefix length (heads slice there)
+                    key = ("dec", int(req.all_tokens().shape[0]))
+                elif h == 1:
+                    key = ("tok", int(req.all_tokens().shape[0]))
+                else:
+                    key = ("hid", tuple(req.hidden.shape[1:]))
+                pending[node].push(key, req)
+            dispatch(node, now)
+
+        def finish(req: Request, done: float, c: float, h: int) -> None:
+            nonlocal live_reqs
+            req.exited, req.exit_stage = True, h
+            req.confidence, req.output_token = c, req.generated[-1]
+            req.t_done = done
+            req.hidden = None
+            stats.delays.append(req.delay)
+            stats.exit_stage.append(h)
+            stats.confidences.append(c)
+            stats.tokens.append(req.generated[-1])
+            stats.rids.append(req.rid)
+            stats.gen_tokens.append(tuple(req.generated))
+            stats.arrivals.append(req.arrival)
+            stats.dones.append(done)
+            if stream is not None:
+                stream.on_exit(done, req.rid, h, c)
+            if cached and req.slots:
+                live_reqs -= 1
+                freed = list(req.slots.items())
+                req.slots = {}
+                for v, s in freed:
+                    rings[v].free(s)
+                for v, _ in freed:
+                    # a freed slot can unblock admission-waiting prompts
+                    if pending[v].head_seq() is not None:
+                        dispatch(v, done)
+
+        def submit(req: Request, t: float) -> None:
+            """First hop: sample a stage-1 replica and ship the raw task."""
+            nxt, e = route.sample(self.rng, req.ed)
+            req.path[1] = (nxt, int(e))
+            t_cm = profile.beta[0] / float(topo.edge_rate[e])
+            if stream is not None:
+                stream.on_submit(t, req.rid, req.ed, req.arrival)
+                stream.on_transfer(t, t + t_cm, t_cm, req.ed, nxt, req.rid, profile.beta[0])
+            heapq.heappush(heap, (t + t_cm, next(seq), 0, (req, nxt)))
+
+        for i, (t, prompt) in enumerate(zip(arrivals, prompts)):
+            req = Request(rid=i, tokens=np.asarray(prompt, np.int32), arrival=t,
+                          ed=int(eds[ed_idx[i]]))
+            submit(req, t)
+
+        while heap:
+            now, _, kind, payload = heapq.heappop(heap)
+            if kind == 0:
+                req, node = payload
+                if stream is not None and req.stage == 0:
+                    stream.on_arrival(req.arrival, req.ed, req.rid)
+                enqueue(req, node, now)
+                continue
+            # kind 1: batch done — the batched exit decision is on the host
+            node, reqs, conf, tok, is_decode_pass = payload
+            h = int(topo.node_stage[node])
+            b = self.stage_to_branch.get(h)
+            for i, req in enumerate(reqs):
+                if h == H:
+                    req.generated.append(int(tok[i]))
+                    if len(req.generated) >= gen_len:
+                        finish(req, now, float(conf[i]), h)
+                        continue
+                    # loop back for the next token: one-token payload to the
+                    # request's pinned stage-1 replica
+                    req.phase = "decode"
+                    node1, e1 = req.path[1]
+                    t_cm = profile.beta[0] / float(topo.edge_rate[e1]) / req.prompt_len
+                    if stream is not None:
+                        stream.on_loopback(now, now + t_cm, node, node1, req.rid,
+                                           profile.beta[0] / req.prompt_len)
+                    heapq.heappush(heap, (now + t_cm, next(seq), 0, (req, node1)))
+                    continue
+                if b is not None:
+                    # confidence history feeds the threshold-aware packer
+                    req.last_conf[b] = float(conf[i])
+                    if float(conf[i]) >= self.thresholds[b]:
+                        # confident early exit: emit and retire
+                        req.generated.append(int(tok[i]))
+                        finish(req, now, float(conf[i]), h)
+                        continue
+                nh = h + 1
+                if nh in req.path:
+                    nxt, e = req.path[nh]
+                else:
+                    nxt, e = route.sample(self.rng, node)
+                    req.path[nh] = (nxt, int(e))
+                t_cm = profile.beta[h] / float(topo.edge_rate[e])
+                if is_decode_pass:
+                    t_cm /= req.prompt_len
+                if stream is not None:
+                    stream.on_transfer(now, now + t_cm, t_cm, node, nxt, req.rid,
+                                       profile.beta[h] / (req.prompt_len if is_decode_pass else 1))
+                heapq.heappush(heap, (now + t_cm, next(seq), 0, (req, nxt)))
+            dispatch(node, now)
+
+        stats.capacity_estimates = {int(v): float(self.straggler.mu_hat[v]) for v in es_nodes}
+        if len(stats.delays) != n:
+            raise RuntimeError(
+                f"serve stalled with {n - len(stats.delays)} of {n} requests unfinished; "
+                "requests were left queued with no runnable work"
+            )
+        return stats
+
+
+def _cat_hidden(reqs: list[Request], padded: int) -> torch.Tensor:
+    """The requests' [1, S, d] hidden rows stacked and zero-padded to ``padded`` rows."""
+    hs = [r.hidden for r in reqs]
+    if padded > len(reqs):
+        hs.append(hs[0].new_zeros((padded - len(reqs),) + tuple(hs[0].shape[1:])))
+    return torch.cat(hs, dim=0) if len(hs) > 1 else hs[0]

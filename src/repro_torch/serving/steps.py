@@ -1,0 +1,143 @@
+"""Serve steps: staged forwards, fused exit heads, cache-threaded decode.
+
+The counterpart of ``repro.serving.steps`` (dense and stateless halves).
+PyTorch runs eagerly, so the reference's ``make_*`` builders of jitted
+programs become plain functions, and the reference's donated slot stores
+become in-place updates of the store tensors:
+
+  * ``stage_prefill`` — stage forward that also builds the stage's caches
+    (one request row each);
+  * ``slot_write``    — scatter a prefill batch's cache rows into the
+    replica's slot store;
+  * ``stage_decode``  — one token per row against the slot store: gather
+    the batch's slots, run the ragged cached decode (per-row positions,
+    flash-decode kernel), scatter the rows back.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import model as model_lib
+
+
+def embed_step(params: Any, tokens: torch.Tensor) -> torch.Tensor:
+    """tokens [B, S] -> embedded residual stream [B, S, d]."""
+    return model_lib.embed_inputs(params, tokens)
+
+
+def stage_forward(params: Any, x: torch.Tensor, cfg: ArchConfig, stage_idx: int) -> torch.Tensor:
+    """Residual stream through stage ``stage_idx`` (1-indexed), any batch."""
+    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    out, _ = model_lib._run_stage(params["stages"][stage_idx - 1], x, cfg, positions, "train")
+    return out
+
+
+def exit_head_step(params: Any, x: torch.Tensor, cfg: ArchConfig, stage_idx: int):
+    """Fused (confidence, token) of exit branch b_h on the last position of x [B, S, d]."""
+    return model_lib.exit_confidence(params, x[:, -1:], stage_idx, cfg)
+
+
+def final_head_step(params: Any, x: torch.Tensor, cfg: ArchConfig):
+    """Fused (confidence, token) of the final head on the last position of x [B, S, d]."""
+    return model_lib.final_confidence(params, x[:, -1:], cfg)
+
+
+def stage_prefill(params: Any, x: torch.Tensor, cfg: ArchConfig, stage_idx: int, max_len: int):
+    """``(x_out [B, S, d], stage caches)`` with cache leaves
+    ``[n_periods, B, max_len, ...]`` — one row per request."""
+    return model_lib.prefill_stage(params, stage_idx, x, cfg, max_len)
+
+
+def slot_write(slot_caches, new_caches, slots: torch.Tensor) -> None:
+    """Scatter a prefill batch's cache rows into the slot store, in place.
+
+    ``slots`` is int64 [B]; padded rows point at the store's trash slot.
+    """
+    for buf_d, new_d in zip(slot_caches, new_caches):
+        for key, buf in buf_d.items():
+            new = new_d[key]
+            if new.ndim < buf.ndim:  # "pos" comes out of prefill as one scalar per period
+                new = new[:, None].expand(-1, slots.shape[0])
+            buf[:, slots] = new.to(buf.dtype)
+
+
+def stage_decode(params: Any, x: torch.Tensor, slot_caches, slots: torch.Tensor,
+                 cfg: ArchConfig, stage_idx: int) -> torch.Tensor:
+    """One cached decode token per row against the replica's slot store.
+
+    Gathers the batch's rows (a copy of each row's whole ``max_len`` arena),
+    runs the ragged decode on them, and scatters the updated rows back into
+    the store in place.  Returns the stage output.
+    """
+    gathered = tuple({k: a[:, slots] for k, a in d.items()} for d in slot_caches)
+    x_out, new_rows = model_lib.decode_stage_ragged(params, stage_idx, x, gathered, cfg)
+    slot_write(slot_caches, new_rows, slots)
+    return x_out
+
+
+def select_exit(
+    next_token: torch.Tensor,  # [B] final-head tokens
+    exit_conf: torch.Tensor,  # [B, n_exits]
+    exit_tok: torch.Tensor,  # [B, n_exits]
+    thresholds: torch.Tensor,  # [n_exits]
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Paper's exit rule: first branch with conf >= c_h wins, else final head.
+
+    Returns (token [B], exit_stage_index [B] — n_exits means the final head).
+    """
+    B, n_exits = exit_conf.shape
+    if n_exits == 0:
+        return next_token, torch.zeros((B,), dtype=torch.int32, device=next_token.device)
+    took = exit_conf >= thresholds[None, :]
+    any_took = took.any(dim=1)
+    first = took.int().argmax(dim=1)  # first True
+    chosen = torch.gather(exit_tok, 1, first[:, None])[:, 0]
+    token = torch.where(any_took, chosen, next_token)
+    stage_idx = torch.where(any_took, first, n_exits).to(torch.int32)
+    return token, stage_idx
+
+
+def monolithic_generate(
+    params: Any,
+    cfg: ArchConfig,
+    prompt: np.ndarray,  # [S] int32
+    thresholds: np.ndarray,  # [n_early_branches]
+    gen_len: int,
+    max_len: int | None = None,
+) -> tuple[list[int], int]:
+    """Single-host reference: ``model.prefill`` + ``model.decode_step`` on
+    the device the parameters live on.
+
+    Applies the paper's exit rule per token — the first early branch with
+    conf >= c_b emits the token AND terminates the generation; otherwise the
+    final head's token is appended and decoding continues up to ``gen_len``.
+    Returns ``(tokens, exit_stage_of_last)``.
+    """
+    device = params["lm_head"].device
+    S = int(prompt.shape[0])
+    if max_len is None:
+        max_len = S + gen_len
+    exit_stages = list(cfg.exit_stages)
+    H = cfg.num_stages
+
+    def pick(conf, tok, final_tok):
+        conf, tok, final_tok = conf.cpu().numpy(), tok.cpu().numpy(), final_tok.cpu().numpy()
+        for b, stage in enumerate(exit_stages):
+            if float(conf[0, b]) >= float(thresholds[b]):
+                return int(tok[0, b]), stage
+        return int(final_tok[0]), H
+
+    tokens_in = torch.as_tensor(np.asarray(prompt, np.int32)[None], device=device)
+    next_tok, conf, etok, caches = model_lib.prefill(params, tokens_in, cfg, max_len)
+    token, stage = pick(conf, etok, next_tok)
+    tokens = [token]
+    while stage == H and len(tokens) < gen_len:
+        step = torch.tensor([[tokens[-1]]], dtype=torch.int32, device=device)
+        next_tok, conf, etok, caches = model_lib.decode_step(params, step, caches, cfg)
+        token, stage = pick(conf, etok, next_tok)
+        tokens.append(token)
+    return tokens, stage

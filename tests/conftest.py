@@ -11,3 +11,7 @@ jax.config.update("jax_platform_name", "cpu")
 @pytest.fixture
 def rng():
     return np.random.default_rng(0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line("markers", "gpu: needs a CUDA card; skips without one")

@@ -1,0 +1,28 @@
+"""The port imports neither JAX nor the JAX package."""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+
+PROBE = """
+import importlib, pkgutil, sys
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib"))
+             or m == "repro" or m.startswith("repro."))
+print(len(names), bad)
+"""
+
+
+def test_port_imports_no_jax_and_no_reference():
+    out = subprocess.run(
+        [sys.executable, "-c", PROBE], capture_output=True, text=True, check=True,
+        env={**os.environ, "PYTHONPATH": str(SRC)}, timeout=120,
+    ).stdout.split(maxsplit=1)
+    n_modules, bad = int(out[0]), out[1].strip()
+    assert n_modules >= 25
+    assert bad == "[]"

@@ -1,0 +1,213 @@
+"""The port's kernel modules on the CPU vs the JAX package's kernels.
+
+On a CPU tensor each wrapper runs its plain version; the same numpy inputs
+go through ``repro.kernels`` (its ``xla`` oracle, and the Pallas bodies in
+interpret mode for a subset).  Tolerances follow ``tests/test_kernels.py``:
+decode attention f32 2e-5 and bf16 2e-2; exit confidence 1e-3 on conf with
+an exact argmax, on inputs built with a clear top-1 margin.
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from repro.kernels import ref as jref
+from repro.kernels.decode_attention import decode_attention as pallas_decode
+from repro.kernels.exit_confidence import exit_confidence as pallas_exit
+from repro_torch.kernels import decode_attention as tdec
+from repro_torch.kernels import exit_confidence as texit
+from repro_torch.kernels import ops, ref
+
+import torch_port_common  # noqa: F401  (one CPU thread for the port's ops)
+
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _pair(a: np.ndarray, dtype: str):
+    """The same values as a JAX array and a torch tensor of ``dtype``."""
+    return jnp.asarray(a, JDT[dtype]), torch.from_numpy(a).to(TDT[dtype])
+
+
+def _np(x) -> np.ndarray:
+    return np.asarray(jnp.asarray(x).astype(jnp.float32)) if not isinstance(x, torch.Tensor) else x.float().numpy()
+
+
+# ---------------------------------------------------------------------------
+# decode attention
+# ---------------------------------------------------------------------------
+
+DECODE_CASES = [
+    (2, 300, 8, 2, 64),
+    (1, 512, 4, 4, 128),
+    (3, 1000, 16, 4, 64),  # ragged lengths below
+    (2, 300, 4, 4, 32),
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,Hq,KVH,hd", DECODE_CASES)
+def test_decode_attention_matches_jax(dtype, B, S, Hq, KVH, hd):
+    rng = np.random.default_rng(0)
+    jq, tq = _pair(rng.standard_normal((B, Hq, hd)).astype(np.float32), dtype)
+    jk, tk = _pair(rng.standard_normal((B, S, KVH, hd)).astype(np.float32), dtype)
+    jv, tv = _pair(rng.standard_normal((B, S, KVH, hd)).astype(np.float32), dtype)
+    lengths = rng.integers(1, S + 1, size=B).astype(np.int32)
+    want = jref.decode_attention_ref(jq, jk, jv, jnp.asarray(lengths))
+    got = tdec.decode_attention(tq, tk, tv, torch.from_numpy(lengths))
+    assert got.dtype == TDT[dtype] and got.shape == (B, Hq, hd)
+    np.testing.assert_allclose(_np(got), _np(want), atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("B,S,Hq,KVH,hd,block", [(2, 300, 8, 2, 64, 64), (1, 256, 4, 4, 32, 128)])
+def test_decode_attention_matches_pallas_body(B, S, Hq, KVH, hd, block):
+    """The plain version against the Pallas kernel body (interpret mode)."""
+    rng = np.random.default_rng(1)
+    jq, tq = _pair(rng.standard_normal((B, Hq, hd)).astype(np.float32), "float32")
+    jk, tk = _pair(rng.standard_normal((B, S, KVH, hd)).astype(np.float32), "float32")
+    jv, tv = _pair(rng.standard_normal((B, S, KVH, hd)).astype(np.float32), "float32")
+    lengths = rng.integers(1, S + 1, size=B).astype(np.int32)
+    want = pallas_decode(jq, jk, jv, jnp.asarray(lengths), block_k=block, interpret=True)
+    got = tdec.decode_attention(tq, tk, tv, torch.from_numpy(lengths))
+    np.testing.assert_allclose(_np(got), _np(want), atol=TOL["float32"])
+
+
+@pytest.mark.parametrize("dtype,block", [("float32", 64), ("bfloat16", 512)])
+def test_decode_attention_f32_scores_ref_matches_pallas_body(dtype, block):
+    """The f32-score plain version against the Pallas body: f32 inputs over
+    several KV blocks at 2e-5; bf16 inputs over one block within two output
+    ulps (one for the output's rounding, one for the body's bf16 cast of the
+    probabilities), with a length-0 row."""
+    B, S, Hq, KVH, hd = 3, 300, 8, 2, 64
+    rng = np.random.default_rng(7)
+    jq, tq = _pair(rng.standard_normal((B, Hq, hd)).astype(np.float32), dtype)
+    jk, tk = _pair(rng.standard_normal((B, S, KVH, hd)).astype(np.float32), dtype)
+    jv, tv = _pair(rng.standard_normal((B, S, KVH, hd)).astype(np.float32), dtype)
+    lengths = np.array([S, 0, 117], dtype=np.int32)
+    want = pallas_decode(jq, jk, jv, jnp.asarray(lengths), block_k=block, interpret=True)
+    got = ref.decode_attention_f32_scores_ref(tq, tk, tv, torch.from_numpy(lengths))
+    assert got.dtype == TDT[dtype] and not bool(got[1].any())
+    if dtype == "float32":
+        np.testing.assert_allclose(_np(got), _np(want), atol=TOL["float32"])
+    else:
+        np.testing.assert_allclose(_np(got), _np(want), rtol=2**-7, atol=2**-9)
+
+
+def test_decode_attention_padded_rows_and_lengths_past_cache():
+    """Rows are independent; a length past S reads the whole cache (the
+    engine's trash slot can run past ``max_len``)."""
+    rng = np.random.default_rng(2)
+    q = torch.from_numpy(rng.standard_normal((3, 4, 32)).astype(np.float32))
+    k = torch.from_numpy(rng.standard_normal((3, 40, 2, 32)).astype(np.float32))
+    v = torch.from_numpy(rng.standard_normal((3, 40, 2, 32)).astype(np.float32))
+    out = tdec.decode_attention(q, k, v, torch.tensor([5, 40, 99], dtype=torch.int32))
+    one = tdec.decode_attention(q[:1], k[:1], v[:1], torch.tensor([5], dtype=torch.int32))
+    torch.testing.assert_close(out[:1], one, rtol=0, atol=0)
+    full = tdec.decode_attention(q[2:], k[2:], v[2:], torch.tensor([40], dtype=torch.int32))
+    torch.testing.assert_close(out[2:], full, rtol=0, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# exit confidence
+# ---------------------------------------------------------------------------
+
+EXIT_CASES = [(4, 64, 1000), (8, 128, 2048), (3, 32, 513), (1, 16, 257), (5, 16, 130),
+              (7, 32, 64), (6, 16, 127)]
+
+
+def _margin_inputs(rng, B, d, V):
+    """h, w whose exact top-1 logit beats the runner-up by a clear margin."""
+    h = rng.standard_normal((B, d)).astype(np.float32)
+    w = rng.standard_normal((d, V)).astype(np.float32)
+    targets = rng.choice(V, size=B, replace=False) if B <= V else rng.integers(0, V, B)
+    for b, t in enumerate(targets):
+        w[:, t] += 3.0 * h[b] / np.linalg.norm(h[b])
+    hb = jnp.asarray(h, jnp.bfloat16).astype(jnp.float32)
+    wb = jnp.asarray(w, jnp.bfloat16).astype(jnp.float32)
+    logits = np.asarray(hb, np.float64) @ np.asarray(wb, np.float64)
+    top2 = np.sort(logits, axis=1)[:, -2:]
+    assert np.all(top2[:, 1] - top2[:, 0] > 0.05), "inputs lack a clear top-1 margin"
+    return h, w
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,d,V", EXIT_CASES)
+def test_exit_confidence_matches_jax(dtype, B, d, V):
+    h, w = _margin_inputs(np.random.default_rng(3), B, d, V)
+    jh, th = _pair(h, dtype)
+    jw, tw = _pair(w, dtype)
+    cref, iref = jref.exit_confidence_ref(jh, jw)
+    conf, idx = texit.exit_confidence(th, tw)
+    assert conf.dtype == torch.float32 and idx.dtype == torch.int32
+    np.testing.assert_allclose(conf.numpy(), np.asarray(cref), atol=1e-3)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(iref))
+
+
+@pytest.mark.parametrize("B,d,V,bb,bv", [(4, 64, 1000, 4, 256), (5, 16, 130, 4, 64)])
+def test_exit_confidence_matches_pallas_body(B, d, V, bb, bv):
+    h, w = _margin_inputs(np.random.default_rng(4), B, d, V)
+    jh, th = _pair(h, "bfloat16")
+    jw, tw = _pair(w, "bfloat16")
+    cp, ip = pallas_exit(jh, jw, block_b=bb, block_v=bv, interpret=True)
+    conf, idx = texit.exit_confidence(th, tw)
+    np.testing.assert_allclose(conf.numpy(), np.asarray(cp), atol=1e-3)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(ip))
+
+
+def test_exit_confidence_tie_takes_first_index():
+    """Two equal top logits (identical columns): both packages pick the first."""
+    rng = np.random.default_rng(5)
+    h = rng.standard_normal((3, 32)).astype(np.float32)
+    w = rng.standard_normal((32, 300)).astype(np.float32) * 0.1
+    col = 4.0 * h.sum(axis=0) / np.linalg.norm(h.sum(axis=0))
+    w[:, 17] = col
+    w[:, 260] = col  # the same logits, in another vocab tile of the reference kernel
+    for dtype in ("float32", "bfloat16"):
+        jh, th = _pair(h, dtype)
+        jw, tw = _pair(w, dtype)
+        _, iref = jref.exit_confidence_ref(jh, jw)
+        _, ipal = pallas_exit(jh, jw, block_b=8, block_v=128, interpret=True)
+        _, idx = texit.exit_confidence(th, tw)
+        assert np.all(np.asarray(iref) == 17) and np.all(np.asarray(ipal) == 17)
+        np.testing.assert_array_equal(idx.numpy(), np.asarray(iref))
+
+
+# ---------------------------------------------------------------------------
+# dispatch
+# ---------------------------------------------------------------------------
+
+
+def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
+    rng = np.random.default_rng(6)
+    h = torch.from_numpy(rng.standard_normal((2, 16)).astype(np.float32)).bfloat16()
+    w = torch.from_numpy(rng.standard_normal((16, 50)).astype(np.float32)).bfloat16()
+    before = (texit.exit_confidence.launches, tdec.decode_attention.launches)
+    for backend in ("auto", "torch"):
+        ops.set_backend(backend)
+        try:
+            c, i = ops.exit_confidence(h, w)
+        finally:
+            ops.set_backend("auto")
+        cr, ir = ref.exit_confidence_ref(h, w)
+        torch.testing.assert_close(c, cr, rtol=0, atol=0)
+        torch.testing.assert_close(i, ir, rtol=0, atol=0)
+    assert (texit.exit_confidence.launches, tdec.decode_attention.launches) == before
+
+
+def test_cuda_backend_rejects_cpu_tensors():
+    h = torch.zeros((1, 8), dtype=torch.bfloat16)
+    w = torch.zeros((8, 16), dtype=torch.bfloat16)
+    q = torch.zeros((1, 2, 32), dtype=torch.bfloat16)
+    kv = torch.zeros((1, 4, 2, 32), dtype=torch.bfloat16)
+    ops.set_backend("cuda")
+    try:
+        with pytest.raises(ValueError, match="cuda"):
+            ops.exit_confidence(h, w)
+        with pytest.raises(ValueError, match="cuda"):
+            ops.decode_attention(q, kv, kv, torch.ones(1, dtype=torch.int32))
+    finally:
+        ops.set_backend("auto")
+    with pytest.raises(ValueError):
+        ops.set_backend("pallas")

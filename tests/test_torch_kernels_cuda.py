@@ -1,0 +1,197 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked ``gpu``; the ``cuda`` fixture skips them where no card is present.
+Run on a machine with one: ``PYTHONPATH=src python -m pytest -q -m gpu
+tests/test_torch_kernels_cuda.py``.  Tolerances as on the CPU: decode
+attention bf16 2e-2; exit confidence 1e-3 on conf with an exact argmax on
+inputs with a clear top-1 margin.  On the card two tighter gates come on
+top, each shown to reject a planted fault: decode attention element-wise at
+rtol 1.6e-2 / atol 1e-2 against the f32-score plain version (the kernel's
+own rounding), and conf at rtol 1e-4 as well (f32 summation order), since
+at V = 100352 the atol alone passes a head that drops vocab tiles.
+"""
+import math
+
+import pytest
+import torch
+
+from repro_torch.kernels import decode_attention as tdec
+from repro_torch.kernels import exit_confidence as texit
+from repro_torch.kernels import ref
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _randn(shape, gen, dev, dtype=torch.bfloat16):
+    return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# decode attention
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize(
+    "B,S,Hq,KVH,hd",
+    [
+        (8, 200, 32, 32, 64),  # stablelm-1.6b at the serve's shapes
+        (2, 300, 8, 2, 64),  # GQA 4:1
+        (1, 512, 4, 4, 128),
+        (3, 1000, 16, 4, 64),
+        (2, 300, 8, 1, 32),  # MQA, G = 8
+        (4, 130, 8, 4, 128),  # G = 2
+    ],
+)
+def test_decode_attention_matches_plain(cuda, B, S, Hq, KVH, hd):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q = _randn((B, Hq, hd), gen, cuda)
+    k = _randn((B, S, KVH, hd), gen, cuda)
+    v = _randn((B, S, KVH, hd), gen, cuda)
+    lengths = torch.randint(1, S + 1, (B,), generator=gen, device=cuda, dtype=torch.int32)
+    lengths[0] = S
+    n0 = tdec.decode_attention.launches
+    got = tdec.decode_attention(q, k, v, lengths)
+    torch.cuda.synchronize()
+    assert tdec.decode_attention.launches == n0 + 1
+    want = ref.decode_attention_ref(q, k, v, lengths)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=2e-2)
+    want32 = ref.decode_attention_f32_scores_ref(q, k, v, lengths)
+    torch.testing.assert_close(got.float(), want32.float(), rtol=1.6e-2, atol=1e-2)
+
+
+def test_decode_attention_gate_rejects_a_dropped_token(cuda):
+    """The current token dropped (lengths - 1) at the serve's shapes fails the
+    element-wise gate against the f32-score plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    B, S, Hq, hd = 8, 182, 32, 64
+    q, k, v = (_randn(shape, gen, cuda) for shape in ((B, Hq, hd), (B, S, Hq, hd), (B, S, Hq, hd)))
+    lengths = torch.randint(50, 120, (B,), generator=gen, device=cuda, dtype=torch.int32)
+    want32 = ref.decode_attention_f32_scores_ref(q, k, v, lengths)
+    torch.testing.assert_close(tdec.decode_attention(q, k, v, lengths).float(), want32.float(),
+                               rtol=1.6e-2, atol=1e-2)
+    with pytest.raises(AssertionError):
+        torch.testing.assert_close(tdec.decode_attention(q, k, v, lengths - 1).float(),
+                                   want32.float(), rtol=1.6e-2, atol=1e-2)
+
+
+def test_decode_attention_length_zero_and_past_cache(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    B, S, Hq, KVH, hd = 4, 96, 4, 4, 64
+    q = _randn((B, Hq, hd), gen, cuda)
+    k = _randn((B, S, KVH, hd), gen, cuda)
+    v = _randn((B, S, KVH, hd), gen, cuda)
+    lengths = torch.tensor([0, 50, S + 7, 1], dtype=torch.int32, device=cuda)
+    got = tdec.decode_attention(q, k, v, lengths)
+    assert torch.all(got[0] == 0)  # an empty cache row returns zeros
+    want = ref.decode_attention_ref(q, k, v, lengths)  # lengths past S read the whole row
+    torch.testing.assert_close(got[1:].float(), want[1:].float(), rtol=0, atol=2e-2)
+    # rows are independent: a row alone gives what it gave in the batch
+    one = tdec.decode_attention(q[1:2], k[1:2], v[1:2], lengths[1:2])
+    torch.testing.assert_close(one, got[1:2], rtol=0, atol=0)
+
+
+def test_decode_attention_rejects_what_it_cannot_take(cuda):
+    q = torch.zeros((1, 6, 64), dtype=torch.bfloat16, device=cuda)
+    k = torch.zeros((1, 8, 2, 64), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError):  # G = 3
+        tdec.decode_attention(q, k, k, torch.ones(1, dtype=torch.int32, device=cuda))
+    with pytest.raises(TypeError):
+        tdec.decode_attention(q.float(), k.float(), k.float(),
+                              torch.ones(1, dtype=torch.int32, device=cuda))
+
+
+# ---------------------------------------------------------------------------
+# exit confidence
+# ---------------------------------------------------------------------------
+
+
+def _margin_inputs(gen, dev, B, d, V):
+    """Logits ~ N(0, 1) with row b's target raised by 8: a clear top-1
+    margin, and a confidence that still depends on the whole vocab."""
+    h = torch.randn((B, d), generator=gen, device=dev)
+    w = torch.randn((d, V), generator=gen, device=dev) / math.sqrt(d)
+    targets = torch.randperm(V, generator=gen, device=dev)[:B]
+    w[:, targets] += 8.0 * (h / h.norm(dim=1, keepdim=True) ** 2).T
+    h, w = h.bfloat16(), w.bfloat16()
+    logits = h.double() @ w.double()
+    top2 = logits.topk(2, dim=1).values
+    assert bool(torch.all(top2[:, 0] - top2[:, 1] > 0.05)), "inputs lack a clear top-1 margin"
+    return h, w
+
+
+def _assert_conf_close(conf, cref):
+    """atol 1e-3 (the CPU tests' tolerance) and rtol 1e-4, both."""
+    torch.testing.assert_close(conf, cref, rtol=0, atol=1e-3)
+    torch.testing.assert_close(conf, cref, rtol=1e-4, atol=0)
+
+
+# vocabs are multiples of 8 (the kernel's 16-byte loads), most not of the
+# 256-column tile
+@pytest.mark.parametrize(
+    "B,d,V",
+    [(1, 2048, 100352), (8, 2048, 100352), (4, 64, 1000), (3, 32, 520), (5, 16, 136),
+     (13, 128, 2048), (6, 16, 120)],
+)
+def test_exit_confidence_matches_plain(cuda, B, d, V):
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    h, w = _margin_inputs(gen, cuda, B, d, V)
+    n0 = texit.exit_confidence.launches
+    conf, idx = texit.exit_confidence(h, w)
+    torch.cuda.synchronize()
+    assert texit.exit_confidence.launches == n0 + 1
+    cref, iref = ref.exit_confidence_ref(h, w)
+    _assert_conf_close(conf, cref)
+    assert torch.equal(idx, iref)
+
+
+def test_exit_confidence_gate_rejects_a_dropped_tile(cuda):
+    """The last 256-column vocab tile never read, at full width: within the
+    atol, outside the rtol."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    h, w = _margin_inputs(gen, cuda, 8, 2048, 100352)
+    cref, _ = ref.exit_confidence_ref(h, w)
+    conf, _ = texit.exit_confidence(h, w[:, :-256].contiguous())
+    with pytest.raises(AssertionError):
+        _assert_conf_close(conf, cref)
+
+
+def test_exit_confidence_rejects_what_it_cannot_take(cuda):
+    h = torch.zeros((2, 16), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="V % 8"):
+        texit.exit_confidence(h, torch.zeros((16, 100), dtype=torch.bfloat16, device=cuda))
+    flat = torch.zeros(16 * 128 + 1, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="aligned"):  # 2 bytes past a 16-byte boundary
+        texit.exit_confidence(h, flat[1:].view(16, 128))
+
+
+def test_exit_confidence_tie_takes_first_index(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    h = torch.randn((3, 64), generator=gen, device=cuda)
+    w = torch.randn((64, 3000), generator=gen, device=cuda) * 0.01
+    col = 4.0 * h.sum(0) / h.sum(0).norm()
+    w[:, 40] = col
+    w[:, 2900] = col  # the same logits in a later vocab tile
+    w[:, 41] = col  # and in the same tile
+    conf, idx = texit.exit_confidence(h.bfloat16(), w.bfloat16())
+    assert torch.all(idx == 40)
+    _, iref = ref.exit_confidence_ref(h.bfloat16(), w.bfloat16())
+    assert torch.equal(idx, iref)
+
+
+def test_exit_confidence_padded_rows_do_not_leak(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    h = _randn((3, 256), gen, cuda)
+    w = _randn((256, 5000), gen, cuda)
+    c3, i3 = texit.exit_confidence(h, w)
+    hp = torch.cat([h, torch.zeros((5, 256), dtype=h.dtype, device=cuda)])
+    c8, i8 = texit.exit_confidence(hp, w)
+    torch.testing.assert_close(c8[:3], c3, rtol=0, atol=0)
+    assert torch.equal(i8[:3], i3)

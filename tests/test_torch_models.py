@@ -1,0 +1,291 @@
+"""The port's config, layers, attention and staged model vs the JAX package.
+
+Weights come from ``repro.models.model.init_params`` through the bridge;
+inputs are numpy draws fed to both.  Tolerances: f32 math at 2e-5; bf16
+results at rtol 1.6e-2 / atol 1e-2 (the frameworks round bf16 at different
+places); tokens exact.
+
+The stage-level JAX functions run op by op here (``jax.disable_jit``; their
+``lax.scan`` over periods otherwise compiles): each op then rounds its bf16
+result, as the port's eager ops do.  Compiled, the CPU backend keeps some
+bf16 intermediates in f32 across a fusion (a residual sum feeding the next
+norm, a QKV product feeding its bias), which moves single bf16 ulps that
+cancellation can turn into more than the tolerance; the whole-slice test in
+``test_torch_serving.py`` runs the jitted JAX engine.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from repro.models import attention as jattn
+from repro.models import layers as jlayers
+from repro.models import model as jmodel
+from repro_torch import configs as tconfigs
+from repro_torch.models import attention as tattn
+from repro_torch.models import layers as tlayers
+from repro_torch.models import model as tmodel
+
+from torch_port_common import F32_ATOL, as_np, assert_bf16_close, bridged_params
+
+S, B, MAX_LEN = 10, 3, 16
+
+
+@pytest.fixture
+def op_by_op():
+    with jax.disable_jit():
+        yield
+
+
+@pytest.fixture(scope="module")
+def bridged():
+    return bridged_params(0)
+
+
+def _block(tree, i=0):
+    return jax.tree.map(lambda a: a[i], tree)
+
+
+def _x(rng, shape, dtype=jnp.bfloat16):
+    a = rng.standard_normal(shape).astype(np.float32)
+    tdt = torch.bfloat16 if dtype == jnp.bfloat16 else torch.float32
+    return jnp.asarray(a, dtype), torch.from_numpy(a).to(tdt)
+
+
+# ---------------------------------------------------------------------------
+# configs and parameters
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("reduced", [False, True])
+def test_config_matches_reference(reduced):
+    from repro.configs import get_config
+
+    jcfg = get_config("stablelm-1.6b")
+    tcfg = tconfigs.get_config("stablelm-1.6b")
+    if reduced:
+        jcfg, tcfg = jcfg.reduced(vocab_size=128), tcfg.reduced(vocab_size=128)
+    for f in dataclasses.fields(tcfg):
+        if f.name != "dtype":
+            assert getattr(tcfg, f.name) == getattr(jcfg, f.name), f.name
+    assert tcfg.dtype == torch.bfloat16
+    assert tcfg.stage_periods() == jcfg.stage_periods()
+    assert dataclasses.asdict(tcfg.attn_dims()) == dataclasses.asdict(jcfg.attn_dims())
+
+
+def test_unported_kinds_raise():
+    cfg = tconfigs.get_config("stablelm-1.6b")
+    with pytest.raises(NotImplementedError):
+        dataclasses.replace(cfg, period=("mamba",))
+    with pytest.raises(NotImplementedError):
+        dataclasses.replace(cfg, sliding_window=64)
+
+
+def test_init_params_tree_matches_reference(bridged):
+    jparams, _, jcfg, tcfg = bridged
+    tparams = tmodel.init_params(tcfg, torch.Generator().manual_seed(0), device="cpu")
+    jleaves = jax.tree_util.tree_leaves_with_path(jparams)
+    tleaves = jax.tree_util.tree_leaves_with_path(tparams)
+    assert [jax.tree_util.keystr(p) for p, _ in jleaves] == [
+        jax.tree_util.keystr(p) for p, _ in tleaves
+    ]
+    for (path, j), (_, t) in zip(jleaves, tleaves):
+        assert tuple(j.shape) == tuple(t.shape), jax.tree_util.keystr(path)
+        name = jax.tree_util.keystr(path).split("'")[-2]
+        want = torch.bfloat16 if name in tmodel.BF16_LEAVES else torch.float32
+        assert t.dtype == want, jax.tree_util.keystr(path)
+    # truncated normal at +-3 std with std 1/sqrt(fan_in)
+    w = tparams["lm_head"].float()
+    std = 1.0 / np.sqrt(tcfg.d_model)
+    assert float(w.abs().max()) <= 3 * std * 1.01
+    assert abs(float(w.std()) / std - 0.986) < 0.05
+
+
+def test_bridge_casts_weights_once(bridged):
+    jparams, tparams, _, _ = bridged
+    w = jparams["stages"][1]["blocks"][0]["attn"]["w_q"]
+    np.testing.assert_array_equal(
+        as_np(tparams["stages"][1]["blocks"][0]["attn"]["w_q"]), as_np(w.astype(jnp.bfloat16))
+    )
+    np.testing.assert_array_equal(
+        tparams["final_norm"]["scale"].numpy(), np.asarray(jparams["final_norm"]["scale"])
+    )
+
+
+# ---------------------------------------------------------------------------
+# layers
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+@pytest.mark.parametrize("norm", ["layernorm", "rmsnorm"])
+def test_norms_match(norm, dtype):
+    rng = np.random.default_rng(0)
+    jx, tx = _x(rng, (4, 7, 64), dtype)
+    scale = rng.standard_normal(64).astype(np.float32)
+    bias = rng.standard_normal(64).astype(np.float32)
+    jp = {"scale": jnp.asarray(scale), "bias": jnp.asarray(bias)}
+    tp = {"scale": torch.from_numpy(scale), "bias": torch.from_numpy(bias)}
+    want = jlayers.apply_norm(norm, jp, jx)
+    got = tlayers.apply_norm(norm, tp, tx)
+    if dtype == jnp.float32:
+        np.testing.assert_allclose(as_np(got), as_np(want), atol=F32_ATOL)
+    else:
+        assert_bf16_close(got, want)
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_rope_matches(dtype):
+    rng = np.random.default_rng(1)
+    jx, tx = _x(rng, (2, 9, 4, 32), dtype)
+    pos = rng.integers(0, 500, (2, 9)).astype(np.int32)
+    want = jlayers.apply_rope(jx, jnp.asarray(pos), 1e4)
+    got = tlayers.apply_rope(tx, torch.from_numpy(pos), 1e4)
+    if dtype == jnp.float32:
+        np.testing.assert_allclose(as_np(got), as_np(want), atol=F32_ATOL * 10)
+    else:
+        assert_bf16_close(got, want)
+
+
+def test_silu_glu_embed_matmul_match(bridged):
+    jparams, tparams, _, _ = bridged
+    rng = np.random.default_rng(2)
+    jx, tx = _x(rng, (3, 5, 128))
+    assert_bf16_close(tlayers.silu(tx), jax.nn.silu(jx))
+    jffn = _block(jparams["stages"][0]["blocks"][0])["ffn"]
+    tffn = tmodel._period(tparams["stages"][0]["blocks"][0], 0)["ffn"]
+    assert_bf16_close(tlayers.glu_ffn(tffn, tx), jlayers.glu_ffn(jffn, jx))
+    assert_bf16_close(tlayers.matmul(tx, tffn["w_up"]), jlayers.matmul(jx, jffn["w_up"]))
+    toks = rng.integers(0, 128, (2, 6)).astype(np.int32)
+    np.testing.assert_array_equal(
+        as_np(tlayers.embed(tparams["embed"], torch.from_numpy(toks).long())),
+        as_np(jlayers.embed(jparams["embed"], jnp.asarray(toks))),
+    )
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+
+def test_gqa_forward_matches(bridged):
+    jparams, tparams, jcfg, tcfg = bridged
+    rng = np.random.default_rng(3)
+    jx, tx = _x(rng, (B, S, jcfg.d_model))
+    jp = _block(jparams["stages"][0]["blocks"][0])["attn"]
+    tp = tmodel._period(tparams["stages"][0]["blocks"][0], 0)["attn"]
+    pos = np.arange(S, dtype=np.int32)
+    jout, (jk, jv) = jattn.gqa_forward(jp, jx, jcfg.attn_dims(), jnp.asarray(pos), 4, return_kv=True)
+    tout, (tk, tv) = tattn.gqa_forward(tp, tx, tcfg.attn_dims(), torch.from_numpy(pos), 4, return_kv=True)
+    assert_bf16_close(tout, jout)
+    assert_bf16_close(tk, jk)
+    assert_bf16_close(tv, jv)
+
+
+def test_gqa_decode_ragged_and_scalar_match(bridged):
+    jparams, tparams, jcfg, tcfg = bridged
+    rng = np.random.default_rng(4)
+    dims_j, dims_t = jcfg.attn_dims(), tcfg.attn_dims()
+    jp = _block(jparams["stages"][1]["blocks"][0])["attn"]
+    tp = tmodel._period(tparams["stages"][1]["blocks"][0], 0)["attn"]
+    jx, tx = _x(rng, (B, 1, jcfg.d_model))
+    kc = rng.standard_normal((B, MAX_LEN, dims_j.num_kv_heads, dims_j.head_dim)).astype(np.float32)
+    vc = rng.standard_normal(kc.shape).astype(np.float32)
+    pos = np.array([3, 9, 15], np.int32)
+    jc = {"k": jnp.asarray(kc, jnp.bfloat16), "v": jnp.asarray(vc, jnp.bfloat16), "pos": jnp.asarray(pos)}
+    tc = {"k": torch.from_numpy(kc).bfloat16(), "v": torch.from_numpy(vc).bfloat16(),
+          "pos": torch.from_numpy(pos)}
+    jout, jnew = jax.jit(jattn.gqa_decode_ragged, static_argnums=3)(jp, jx, jc, dims_j)
+    tout, tnew = tattn.gqa_decode_ragged(tp, tx, tc, dims_t)
+    assert_bf16_close(tout, jout)
+    assert_bf16_close(tnew["k"], jnew["k"])
+    np.testing.assert_array_equal(tnew["pos"].numpy(), np.asarray(jnew["pos"]))
+    # scalar position: the monolithic decode
+    jc1 = dict(jc, pos=jnp.asarray(7, jnp.int32))
+    tc1 = {"k": torch.from_numpy(kc).bfloat16(), "v": torch.from_numpy(vc).bfloat16(),
+           "pos": torch.tensor(7, dtype=torch.int32)}
+    jout1, jnew1 = jax.jit(jattn.gqa_decode, static_argnums=3)(jp, jx, jc1, dims_j)
+    tout1, tnew1 = tattn.gqa_decode(tp, tx, tc1, dims_t)
+    assert_bf16_close(tout1, jout1)
+    assert_bf16_close(tnew1["v"], jnew1["v"])
+    assert int(tnew1["pos"]) == int(jnew1["pos"]) == 8
+
+
+def test_cache_write_ragged_matches_masked_select():
+    """The in-place index_put_ writes what the reference's masked select
+    writes, including rows whose slot lies past the buffer (left unchanged)."""
+    rng = np.random.default_rng(5)
+    buf = rng.standard_normal((3, 6, 2, 4)).astype(np.float32)
+    new = rng.standard_normal((3, 1, 2, 4)).astype(np.float32)
+    slots = np.array([0, 5, 9], np.int32)
+    want = jattn._cache_write_ragged(jnp.asarray(buf), jnp.asarray(new), jnp.asarray(slots))
+    tbuf = torch.from_numpy(buf.copy())
+    tattn._cache_write_ragged(tbuf, torch.from_numpy(new), torch.from_numpy(slots))
+    np.testing.assert_array_equal(tbuf.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(tbuf[2].numpy(), buf[2])
+
+
+# ---------------------------------------------------------------------------
+# stages, heads, monolithic generation
+# ---------------------------------------------------------------------------
+
+
+def test_prefill_and_ragged_decode_stage_match(bridged, op_by_op):
+    jparams, tparams, jcfg, tcfg = bridged
+    rng = np.random.default_rng(6)
+    jx, tx = _x(rng, (B, S, jcfg.d_model))
+    for stage in (2,):
+        jout, jcaches = jmodel.prefill_stage(jparams, stage, jx, jcfg, MAX_LEN)
+        tout, tcaches = tmodel.prefill_stage(tparams, stage, tx, tcfg, MAX_LEN)
+        assert_bf16_close(tout, jout)
+        assert_bf16_close(tcaches[0]["k"], jcaches[0]["k"])
+        np.testing.assert_array_equal(tcaches[0]["pos"].numpy(), np.asarray(jcaches[0]["pos"]))
+        # one ragged token against the prefilled caches, per-row positions
+        jstep, tstep = _x(rng, (B, 1, jcfg.d_model))
+        P = jcaches[0]["pos"].shape[0]
+        pos = np.broadcast_to(np.array([S, S, S], np.int32), (P, B)).copy()
+        jc = (dict(jcaches[0], pos=jnp.asarray(pos)),)
+        tc = (dict(tcaches[0], pos=torch.from_numpy(pos)),)
+        jy, jnew = jmodel.decode_stage_ragged(jparams, stage, jstep, jc, jcfg)
+        ty, tnew = tmodel.decode_stage_ragged(tparams, stage, tstep, tc, tcfg)
+        assert_bf16_close(ty, jy)
+        assert_bf16_close(tnew[0]["k"], jnew[0]["k"])
+        np.testing.assert_array_equal(tnew[0]["pos"].numpy(), np.asarray(jnew[0]["pos"]))
+
+
+def test_heads_match(bridged):
+    jparams, tparams, jcfg, tcfg = bridged
+    rng = np.random.default_rng(7)
+    jx, tx = _x(rng, (4, 1, jcfg.d_model))
+    for stage in jcfg.exit_stages:
+        jc, jt = jmodel.exit_confidence(jparams, jx, stage, jcfg)
+        tc, tt = tmodel.exit_confidence(tparams, tx, stage, tcfg)
+        np.testing.assert_allclose(tc.numpy(), np.asarray(jc), atol=1e-3)
+        np.testing.assert_array_equal(tt.numpy(), np.asarray(jt))
+    jc, jt = jmodel.final_confidence(jparams, jx, jcfg)
+    tc, tt = tmodel.final_confidence(tparams, tx, tcfg)
+    np.testing.assert_allclose(tc.numpy(), np.asarray(jc), atol=1e-3)
+    np.testing.assert_array_equal(tt.numpy(), np.asarray(jt))
+
+
+def test_monolithic_prefill_and_decode_step_match(bridged, op_by_op):
+    jparams, tparams, jcfg, tcfg = bridged
+    rng = np.random.default_rng(8)
+    toks = rng.integers(0, 128, (B, S)).astype(np.int32)
+    jn, jconf, jtok, jcaches = jmodel.prefill(jparams, {"tokens": jnp.asarray(toks)}, jcfg, MAX_LEN)
+    tn, tconf, ttok, tcaches = tmodel.prefill(tparams, torch.from_numpy(toks).long(), tcfg, MAX_LEN)
+    np.testing.assert_array_equal(tn.numpy(), np.asarray(jn))
+    np.testing.assert_array_equal(ttok.numpy(), np.asarray(jtok))
+    assert_bf16_close(tconf, jconf)
+    for _ in range(2):
+        step = np.array(jn)[:, None]
+        jn, jconf, jtok, jcaches = jmodel.decode_step(jparams, {"tokens": jnp.asarray(step)}, jcaches, jcfg)
+        tn, tconf, ttok, tcaches = tmodel.decode_step(tparams, torch.from_numpy(step).long(), tcaches, tcfg)
+        np.testing.assert_array_equal(tn.numpy(), np.asarray(jn))
+        np.testing.assert_array_equal(ttok.numpy(), np.asarray(jtok))
+        assert_bf16_close(tconf, jconf)
+        assert_bf16_close(tcaches[3][0]["k"], jcaches[3][0]["k"])
