@@ -4,12 +4,14 @@ Phases, each printed on its own line(s); any failure raises and the script
 exits non-zero without the final result line:
 
   1. device — the card's name and power limit (nvidia-smi) and torch's name;
-  2. build  — compiles the port's CUDA kernels from ``src/repro_torch/kernels/
-     csrc`` (one nvcc per source, started together) and prints the build
-     seconds and ptxas' registers / shared memory / spills;
+  2. build  — compiles the port's three CUDA kernels from ``src/repro_torch/
+     kernels/csrc`` (one nvcc per source, started together) and prints the
+     build seconds and ptxas' registers / shared memory / spills;
   3. kernels vs their plain PyTorch versions at the serve's full-width shapes
      (stablelm-1.6b: d 2048, V 100352, 32 heads of 64) plus edge cases; each
-     gate must also reject a fault planted on the same inputs;
+     gate must also reject a fault planted on the same inputs; the paged
+     kernel is also held bit for bit to the dense kernel on the gathered
+     cache;
   4. serve  — ``CollaborativeEngine.serve`` of 32 Poisson requests through
      full-width stablelm-1.6b (24 layers, random weights from a seed),
      cached decode, 16 tokens each; the launch counts of both kernels over
@@ -18,9 +20,14 @@ exits non-zero without the final result line:
      attention and two planted faults; the same serve with full batches;
      and a short serve under ``torch.profiler`` (device busy share, device
      time by kernel);
-  5. times  — each kernel at the serve's shapes (device time from the
+  5. paged serve — the same serve with ``cache_layout="paged"`` (block 16,
+     no prefix sharing): launches the paged kernel and not the dense one and
+     must give the dense serve's tokens and exits; prefill row-invariance
+     measured; a shared-prefix serve with sharing on (prefix hits, every pool
+     drained) against its dense twin; ``block_copy`` on a full-width pool;
+  6. times  — each kernel at the serve's shapes (device time from the
      profiler, cold L2) beside its bound, its plain version and one library
-     yardstick.
+     yardstick (none computes the paged function in one call).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits 2.
@@ -29,6 +36,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -41,7 +49,9 @@ import torch.nn.functional as F
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 BF16_FLOP_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak, published
 N_REQUESTS, GEN_LEN, BATCH = 32, 16, 8
+BLOCK = 16  # the paged serve's block size
 SEED = 0
+KERNELS = ("exit_confidence", "decode_attention", "paged_decode_attention")
 
 
 def phase(name: str) -> None:
@@ -111,6 +121,38 @@ def conf_close(c: torch.Tensor, cr: torch.Tensor) -> tuple[bool, float, float]:
     return abs_err <= 1e-3 and rel_err <= 1e-4, abs_err, rel_err
 
 
+def ptxas_lines(log: str):
+    """(kernel<template args>, registers / smem / spills) per compiled entry."""
+    name, spill = "?", ""
+    for line in log.splitlines():
+        m = re.search(r"entry function '(\w+)'", line)
+        if m:
+            raw = m.group(1)
+            base = re.findall(r"\d+([a-z_]+_kernel)", raw)
+            args = ",".join(re.findall(r"Li(\d+)E", raw))
+            name, spill = f"{base[-1] if base else raw}<{args}>", ""
+        elif "spill" in line:
+            spill = line.strip()
+        elif "Used" in line:
+            used = line.split(":", 1)[1].strip()
+            yield name, f"{used}; {spill}"
+
+
+def paged_prefix_prompts(rng, vocab: int, n_groups: int, group: int, n_long: int):
+    """Groups of short requests sharing a 48-token prompt prefix (system-prompt
+    style) plus a few long-context requests: a copy of
+    ``benchmarks/decode_throughput.py``'s ``_paged_prompts``."""
+    prompts = []
+    for _ in range(n_groups):
+        common = rng.integers(0, vocab, size=48).astype(np.int32)
+        for _ in range(group):
+            own = rng.integers(0, vocab, size=int(rng.integers(8, 24)))
+            prompts.append(np.concatenate([common, own.astype(np.int32)]))
+    for _ in range(n_long):
+        prompts.append(rng.integers(0, vocab, size=384).astype(np.int32))
+    return prompts
+
+
 def check(name: str, ok: bool, detail: str) -> None:
     print(f"  {'ok  ' if ok else 'FAIL'} {name}: {detail}", flush=True)
     if not ok:
@@ -132,6 +174,7 @@ def main() -> None:
     from repro_torch.kernels import build, ops, ref
     from repro_torch.kernels import decode_attention as kdec
     from repro_torch.kernels import exit_confidence as kexit
+    from repro_torch.kernels import paged_decode_attention as kpaged
     from repro_torch.models import model as model_lib
     from repro_torch.serving import CollaborativeEngine
 
@@ -150,13 +193,12 @@ def main() -> None:
     # -- 2. build -----------------------------------------------------------
     phase("build")
     t0 = time.perf_counter()
-    build.build_all(["exit_confidence", "decode_attention"])
-    print(f"built in {time.perf_counter() - t0:.1f} s wall (both nvcc in parallel)")
+    build.build_all(KERNELS)
+    print(f"built in {time.perf_counter() - t0:.1f} s wall (one nvcc per source, in parallel)")
     for name, (secs, log) in build.build_reports.items():
         print(f"  {name}: nvcc {secs:.1f} s")
-        for line in log.splitlines():
-            if "Used" in line or "spill" in line:
-                print(f"    {line.strip()}")
+        for kernel, used in ptxas_lines(log):
+            print(f"    {kernel}: {used}")
     sys.stdout.flush()
 
     cfg = get_config("stablelm-1.6b")
@@ -270,6 +312,74 @@ def main() -> None:
           and float((o[1:].float() - orf[1:].float()).abs().max()) <= 2e-2,
           "row 0 is zeros, rows 1-2 within 2e-2")
 
+    # paged decode attention: physical blocks shuffled, the columns past each
+    # row's length at the trailing trash block
+    def paged_inputs(B, hq, kvh, hd_, bs, lengths, n_logical):
+        NB = B * n_logical + 1
+        perm = torch.randperm(NB - 1, generator=gen, device=dev).int()
+        table = torch.full((B, n_logical), NB - 1, dtype=torch.int32, device=dev)
+        for b, n in enumerate(lengths):
+            used = -(-n // bs)
+            table[b, :used] = perm[b * n_logical : b * n_logical + used]
+        q = torch.randn((B, hq, hd_), generator=gen, device=dev).bfloat16()
+        kp = torch.randn((NB, bs, kvh, hd_), generator=gen, device=dev).bfloat16()
+        vp = torch.randn((NB, bs, kvh, hd_), generator=gen, device=dev).bfloat16()
+        return q, kp, vp, table, torch.tensor(lengths, dtype=torch.int32, device=dev)
+
+    def gathered(pool, table, seq_len):
+        return pool[table.long()].reshape(table.shape[0], -1, *pool.shape[2:])[:, :seq_len].contiguous()
+
+    def paged_gate(out, q, kp, vp, table, ln, seq_len):
+        """Element-wise at the bf16 tolerance against the f32-score plain
+        version on the gathered cache, and bitwise against the dense kernel
+        on it: (both hold, max|diff| to the f32-score plain, bitwise)."""
+        kg, vg = gathered(kp, table, seq_len), gathered(vp, table, seq_len)
+        lnc = ln.clamp(max=seq_len)
+        ok32, err32, _ = bf16_close(out, ref.decode_attention_f32_scores_ref(q, kg, vg, lnc))
+        bitwise = torch.equal(out, kdec.decode_attention(q, kg, vg, lnc))
+        return ok32 and bitwise, err32, bitwise
+
+    n_log = {bs: -(-max_len // bs) for bs in (BLOCK, 3, 1)}
+    paged_main = None
+    for bs in (BLOCK, 3, 1):
+        args = paged_inputs(BATCH, Hq, KVH, hd, bs, dec_lengths, n_log[bs])
+        o = kpaged.paged_decode_attention(*args, seq_len=max_len)
+        ok, err32, bitwise = paged_gate(o, *args, max_len)
+        err = float((o.float() - ref.paged_decode_attention_ref(*args, seq_len=max_len).float()).abs().max())
+        check(f"paged_decode_attention serve shapes bs={bs} n_logical={n_log[bs]} B={BATCH} Hq={Hq} hd={hd}",
+              ok and err <= 2e-2, f"against the f32-score plain version on the gathered cache max|diff| "
+              f"{err32:.3g} (rtol 1.6e-2, atol 1e-2); bitwise equal to the dense kernel {bitwise}; "
+              f"against the plain version max|err| {err:.3g} (tol 2e-2)")
+        if bs == BLOCK:
+            max_err["paged_decode_attention"] = err
+            paged_main = args
+    # planted faults on the main case's inputs, each held to the true table's
+    # gathered cache: one table entry at the neighbouring block, and the last
+    # partial block of every row dropped
+    q, kp, vp, table, ln = paged_main
+    kg, vg = gathered(kp, table, max_len), gathered(vp, table, max_len)
+    want32 = ref.decode_attention_f32_scores_ref(q, kg, vg, ln)
+    neighbour = table.clone()
+    neighbour[0, 1] = (neighbour[0, 1] + 1) % (kp.shape[0] - 1)
+    for fault, out in (
+        ("row 0's second block read from its neighbour",
+         kpaged.paged_decode_attention(q, kp, vp, neighbour, ln, seq_len=max_len)),
+        ("the last partial block dropped (lengths cut to whole blocks)",
+         kpaged.paged_decode_attention(q, kp, vp, table, ln // BLOCK * BLOCK, seq_len=max_len)),
+    ):
+        ok_f, err_f, out_f = bf16_close(out, want32)
+        check(f"paged_decode_attention gate rejects a planted fault: {fault}", not ok_f,
+              f"max|diff| {err_f:.3g}, {out_f:.2%} of elements outside")
+    # a length-0 row, an all-trash padded row, and seq_len short of n_logical * bs
+    q, kp, vp, table, ln = paged_inputs(4, Hq, KVH, hd, BLOCK, [1, 37, 5, 150], 10)
+    ln[0] = 0
+    table[2] = kp.shape[0] - 1
+    o = kpaged.paged_decode_attention(q, kp, vp, table, ln, seq_len=140)
+    ok, err32, bitwise = paged_gate(o, q, kp, vp, table, ln, 140)
+    check("paged_decode_attention edge rows (length 0, all-trash padded row, seq_len 140 < 160)",
+          ok and bool(torch.all(o[0] == 0)), f"row 0 zeros {bool(torch.all(o[0] == 0))}; "
+          f"max|diff| {err32:.3g} to the f32-score plain; bitwise to dense {bitwise}")
+
     # -- 4. full-width serve -------------------------------------------------
     phase("full-width serve")
     t0 = time.perf_counter()
@@ -288,15 +398,24 @@ def main() -> None:
           f"{time.perf_counter() - t0:.1f} s; thresholds {engine.thresholds}")
     print(f"prompts: {N_REQUESTS}, lengths {min(map(len, prompts))}..{max(map(len, prompts))} "
           f"(mean {np.mean([len(p) for p in prompts]):.1f}), max_len {max_len}", flush=True)
+    def zero_counts():
+        kexit.exit_confidence.launches = 0
+        kdec.decode_attention.launches = 0
+        kpaged.paged_decode_attention.launches = 0
+
+    def read_counts():
+        return {"exit_confidence": kexit.exit_confidence.launches,
+                "decode_attention": kdec.decode_attention.launches,
+                "paged_decode_attention": kpaged.paged_decode_attention.launches}
+
     torch.cuda.reset_peak_memory_stats()
-    kexit.exit_confidence.launches = 0
-    kdec.decode_attention.launches = 0
+    engine.rng = np.random.default_rng(SEED)
+    zero_counts()
     t0 = time.perf_counter()
     stats = engine.serve(prompts, batch_size=BATCH, gen_len=GEN_LEN, decode_mode="cached")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"exit_confidence": kexit.exit_confidence.launches,
-                "decode_attention": kdec.decode_attention.launches}
+    launches = read_counts()
     s = stats.summary()
     print(f"serve wall {wall:.3f} s; generated tokens {s['generated_tokens']}; "
           f"{s['generated_tokens'] / wall:.1f} tokens/s (real wall); completed {s['num_completed']}; "
@@ -307,8 +426,9 @@ def main() -> None:
     seqs = stats.gen_tokens
     check("serve tokens in vocab", all(0 <= t < V for g in seqs for t in g)
           and all(1 <= len(g) <= GEN_LEN for g in seqs), f"{len(seqs)} sequences")
-    for name, n in launches.items():
-        check(f"{name} launched on the main path", n > 0, f"{n} launches")
+    for name in ("exit_confidence", "decode_attention"):
+        check(f"{name} launched on the main path", launches[name] > 0, f"{launches[name]} launches")
+    dense_seqs = stats.sequences_by_rid()
 
     # one stage_decode at full width, kernels forced off and on
     programs = engine.programs
@@ -401,6 +521,7 @@ def main() -> None:
     torch.cuda.synchronize()
     wall_full = time.perf_counter() - t0
     s_full = stats.summary()
+    full_seqs = stats.sequences_by_rid()
     print(f"serve at arrival_rate 1e4 (full batches): wall {wall_full:.3f} s; "
           f"{s_full['generated_tokens'] / wall_full:.1f} tokens/s; batches {s_full['num_batches']}; "
           f"padded rows {s_full['padded_row_frac']:.1%}", flush=True)
@@ -427,7 +548,169 @@ def main() -> None:
             print(f"  {t / busy_us:6.1%}  {t / 1e3:9.3f} ms  {key[:90]}")
     sys.stdout.flush()
 
-    # -- 5. times -------------------------------------------------------------
+    # -- 5. paged serve --------------------------------------------------------
+    phase("paged serve")
+    n_slots = max(2 * BATCH, 4)  # the engine's default ring
+    periods = cfg.stage_periods()[0]
+    kv_row = 2 * KVH * hd * 2  # K and V bytes of one cached position
+    pool_bytes = periods * (n_slots * n_log[BLOCK] + 1) * BLOCK * kv_row
+    dense_bytes = periods * (n_slots + 1) * max_len * kv_row
+    # the dense serve again right before the paged one: the host-bound wall
+    # time moves between runs, so the two are compared side by side
+    # (peak memory above what was allocated before each serve: the weights
+    # and what earlier phases hold)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    engine.rng = np.random.default_rng(SEED)
+    t0 = time.perf_counter()
+    engine.serve(prompts, batch_size=BATCH, gen_len=GEN_LEN, decode_mode="cached")
+    torch.cuda.synchronize()
+    dense_wall, dense_peak = time.perf_counter() - t0, torch.cuda.max_memory_allocated() - base
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    engine.rng = np.random.default_rng(SEED)
+    zero_counts()
+    t0 = time.perf_counter()
+    stats = engine.serve(prompts, batch_size=BATCH, gen_len=GEN_LEN, decode_mode="cached",
+                         cache_layout="paged", block_size=BLOCK, prefix_sharing=False)
+    torch.cuda.synchronize()
+    wall_paged = time.perf_counter() - t0
+    launches_paged = read_counts()
+    s_p = stats.summary()
+    print(f"paged serve (block {BLOCK}, no prefix sharing): wall {wall_paged:.3f} s "
+          f"(the dense serve just before it {dense_wall:.3f} s, {s['generated_tokens'] / dense_wall:.1f} "
+          f"tokens/s); {s_p['generated_tokens'] / wall_paged:.1f} tokens/s; "
+          f"batches {s_p['num_batches']} (dense {s['num_batches']}); peak device memory above the "
+          f"{base / 2**30:.2f} GiB held before the serve {(torch.cuda.max_memory_allocated() - base) / 2**30:.3f}"
+          f" GiB (dense {dense_peak / 2**30:.3f} GiB); "
+          f"K/V bytes per replica of a {periods}-layer stage: pool {pool_bytes / 2**20:.1f} MiB "
+          f"({n_slots * n_log[BLOCK]} blocks + trash), dense slots {dense_bytes / 2**20:.1f} MiB; "
+          f"block occupancy peak {s_p['block_occupancy_peak']:.3f}")
+    print(f"kernel launches in the paged serve: {launches_paged}", flush=True)
+    check("paged serve launched the paged kernel", launches_paged["paged_decode_attention"] > 0,
+          f"{launches_paged['paged_decode_attention']} launches")
+    check("paged serve launched no dense decode kernel", launches_paged["decode_attention"] == 0,
+          f"{launches_paged['decode_attention']} launches")
+    diverged = [r for r, v in stats.sequences_by_rid().items() if dense_seqs.get(r) != v]
+    check("paged serve tokens and exits equal the dense serve's", not diverged
+          and len(dense_seqs) == N_REQUESTS, f"{len(diverged)} of {N_REQUESTS} requests differ")
+
+    # prefill row-invariance: one prompt alone and as row 3 of a batch of 8;
+    # and a 48-token prefix's K/V inside two prompts of other lengths
+    def prefill_kv(tok_rows):
+        x = programs.embed(tok_rows)
+        kvs = []
+        for stage in range(1, cfg.num_stages + 1):
+            x, caches = programs.stage_prefill(stage, x, max_len)
+            kvs.append((caches[0]["k"], caches[0]["v"]))
+        return kvs
+
+    rng_p = np.random.default_rng(SEED + 1)
+    batch8 = rng_p.integers(0, V, (BATCH, 64)).astype(np.int32)
+    alone, inside = prefill_kv(batch8[3:4]), prefill_kv(batch8)
+    row_inv = all(torch.equal(a[:, 0], b[:, 3]) for (ka, va), (kb, vb) in zip(alone, inside)
+                  for a, b in ((ka, kb), (va, vb)))
+    prefix = rng_p.integers(0, V, 48)
+    long_a = np.concatenate([prefix, rng_p.integers(0, V, 20)]).astype(np.int32)[None]
+    long_b = np.concatenate([prefix, rng_p.integers(0, V, 9)]).astype(np.int32)[None]
+    kv_a, kv_b = prefill_kv(long_a), prefill_kv(long_b)
+    prefix_inv = all(torch.equal(a[:, :, :48], b[:, :, :48]) for (ka, va), (kb, vb) in zip(kv_a, kv_b)
+                     for a, b in ((ka, kb), (va, vb)))
+    print(f"prefill K/V of a 64-token prompt alone vs as row 3 of 8, all {cfg.num_stages} stages: "
+          f"{'bitwise equal' if row_inv else 'NOT bitwise equal'}; a 48-token prefix's K/V in a 68- "
+          f"vs a 57-token prompt: {'bitwise equal' if prefix_inv else 'NOT bitwise equal'}", flush=True)
+
+    # batching alone: the same prompts served dense at two arrival rates form
+    # other batches (prefill and decode GEMMs of other row counts)
+    moved = [r for r, v in full_seqs.items() if dense_seqs.get(r) != v]
+    print(f"dense serve at arrival_rate 1e4 against the default rate: {len(moved)} of {N_REQUESTS} "
+          f"requests differ (the batches differ, the cache layout does not)", flush=True)
+
+    # the shared-prefix serve: sharing on, against the same prompts served dense
+    shared = paged_prefix_prompts(np.random.default_rng(SEED + 2), V, n_groups=4, group=6, n_long=2)
+    engine.rng = np.random.default_rng(SEED)
+    t0 = time.perf_counter()
+    dense_sh = engine.serve(shared, arrival_rate=1e4, batch_size=BATCH, gen_len=GEN_LEN,
+                            decode_mode="cached")
+    torch.cuda.synchronize()
+    wall_dense_sh = time.perf_counter() - t0
+    # at every admission, each shared block the request reads is compared
+    # with what its own prefill computed for those positions
+    from repro_torch.serving import engine as engine_mod
+
+    admitted, shared_reads = [], [0, 0, 0.0]  # blocks compared, blocks differing, max|diff|
+    real_alloc, real_write = engine_mod.BlockAllocator.alloc, programs.paged_slot_write
+
+    def recording_alloc(self, tokens):
+        res = real_alloc(self, tokens)
+        admitted.append(res)
+        return res
+
+    def checking_write(pool, state, new_caches, wtab, slots):
+        # after the write: a block shared within this batch is written by it
+        real_write(pool, state, new_caches, wtab, slots)
+        rows, admitted[:] = list(admitted), []
+        for i, res in enumerate(rows):
+            for j, (blk, hit) in enumerate(zip(res.table, res.shared)):
+                if hit:
+                    diff = max(float((pool_d[key][:, blk].float()
+                                      - new_d[key][:, i, j * BLOCK:(j + 1) * BLOCK].float()).abs().max())
+                               for pool_d, new_d in zip(pool, new_caches) for key in pool_d)
+                    shared_reads[0] += 1
+                    shared_reads[1] += diff > 0
+                    shared_reads[2] = max(shared_reads[2], diff)
+
+    engine_mod.BlockAllocator.alloc, programs.paged_slot_write = recording_alloc, checking_write
+    engine.rng = np.random.default_rng(SEED)
+    t0 = time.perf_counter()
+    try:
+        paged_sh = engine.serve(shared, arrival_rate=1e4, batch_size=BATCH, gen_len=GEN_LEN,
+                                cache_layout="paged", block_size=BLOCK, prefix_sharing=True)
+    finally:
+        engine_mod.BlockAllocator.alloc = real_alloc
+        del programs.paged_slot_write
+    torch.cuda.synchronize()
+    wall_paged_sh = time.perf_counter() - t0
+    s_sh = paged_sh.summary()
+    print(f"shared-prefix serve ({len(shared)} prompts: 4 groups of 6 sharing 48 tokens, 2 of 384): "
+          f"dense wall {wall_dense_sh:.3f} s, paged wall {wall_paged_sh:.3f} s (with the shared-block "
+          f"comparison); prefix hits "
+          f"{s_sh['prefix_hit_blocks']} of {s_sh['prefix_total_blocks']} prompt blocks; block "
+          f"occupancy mean {s_sh['block_occupancy_mean']:.3f}, peak {s_sh['block_occupancy_peak']:.3f}; "
+          f"peak in flight {s_sh['peak_in_flight']} (dense {dense_sh.summary()['peak_in_flight']})")
+    check("shared-prefix serve hit the prefix map", s_sh["prefix_hit_blocks"] > 0,
+          f"{s_sh['prefix_hit_blocks']} hits")
+    drained = [v for v, a in paged_sh.allocators.items() if a.live_handles() or any(a.refcounts())]
+    check("shared-prefix serve drained every pool", paged_sh.allocators and not drained,
+          f"{len(paged_sh.allocators)} allocators, {len(drained)} with live handles or references")
+    dense_sh_seqs = dense_sh.sequences_by_rid()
+    diverged = [r for r, v in paged_sh.sequences_by_rid().items() if dense_sh_seqs.get(r) != v]
+    detail = (f"{len(diverged)} of {len(shared)} requests differ from the dense serve; "
+              f"{shared_reads[1]} of {shared_reads[0]} shared-block reads differ from the reading "
+              f"request's own prefill, by up to {shared_reads[2]:.3g}")
+    if shared_reads[1] == 0:
+        check("shared-prefix serve tokens and exits equal the dense serve's (every shared block "
+              "holds the reader's own prefill)", not diverged, detail)
+    else:
+        print(f"  info shared-prefix serve against the dense serve: {detail} (the prefill of "
+              f"another batch shape wrote those blocks, and it is not bitwise the same)", flush=True)
+
+    # block_copy on one full-width stage pool: the copy-on-write device half
+    pool, _ = programs.init_paged_slot_caches(2, n_slots + 1, n_slots * n_log[BLOCK] + 1, BLOCK, max_len)
+    for dct in pool:
+        for t in dct.values():
+            t.copy_(torch.randn(t.shape, generator=gen, device=dev))
+    before = [{k: t.clone() for k, t in dct.items()} for dct in pool]
+    src, dst = np.array([0, 5, 17, 100]), np.array([5, 40, 191, 3])  # block 5 read and written
+    programs.block_copy(pool, src, dst)
+    rest = np.setdiff1d(np.arange(pool[0]["k"].shape[1]), dst)
+    copied = all(torch.equal(t[:, dst], b[k][:, src]) for dct, b in zip(pool, before) for k, t in dct.items())
+    kept = all(torch.equal(t[:, rest], b[k][:, rest]) for dct, b in zip(pool, before) for k, t in dct.items())
+    check(f"block_copy on a full-width pool {tuple(pool[0]['k'].shape)}", copied and kept,
+          f"copied blocks equal their sources {copied}; the other blocks untouched {kept}")
+    del pool, before
+
+    # -- 6. times -------------------------------------------------------------
     phase("times (device time from the profiler, cold L2, mean over launches)")
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
     kernels_out = []
@@ -487,6 +770,47 @@ def main() -> None:
         "launches": launches["decode_attention"], "max_abs_err": max_err["decode_attention"],
         "ms": t_k, "plain_ms": t_p, "bound_ms": max(b_bytes, b_ops),
         "bound_by": "bytes" if b_bytes >= b_ops else "operations", "library_ms": t_l,
+    })
+
+    # paged: the kernel at bs 16 and 1 on shuffled blocks, the plain version,
+    # and for comparison the dense kernel and SDPA on the gathered cache
+    # (SDPA timed with the gather: no single PyTorch call reads a block table)
+    paged_ms = {}
+    for bs in (BLOCK, 1):
+        q, kp, vp, table, ln = paged_inputs(BATCH, Hq, KVH, hd, bs, dec_lengths, n_log[bs])
+        paged_ms[bs] = time_cold(lambda: kpaged.paged_decode_attention(q, kp, vp, table, ln,
+                                                                        seq_len=max_len), 200, flush)
+        if bs == BLOCK:
+            t_p = time_cold(lambda: ref.paged_decode_attention_ref(q, kp, vp, table, ln,
+                                                                  seq_len=max_len), 50, flush)
+            kg, vg = gathered(kp, table, max_len), gathered(vp, table, max_len)
+            t_dense = time_cold(lambda: kdec.decode_attention(q, kg, vg, ln), 200, flush)
+            mask = (torch.arange(max_len, device=dev)[None, :] < ln[:, None])[:, None, None, :]
+
+            def gather_sdpa():
+                kt = gathered(kp, table, max_len).transpose(1, 2)
+                vt = gathered(vp, table, max_len).transpose(1, 2)
+                return F.scaled_dot_product_attention(q[:, :, None, :], kt, vt, attn_mask=mask)
+
+            t_sdpa = time_cold(gather_sdpa, 200, flush)
+            blocks_read = sum(-(-n // bs) for n in dec_lengths)
+            bytes_ = 2 * tot * KVH * hd * 2 + blocks_read * 4 + 2 * BATCH * Hq * hd * 2 + BATCH * 4
+            flops = 4 * tot * Hq * hd
+            b_bytes, b_ops = bytes_ / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOP_PER_S * 1e3
+    print(f"paged_decode_attention B={BATCH} Hq={Hq} KVH={KVH} hd={hd} lengths {dec_lengths}, "
+          f"shuffled blocks: kernel {paged_ms[BLOCK]:.4f} ms at bs {BLOCK} (n_logical {n_log[BLOCK]}), "
+          f"{paged_ms[1]:.4f} ms at bs 1 (n_logical {n_log[1]}); plain {t_p:.4f} ms; dense kernel on "
+          f"the gathered cache {t_dense:.4f} ms; gather + SDPA {t_sdpa:.4f} ms; bound "
+          f"{max(b_bytes, b_ops):.5f} ms ({'bytes' if b_bytes >= b_ops else 'operations'}: "
+          f"{bytes_ / 1e6:.2f} MB with {blocks_read} table entries, {flops / 1e6:.1f} MFLOP)")
+    kernels_out.append({
+        "name": "paged_decode_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/paged_decode_attention.cu",
+        "replaces": "src/repro/kernels/paged_decode_attention.py:148",
+        "launches": launches_paged["paged_decode_attention"],
+        "max_abs_err": max_err["paged_decode_attention"],
+        "ms": paged_ms[BLOCK], "plain_ms": t_p, "bound_ms": max(b_bytes, b_ops),
+        "bound_by": "bytes" if b_bytes >= b_ops else "operations", "library_ms": None,
     })
 
     print(f"nvidia-smi: {nvidia_smi()}")

@@ -3,8 +3,9 @@
 Each source ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface and loaded with ``ctypes``.  Builds
 happen at first use, into ``kernels/_build/`` (listed in ``.gitignore``),
-under a file name that carries a hash of the source and flags, so an edited
-source is rebuilt and an unchanged one is loaded as it is.  A failed build
+under a file name that carries a hash of the flags, the source and the
+headers under ``csrc/`` it includes, so an edited source or header is
+rebuilt and an unchanged one is loaded as it is.  A failed build
 raises; there is no fallback.
 
 Nothing here runs at import: the CPU tests import every module of the port.
@@ -14,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -25,6 +27,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
 
 # name -> loaded library, and name -> (seconds, ptxas report) of the build
 _libs: dict[str, ctypes.CDLL] = {}
@@ -42,10 +46,28 @@ def _nvcc() -> str:
     return str(path)
 
 
+def _sources(name: str) -> list[Path]:
+    """``csrc/<name>.cu`` and every header under ``csrc/`` it includes,
+    directly or through another header (``#include "..."``)."""
+    todo, seen = [CSRC / f"{name}.cu"], []
+    while todo:
+        path = todo.pop()
+        if path in seen:
+            continue
+        seen.append(path)
+        for inc in _INCLUDE.findall(path.read_text()):
+            if (path.parent / inc).is_file():
+                todo.append(path.parent / inc)
+    return seen
+
+
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """The library's path, named by a hash of the flags and of every file the
+    source is built from, so an edited header rebuilds its kernels too."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _sources(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str) -> tuple[subprocess.Popen, Path, Path, float]:

@@ -16,6 +16,7 @@ import torch
 
 from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import exit_confidence as _exit
+from repro_torch.kernels import paged_decode_attention as _paged
 from repro_torch.kernels import ref
 
 Backend = Literal["auto", "cuda", "torch"]
@@ -49,6 +50,27 @@ def decode_attention(
     if _plain(q):
         return ref.decode_attention_ref(q, k, v, lengths)
     return _dec.decode_attention(q, k, v, lengths)
+
+
+def paged_decode_attention(
+    q: torch.Tensor,
+    k_pool: torch.Tensor,
+    v_pool: torch.Tensor,
+    table: torch.Tensor,
+    lengths: torch.Tensor,
+    *,
+    seq_len: int | None = None,
+) -> torch.Tensor:
+    """Flash decode through a block table over a paged KV pool.
+
+    The plain path gathers the rows' blocks into a contiguous cache sliced
+    to ``seq_len``, the exact shape of the dense slot path, so paged and
+    dense decode stay bitwise identical there.  The kernel walks the pool
+    through the table and never gathers.
+    """
+    if _plain(q):
+        return ref.paged_decode_attention_ref(q, k_pool, v_pool, table, lengths, seq_len=seq_len)
+    return _paged.paged_decode_attention(q, k_pool, v_pool, table, lengths, seq_len=seq_len)
 
 
 def exit_confidence(h: torch.Tensor, w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -33,6 +33,33 @@ def decode_attention_ref(
     return out.reshape(B, Hq, hd)
 
 
+def paged_decode_attention_ref(
+    q: torch.Tensor,  # [B, Hq, hd]
+    k_pool: torch.Tensor,  # [NB, bs, kv, hd] physical block pool
+    v_pool: torch.Tensor,  # [NB, bs, kv, hd]
+    table: torch.Tensor,  # [B, n_logical] physical block per logical block
+    lengths: torch.Tensor,  # [B] valid prefix length of each row
+    seq_len: int | None = None,
+) -> torch.Tensor:
+    """Gather each row's blocks into a contiguous virtual cache and run
+    ``decode_attention_ref`` on it.
+
+    ``seq_len`` truncates the virtual view (``n_logical * bs`` may overhang
+    the real max length); slicing there keeps the softmax reductions the
+    exact shape of the dense slot path, so paged decode is bitwise identical
+    to it.  Table entries past a row's length may point at any pool row (the
+    trash block): those positions are masked.
+    """
+    B = q.shape[0]
+    idx = table.long()
+    k = k_pool[idx].reshape(B, -1, *k_pool.shape[2:])
+    v = v_pool[idx].reshape(B, -1, *v_pool.shape[2:])
+    if seq_len is not None:
+        k = k[:, :seq_len]
+        v = v[:, :seq_len]
+    return decode_attention_ref(q, k, v, lengths)
+
+
 def decode_attention_f32_scores_ref(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lengths: torch.Tensor
 ) -> torch.Tensor:

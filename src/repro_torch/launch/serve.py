@@ -7,10 +7,13 @@ DTO-EE configuration phase before each time slot, and serves Poisson
 request streams through the model with live early-exit confidences.
 Capacities are re-drawn between slots (the paper's dynamic environment).
 
-The flags are those of ``repro.launch.serve`` plus ``--device``.  The
-online control plane (``--reconfig-interval``, ``--scenario``), the paged
-layout and the observability outputs (``--trace-out``, ``--stats-report``)
-are not ported yet and raise ``NotImplementedError``.
+The flags are those of ``repro.launch.serve`` plus ``--device``; e.g. the
+paged layout on the CPU:
+``python -m repro_torch.launch.serve --device cpu --cache-layout paged
+--block-size 3 --gen-len 4``.  The online control plane
+(``--reconfig-interval``, ``--scenario``) and the observability outputs
+(``--trace-out``, ``--stats-report``) are not ported yet and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -48,7 +51,7 @@ def main(argv=None) -> None:
     ap.add_argument("--num-slots", type=int, default=None,
                     help="cache slots per replica ring (default: 2 * batch size)")
     ap.add_argument("--cache-layout", choices=("dense", "paged"), default="dense",
-                    help="slot-store memory layout (paged is not ported yet)")
+                    help="slot-store memory layout: dense max_len arenas or a paged block pool")
     ap.add_argument("--block-size", type=int, default=16,
                     help="tokens per KV block under --cache-layout paged")
     ap.add_argument("--num-blocks", type=int, default=None,
@@ -72,9 +75,11 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
 
     if args.reconfig_interval is not None or args.scenario is not None:
-        raise NotImplementedError("the online control plane is not ported yet (ROADMAP slice 2)")
+        raise NotImplementedError(
+            "the online control plane is not ported yet (ROADMAP: next slices, obs/ and control/)")
     if args.trace_out is not None or args.stats_report is not None:
-        raise NotImplementedError("tracing and serve reports are not ported yet (ROADMAP slice 2)")
+        raise NotImplementedError(
+            "tracing and serve reports are not ported yet (ROADMAP: next slices, obs/ and control/)")
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch).reduced()
@@ -104,16 +109,26 @@ def main(argv=None) -> None:
             decode_mode=args.decode_mode,
             num_slots=args.num_slots,
             cache_layout=args.cache_layout,
+            block_size=args.block_size,
+            num_blocks=args.num_blocks,
+            prefix_sharing=not args.no_prefix_sharing,
             batch_policy=args.batch_policy,
         )
         s = stats.summary()
+        paged_info = (
+            f"  blocks {s['block_occupancy_peak']*100:.0f}% peak  "
+            f"prefix hits {s['prefix_hit_rate']*100:.0f}%"
+            if args.cache_layout == "paged"
+            else ""
+        )
         print(
             f"slot {slot}: {s['num_completed']} done  "
             f"{s['generated_tokens']} tokens  "
             f"mean_delay {s['mean_delay']*1e3:.1f}ms  "
             f"p95 {s['p95_delay']*1e3:.1f}ms  "
             f"padded waste {s['padded_row_frac']*100:.1f}%  "
-            f"exits {s['exit_histogram']}  thresholds {engine.thresholds}",
+            f"exits {s['exit_histogram']}  thresholds {engine.thresholds}"
+            f"{paged_info}",
             flush=True,
         )
         # dynamic environment: replicas throttle between slots (paper §4.3)

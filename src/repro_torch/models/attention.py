@@ -3,12 +3,14 @@
 
 Prefill attention is q-chunked plain PyTorch (the reference's XLA
 ``chunked_attention``; the Pallas ``flash_attention`` is not on its path).
-Cached one-token decode goes through ``kernels.ops.decode_attention``: the
-hand-written CUDA flash-decode kernel on the card, its plain version on
-the CPU.
+Cached one-token decode goes through ``kernels.ops.decode_attention``
+(dense slots) or ``kernels.ops.paged_decode_attention`` (paged blocks): the
+hand-written CUDA kernels on the card, their plain versions on the CPU.
 
 Caches are plain dicts of tensors:
-  full : {"k": [B,S,kv,hd], "v": [B,S,kv,hd], "pos": int32 [] or [B]}
+  full  : {"k": [B,S,kv,hd], "v": [B,S,kv,hd], "pos": int32 [] or [B]}
+  paged : {"k": [NB,bs,kv,hd], "v": [NB,bs,kv,hd], "pos": int32 [B],
+           "table": int32 [B, n_logical]}
 
 Unlike the JAX package, cache writes here are in place (``index_put_``):
 a decode step updates the cache tensors it is given and returns a dict
@@ -199,6 +201,68 @@ def gqa_decode_ragged(
     _cache_write_ragged(cache["v"], v_new, pos)
     new_cache = dict(cache, pos=pos + 1)
     out = kernel_ops.decode_attention(q[:, 0], cache["k"], cache["v"], pos + 1)
+    out = matmul(out.reshape(B, 1, dims.q_dim), params["w_o"])
+    return out, new_cache
+
+
+def _paged_token_write(
+    pools: tuple[torch.Tensor, ...],  # each [NB, bs, ...], last row = trash block
+    news: tuple[torch.Tensor, ...],  # each [B, 1, ...], one token per row
+    table: torch.Tensor,  # [B, n_logical] int32
+    pos: torch.Tensor,  # [B] int32, position the token lands at
+) -> None:
+    """Scatter one token per row into each pool (K and V) through the block
+    table, in place; the block and offset are found once for all pools.
+
+    A padded batch row's position keeps advancing and can pass the table
+    (``pos >= n_logical * bs``).  The reference's gather then yields an
+    out-of-range block and its scatter drops the write; here the write goes
+    to the pool's trash block, the last pool row, which no real row reads.
+    Several padded rows may hit the same trash cell in one call; real rows
+    own their target blocks, so their cells are distinct.
+    """
+    NB, bs = pools[0].shape[:2]
+    n_logical = table.shape[1]
+    logical = (pos // bs).long()
+    phys = torch.gather(table, 1, logical.clamp(max=n_logical - 1)[:, None])[:, 0].long()
+    phys = torch.where(logical < n_logical, phys, NB - 1)
+    offset = (pos % bs).long()
+    for pool, new in zip(pools, news):
+        pool[phys, offset] = new[:, 0].to(pool.dtype)
+
+
+def gqa_decode_paged(
+    params: Params,
+    x: torch.Tensor,  # [B, 1, d]
+    cache: Params,
+    dims: AttnDims,
+    seq_len: int,
+):
+    """One decode step against a PAGED slot store.
+
+    ``cache`` holds the physical block pool plus per-row indirection:
+    ``{"k"/"v": [NB, bs, kv, hd], "pos": int32 [B], "table": int32 [B, nlog]}``.
+    The per-row ragged math of ``gqa_decode_ragged`` (rope positions, the
+    token write and validity keyed by ``pos``), with reads and writes through
+    the block table.  Attention runs through
+    ``kernels.ops.paged_decode_attention``: the CUDA kernel on the card,
+    gather-to-``seq_len`` plus the dense plain version on the CPU, which keeps
+    paged decode bitwise identical to the dense slot path there.  The engine
+    guarantees the block holding ``pos`` is owned by the row alone, so the
+    write never touches a shared block.  The pool is updated in place.
+    """
+    B = x.shape[0]
+    pos = cache["pos"]  # int32 [B]
+    table = cache["table"]  # int32 [B, n_logical]
+    q, k_new, v_new = _project_qkv(params, x, dims)
+    pos_b = pos[:, None]
+    q = apply_rope(q, pos_b, dims.rope_theta)
+    k_new = apply_rope(k_new, pos_b, dims.rope_theta)
+    _paged_token_write((cache["k"], cache["v"]), (k_new, v_new), table, pos)
+    new_cache = dict(cache, pos=pos + 1)
+    out = kernel_ops.paged_decode_attention(
+        q[:, 0], cache["k"], cache["v"], table, pos + 1, seq_len=seq_len
+    )
     out = matmul(out.reshape(B, 1, dims.q_dim), params["w_o"])
     return out, new_cache
 

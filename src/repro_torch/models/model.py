@@ -132,12 +132,18 @@ def _block_apply(
     return x + layers.glu_ffn(p["ffn"], h2, cfg.act), cache
 
 
-def _block_decode(p: Params, x: torch.Tensor, cache: Params, cfg: ArchConfig, ragged: bool = False):
+def _block_decode(p: Params, x: torch.Tensor, cache: Params, cfg: ArchConfig, ragged: bool = False,
+                  paged_seq_len: int | None = None):
     """One-token block step.  ``ragged=True`` treats ``cache["pos"]`` as a
-    per-row int32 [B] vector (the serving engine's slot-cache batches)."""
+    per-row int32 [B] vector (the serving engine's slot-cache batches);
+    ``paged_seq_len`` selects the paged path, where the cache holds a block
+    pool plus a per-row block ``table`` instead of contiguous rows."""
     h = layers.apply_norm(cfg.norm, p["norm1"], x)
-    decode = attention.gqa_decode_ragged if ragged else attention.gqa_decode
-    out, cache = decode(p["attn"], h, cache, cfg.attn_dims())
+    if paged_seq_len is not None:
+        out, cache = attention.gqa_decode_paged(p["attn"], h, cache, cfg.attn_dims(), paged_seq_len)
+    else:
+        decode = attention.gqa_decode_ragged if ragged else attention.gqa_decode
+        out, cache = decode(p["attn"], h, cache, cfg.attn_dims())
     x = x + out
     h2 = layers.apply_norm(cfg.norm, p["norm2"], x)
     return x + layers.glu_ffn(p["ffn"], h2, cfg.act), cache
@@ -163,7 +169,8 @@ def _run_stage(
     return x, tuple(_stack_caches(c) for c in caches)
 
 
-def _decode_stage(stage: Params, x: torch.Tensor, caches, cfg: ArchConfig, ragged: bool = False):
+def _decode_stage(stage: Params, x: torch.Tensor, caches, cfg: ArchConfig, ragged: bool = False,
+                  paged_seq_len: int | None = None):
     """One token through a stage.  The stacked caches are updated in place;
     the returned tuple holds them with their advanced ``pos``."""
     n_periods = caches[0]["k"].shape[0]
@@ -172,7 +179,8 @@ def _decode_stage(stage: Params, x: torch.Tensor, caches, cfg: ArchConfig, ragge
         pos_out = []
         for i in range(n_periods):
             x, nc = _block_decode(
-                _period(stage["blocks"][j], i), x, _period(caches[j], i), cfg, ragged
+                _period(stage["blocks"][j], i), x, _period(caches[j], i), cfg, ragged,
+                paged_seq_len,
             )
             pos_out.append(nc["pos"])
         new_caches.append(dict(caches[j], pos=torch.stack(pos_out)))
@@ -224,6 +232,71 @@ def init_stage_slot_caches(
             "pos": torch.zeros((n, num_slots), dtype=torch.int32, device=device),
         }
         for _ in cfg.period
+    )
+
+
+# cache leaves with a ``max_len`` sequence dimension: the only ones the paged
+# layout moves into the block pool (``pos`` stays slot-indexed).  The
+# reference adds MLA's ``c_kv``/``k_pe``, which are not ported yet.
+PAGED_CACHE_LEAVES = ("k", "v")
+
+
+def init_stage_paged_caches(
+    cfg: ArchConfig,
+    stage_idx: int,
+    num_slots: int,
+    num_blocks: int,
+    block_size: int,
+    max_len: int,
+    device="cuda",
+):
+    """Zeroed PAGED caches for one stage's replica: ``(pool, state)``.
+
+    ``pool`` holds ``k``/``v`` as physical block pools ``[n_periods,
+    num_blocks, block_size, kv, hd]`` addressed through per-request block
+    tables; ``state`` keeps ``pos`` per slot, ``[n_periods, num_slots]``, as
+    the dense layout does.  Both counts INCLUDE their trailing trash row
+    (padded batch rows write there).
+    """
+    validate_slot_layout(cfg, stage_idx, max_len)
+    n = cfg.stage_periods()[stage_idx - 1]
+    dims = cfg.attn_dims()
+    shape = (n, num_blocks, block_size, dims.num_kv_heads, dims.head_dim)
+    pool = tuple(
+        {key: torch.zeros(shape, dtype=torch.bfloat16, device=device) for key in PAGED_CACHE_LEAVES}
+        for _ in cfg.period
+    )
+    state = tuple(
+        {"pos": torch.zeros((n, num_slots), dtype=torch.int32, device=device)} for _ in cfg.period
+    )
+    return pool, state
+
+
+def decode_stage_paged(
+    params: Params,
+    stage_idx: int,
+    x: torch.Tensor,
+    pool_caches,
+    state_rows,
+    tables: torch.Tensor,  # int32 [B, n_logical]
+    cfg: ArchConfig,
+    seq_len: int,
+):
+    """One token through stage ``stage_idx`` reading and writing the block
+    pool through per-row block tables.
+
+    ``pool_caches``: per-period pool dicts ``[n_periods, num_blocks, bs,
+    ...]``, updated in place; ``state_rows``: the batch's gathered per-slot
+    rows ``[n_periods, B]`` (``pos``).  Returns ``(x_out, new_caches)`` with
+    each period's dict holding the pools, the table and the advanced ``pos``.
+    """
+    n_periods = cfg.stage_periods()[stage_idx - 1]
+    caches = tuple(
+        dict(state_d, **pool_d, table=tables[None].expand(n_periods, *tables.shape))
+        for pool_d, state_d in zip(pool_caches, state_rows)
+    )
+    return _decode_stage(
+        params["stages"][stage_idx - 1], x, caches, cfg, ragged=True, paged_seq_len=seq_len
     )
 
 

@@ -1,20 +1,23 @@
 """Collaborative serving engine: the paper's system with a real model inside.
 
-The counterpart of ``repro.serving.engine`` for the dense slot layout, in
-both decode modes.  A model is partitioned into ``cfg.num_stages`` stages;
-each stage ``h`` is served by ``n_h`` logical replicas.  The engine routes
-each request hop by hop by sampling the DTO-EE offloading strategy ``p``,
-runs the REAL stage forwards on the device (exit decisions use the model's
-branch confidences against the thresholds C), and advances a simulated
-clock with M/D/1 service at each replica, so the reported ``delays`` follow
-the queueing model the optimizer uses.  The delays are simulated; the
+The counterpart of ``repro.serving.engine`` for the dense and paged slot
+layouts, in both decode modes.  A model is partitioned into
+``cfg.num_stages`` stages; each stage ``h`` is served by ``n_h`` logical
+replicas.  The engine routes each request hop by hop by sampling the DTO-EE
+offloading strategy ``p``, runs the REAL stage forwards on the device (exit
+decisions use the model's branch confidences against the thresholds C), and
+advances a simulated clock with M/D/1 service at each replica, so the
+reported ``delays`` follow the queueing model the optimizer uses.  The delays are simulated; the
 device work is real.
 
 Data plane: ``serve(..., gen_len=N)`` decodes up to N tokens per request.
 The first pass is a prefill hop chain; in cached mode each stage writes its
 KV caches into a slot of the replica's resident store, the route is pinned
 per stage (``Request.path``), and every later token is a one-token cached
-step through the flash-decode kernel.  ``decode_mode="stateless"`` re-runs
+step through the flash-decode kernel.  ``cache_layout="paged"`` keeps the
+K/V in a per-replica pool of blocks instead, reached through per-request
+block tables (``serving.paging``), with prompt-prefix sharing; its decode
+runs the paged flash-decode kernel.  ``decode_mode="stateless"`` re-runs
 the padded prefix instead.  Replicas own rings of cache slots; new prompts
 are admitted into running batches at stage boundaries, and early-exited
 rows retire without stalling the batch (continuous batching).  Exit and
@@ -24,8 +27,8 @@ Hidden states travel between replicas as device tensors (each request
 keeps its row of the stage output; a batch is assembled with ``torch.cat``);
 the confidences and tokens of a batch come to the host once.
 
-Not ported yet (each raises ``NotImplementedError``): the paged layout,
-scenarios, the online controller, telemetry, tracing and metrics.
+Not ported yet (each raises ``NotImplementedError``): scenarios, the online
+controller, telemetry, tracing and metrics.
 """
 from __future__ import annotations
 
@@ -58,6 +61,7 @@ from repro_torch.serving.batching import (
     padded_batch_size,
     pow2_floor,
 )
+from repro_torch.serving.paging import BlockAllocator
 
 
 def resolve_device(device) -> torch.device:
@@ -101,19 +105,44 @@ class StagePrograms:
         """(x_out, stage caches [n_periods, B, max_len, ...]) for one stage."""
         return steps.stage_prefill(self.params, x, self.cfg, stage_idx, max_len)
 
+    def _index(self, idx: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(idx, dtype=torch.int64, device=self.device)
+
     def stage_decode(self, stage_idx: int, x, slot_caches, slots: np.ndarray) -> torch.Tensor:
         """One cached token per row against the replica's store (in place)."""
-        idx = torch.as_tensor(slots, dtype=torch.int64, device=self.device)
-        return steps.stage_decode(self.params, x, slot_caches, idx, self.cfg, stage_idx)
+        return steps.stage_decode(self.params, x, slot_caches, self._index(slots), self.cfg,
+                                  stage_idx)
 
     def slot_write(self, slot_caches, new_caches, slots: np.ndarray) -> None:
-        idx = torch.as_tensor(slots, dtype=torch.int64, device=self.device)
-        steps.slot_write(slot_caches, new_caches, idx)
+        steps.slot_write(slot_caches, new_caches, self._index(slots))
 
     def init_slot_caches(self, stage_idx: int, num_slots: int, max_len: int):
         return model_lib.init_stage_slot_caches(
             self.cfg, stage_idx, num_slots, max_len, device=self.device
         )
+
+    # -- paged layout -------------------------------------------------------
+    def init_paged_slot_caches(self, stage_idx: int, num_slots: int, num_blocks: int,
+                               block_size: int, max_len: int):
+        """``(pool, state)`` of one replica; both counts include the trash row."""
+        return model_lib.init_stage_paged_caches(
+            self.cfg, stage_idx, num_slots, num_blocks, block_size, max_len, device=self.device
+        )
+
+    def paged_slot_write(self, pool, state, new_caches, wtab: np.ndarray,
+                         slots: np.ndarray) -> None:
+        steps.paged_slot_write(pool, state, new_caches, self._index(wtab), self._index(slots))
+
+    def paged_stage_decode(self, stage_idx: int, x, pool, state, tables: np.ndarray,
+                           slots: np.ndarray, seq_len: int) -> torch.Tensor:
+        """One cached token per row through the block tables (pool and state
+        updated in place)."""
+        tab = torch.as_tensor(tables, dtype=torch.int32, device=self.device)
+        return steps.paged_stage_decode(self.params, x, pool, state, tab, self._index(slots),
+                                        self.cfg, stage_idx, seq_len)
+
+    def block_copy(self, pool, src: np.ndarray, dst: np.ndarray) -> None:
+        steps.block_copy(pool, self._index(src), self._index(dst))
 
     def exit_head(self, stage_idx: int, x_last: torch.Tensor):
         """(confidence, token) of the exit branch after stage ``stage_idx``."""
@@ -143,6 +172,13 @@ class ServeStats:
     num_forward_rows: int = 0  # padded rows pushed through stage forwards
     num_real_rows: int = 0  # live rows among them (the rest is padding waste)
     peak_in_flight: int = 0
+    # paged layout: prompt blocks served from the prefix map vs allocated,
+    # pool occupancy sampled at every paged batch (per replica), and each
+    # replica's allocator as the serve left it
+    prefix_hit_blocks: int = 0
+    prefix_total_blocks: int = 0
+    block_occupancy: list = dataclasses.field(default_factory=list)
+    allocators: dict = dataclasses.field(default_factory=dict)
     capacity_estimates: dict = dataclasses.field(default_factory=dict)
 
     def summary(self) -> dict:
@@ -170,6 +206,18 @@ class ServeStats:
                 total_tokens / makespan if makespan and makespan > 0 else nan
             ),
             "peak_in_flight": self.peak_in_flight,
+            # paged-layout memory stats (zeros / nan under the dense layout)
+            "prefix_hit_blocks": self.prefix_hit_blocks,
+            "prefix_total_blocks": self.prefix_total_blocks,
+            "prefix_hit_rate": (
+                self.prefix_hit_blocks / self.prefix_total_blocks if self.prefix_total_blocks else 0.0
+            ),
+            "block_occupancy_mean": (
+                float(np.mean(self.block_occupancy)) if self.block_occupancy else nan
+            ),
+            "block_occupancy_peak": (
+                float(np.max(self.block_occupancy)) if self.block_occupancy else nan
+            ),
             "capacity_estimates": dict(self.capacity_estimates),
         }
 
@@ -269,6 +317,9 @@ class CollaborativeEngine:
         decode_mode: str | None = None,
         num_slots: int | None = None,
         cache_layout: str = "dense",
+        block_size: int = 16,
+        num_blocks: int | None = None,
+        prefix_sharing: bool = True,
         batch_policy: str = "fifo",
         controller=None,
         scenario=None,
@@ -285,27 +336,38 @@ class CollaborativeEngine:
         gen_len == 1: every token re-runs the padded prefix).  Both emit
         token-identical sequences.  ``batch_policy="threshold"`` packs decode
         batches by predicted retirement class.
+
+        ``cache_layout="paged"`` (cached mode only) keeps the K/V in a
+        per-replica pool of ``num_blocks`` blocks of ``block_size`` tokens
+        (default: the dense footprint), reached through per-request block
+        tables and allocated as generations grow; identical full prompt
+        blocks are shared across requests (``prefix_sharing``).  Tokens and
+        exits equal the dense layout's; admission also waits for pool
+        blocks, and a pool too small for the working set raises.
         """
-        if cache_layout == "paged":
-            raise _not_ported("cache_layout='paged'", "next slice, paged layout")
         if scenario is not None:
-            raise _not_ported("scenario", "slice 2, obs/ and control/")
+            raise _not_ported("scenario", "next slices, obs/ and control/")
         if controller is not None:
-            raise _not_ported("controller", "slice 2, obs/ and control/")
+            raise _not_ported("controller", "next slices, obs/ and control/")
         if telemetry is not None:
-            raise _not_ported("telemetry", "slice 2, obs/ and control/")
+            raise _not_ported("telemetry", "next slices, obs/ and control/")
         if tracer is not None or metrics is not None:
-            raise _not_ported("tracer/metrics", "slice 2, obs/ and control/")
+            raise _not_ported("tracer/metrics", "next slices, obs/ and control/")
         if batch_size < 1:
             raise ValueError("batch_size must be >= 1")
         if gen_len < 1:
             raise ValueError("gen_len must be >= 1")
-        if cache_layout != "dense":
+        if cache_layout not in ("dense", "paged"):
             raise ValueError("cache_layout must be 'dense' or 'paged'")
+        paged = cache_layout == "paged"
         if decode_mode is None:
-            decode_mode = "cached" if gen_len > 1 else "stateless"
+            decode_mode = "cached" if (gen_len > 1 or paged) else "stateless"
         if decode_mode not in ("cached", "stateless"):
             raise ValueError("decode_mode must be 'cached' or 'stateless'")
+        if paged and decode_mode != "cached":
+            raise ValueError("cache_layout='paged' requires decode_mode='cached'")
+        if paged and block_size < 1:
+            raise ValueError("block_size must be >= 1")
         cached = decode_mode == "cached"
         if any(int(p.shape[0]) < 1 for p in prompts):
             raise ValueError("prompts must be non-empty")
@@ -352,15 +414,39 @@ class CollaborativeEngine:
         decode_q: dict[int, deque] = {v: deque() for v in es_nodes}
         rings: dict[int, SlotRing] = {}
         slot_store: dict[int, Any] = {}
-        trash = -1
+        pool_store: dict[int, Any] = {}
+        state_store: dict[int, Any] = {}
+        allocators: dict[int, BlockAllocator] = {}
+        trash = trash_block = -1
+        n_logical = 0
         max_len = max((int(p.shape[0]) for p in prompts), default=1) + gen_len
         if cached:
             n_slots = num_slots if num_slots is not None else max(2 * batch_size, 4)
             trash = n_slots  # extra store row absorbing padded-row writes
+            if paged:
+                n_logical = -(-max_len // block_size)
+                # default pool: the dense layout's footprint, block-granular
+                n_blocks = num_blocks if num_blocks is not None else n_slots * n_logical
+                trash_block = n_blocks  # extra pool row absorbing trash writes
             for v in es_nodes:
                 rings[v] = SlotRing(n_slots)
-                slot_store[v] = programs.init_slot_caches(int(topo.node_stage[v]), n_slots + 1, max_len)
+                h = int(topo.node_stage[v])
+                if paged:
+                    allocators[v] = BlockAllocator(n_blocks, block_size, prefix_sharing=prefix_sharing)
+                    pool_store[v], state_store[v] = programs.init_paged_slot_caches(
+                        h, n_slots + 1, n_blocks + 1, block_size, max_len
+                    )
+                else:
+                    slot_store[v] = programs.init_slot_caches(h, n_slots + 1, max_len)
+        stats.allocators = allocators
         live_reqs = 0  # admitted somewhere, not yet retired
+        # paged admission reserves each row's worst-case REMAINING blocks (it
+        # can still write up to prompt + gen_len - 1 positions), so a live
+        # row's decode appends never starve: deadlock-free without preemption
+        reserved = {v: 0 for v in es_nodes} if paged else {}
+
+        def total_blocks(prompt_len: int) -> int:
+            return -(-(prompt_len + gen_len - 1) // block_size)
 
         def run_prefill(node: int, reqs: list[Request], now: float) -> None:
             nonlocal live_reqs
@@ -384,7 +470,32 @@ class CollaborativeEngine:
                         stats.peak_in_flight = max(stats.peak_in_flight, live_reqs)
                     r.slots[node] = s
                     slots[i] = s
-                programs.slot_write(slot_store[node], caches, slots)
+                if paged:
+                    alloc = allocators[node]
+                    wtab = np.full((int(x.shape[0]), n_logical), trash_block, np.int64)
+                    batch_hits = batch_total = 0
+                    for i, r in enumerate(reqs):
+                        res = alloc.alloc(r.tokens.tolist())
+                        if res is None:
+                            raise RuntimeError("dispatch admitted beyond block-pool capacity")
+                        r.block_seq[node] = res.handle
+                        reserved[node] += total_blocks(r.prompt_len) - len(res.table)
+                        for j, (blk, shared) in enumerate(zip(res.table, res.shared)):
+                            # a shared block already holds this prefix and other
+                            # rows read it: never rewrite it, send the write to
+                            # the trash block
+                            wtab[i, j] = trash_block if shared else blk
+                        batch_hits += sum(res.shared)
+                        batch_total += len(res.table)
+                    stats.prefix_hit_blocks += batch_hits
+                    stats.prefix_total_blocks += batch_total
+                    programs.paged_slot_write(pool_store[node], state_store[node], caches, wtab,
+                                              slots)
+                    stats.block_occupancy.append(alloc.used_fraction)
+                    if stream is not None:
+                        stream.on_pool(now, node, alloc.used_fraction, batch_hits, batch_total)
+                else:
+                    programs.slot_write(slot_store[node], caches, slots)
             else:
                 x = programs.run_stage(h, x_in)
             last = int(reqs[0].all_tokens().shape[0]) if stateless_decode else None
@@ -406,7 +517,33 @@ class CollaborativeEngine:
                 x_in = programs.embed(toks)
             else:
                 x_in = _cat_hidden(reqs, Bp)
-            x = programs.stage_decode(h, x_in, slot_store[node], slots)
+            if paged:
+                alloc = allocators[node]
+                rtab = np.full((Bp, n_logical), trash_block, np.int32)
+                for i, r in enumerate(reqs):
+                    # grow the row by one position (dispatch budgeted this):
+                    # crossing a block boundary takes a fresh pool block
+                    res = alloc.append(r.block_seq[node])
+                    if res is None:
+                        raise RuntimeError("dispatch scheduled a decode row beyond pool capacity")
+                    if res.new_block:
+                        reserved[node] -= 1  # consumed part of the reservation
+                    # the engine never forks and shares only full blocks
+                    # strictly inside the prompt, while appends target
+                    # pos >= prompt_len: copy-on-write cannot happen here
+                    # (``programs.block_copy`` is its device half, for when
+                    # preemption or fork lands)
+                    if res.cow is not None:
+                        raise RuntimeError("append hit a shared block")
+                    tab = alloc.table(r.block_seq[node])
+                    rtab[i, : len(tab)] = tab
+                x = programs.paged_stage_decode(h, x_in, pool_store[node], state_store[node], rtab,
+                                                slots, max_len)
+                stats.block_occupancy.append(alloc.used_fraction)
+                if stream is not None:
+                    stream.on_pool(now, node, alloc.used_fraction)
+            else:
+                x = programs.stage_decode(h, x_in, slot_store[node], slots)
             finish_pass(node, reqs, x, now, h, is_decode_pass=True, wall_t0=wall_t0)
 
         def finish_pass(node: int, reqs: list[Request], x: torch.Tensor, now: float, h: int,
@@ -466,14 +603,48 @@ class CollaborativeEngine:
             if now < busy_until[node]:
                 return
             ph = pending[node].head_seq()
+            prompt_blocks = 0
             if ph is not None and cached and rings[node].available == 0:
                 ph = None  # admission blocked until a retirement frees a slot
+            if ph is not None and paged:
+                # admission also waits for pool blocks: each admitted row
+                # reserves its sharing-blind worst-case total (prompt +
+                # generation), so in-flight decode appends never starve
+                _, head = pending[node].peek()
+                prompt_blocks = total_blocks(head.prompt_len)
+                if allocators[node].free_blocks - reserved[node] < prompt_blocks:
+                    ph = None
             dq = decode_q[node]
-            dh = dq[0][0] if dq else None
+            if paged and dq:
+                # take FIFO decode rows whose next-position block fits the pool
+                # now; rows that cannot extend wait without masking runnable
+                # work behind them
+                budget = allocators[node].free_blocks
+                take: list = []
+                rest: list = []
+                for item in dq:
+                    cost = allocators[node].append_cost(item[1].block_seq[node])
+                    if len(take) < batch_size and cost <= budget:
+                        take.append(item)
+                        budget -= cost
+                    else:
+                        rest.append(item)
+                if packer is not None and take:
+                    # threshold-aware packing on top of the budget filter;
+                    # bumped rows rejoin the queue in FIFO (seq) order
+                    take, back = pack_decode_batch(take, batch_size, packer)
+                    rest = sorted(back + rest)
+                dh = take[0][0] if take else None
+            else:
+                dh = dq[0][0] if dq else None
             if ph is None and dh is None:
                 return
             if dh is not None and (ph is None or dh < ph):
-                if packer is not None:
+                if paged:
+                    dq.clear()
+                    dq.extend(rest)
+                    reqs = [r for _, r in take]
+                elif packer is not None:
                     take, rest = pack_decode_batch(list(dq), batch_size, packer)
                     dq.clear()
                     dq.extend(rest)
@@ -483,6 +654,9 @@ class CollaborativeEngine:
                 run_decode(node, reqs, now)
                 return
             max_take = rings[node].available if cached else None
+            if paged:
+                headroom = allocators[node].free_blocks - reserved[node]
+                max_take = min(max_take, headroom // max(prompt_blocks, 1))
             if packer is not None:
                 # trim the prefill take so the padded batch holds no dead rows
                 cap = min(pending[node].head_len(), batch_size)
@@ -538,9 +712,16 @@ class CollaborativeEngine:
                 req.slots = {}
                 for v, s in freed:
                     rings[v].free(s)
+                if paged:
+                    for v, handle in req.block_seq.items():
+                        # release the unused tail of the worst-case reservation
+                        reserved[v] -= total_blocks(req.prompt_len) - len(allocators[v].table(handle))
+                        allocators[v].free(handle)
+                    req.block_seq = {}
                 for v, _ in freed:
-                    # a freed slot can unblock admission-waiting prompts
-                    if pending[v].head_seq() is not None:
+                    # a freed slot or block can unblock admission-waiting
+                    # prompts and pool-starved decode rows
+                    if pending[v].head_seq() is not None or (paged and decode_q[v]):
                         dispatch(v, done)
 
         def submit(req: Request, t: float) -> None:
@@ -611,9 +792,14 @@ class CollaborativeEngine:
 
         stats.capacity_estimates = {int(v): float(self.straggler.mu_hat[v]) for v in es_nodes}
         if len(stats.delays) != n:
+            # a stall is starvation no future event can clear: fail loudly
+            hint = (
+                "the KV block pool cannot cover the in-flight working set: raise num_blocks, "
+                "shrink num_slots, or use cache_layout='dense'"
+                if paged else "requests were left queued with no runnable work"
+            )
             raise RuntimeError(
-                f"serve stalled with {n - len(stats.delays)} of {n} requests unfinished; "
-                "requests were left queued with no runnable work"
+                f"serve stalled with {n - len(stats.delays)} of {n} requests unfinished; {hint}"
             )
         return stats
 

@@ -1,9 +1,9 @@
 """Serve steps: staged forwards, fused exit heads, cache-threaded decode.
 
-The counterpart of ``repro.serving.steps`` (dense and stateless halves).
-PyTorch runs eagerly, so the reference's ``make_*`` builders of jitted
-programs become plain functions, and the reference's donated slot stores
-become in-place updates of the store tensors:
+The counterpart of ``repro.serving.steps``.  PyTorch runs eagerly, so the
+reference's ``make_*`` builders of jitted programs become plain functions,
+and the reference's donated slot stores become in-place updates of the
+store tensors:
 
   * ``stage_prefill`` — stage forward that also builds the stage's caches
     (one request row each);
@@ -11,7 +11,10 @@ become in-place updates of the store tensors:
     replica's slot store;
   * ``stage_decode``  — one token per row against the slot store: gather
     the batch's slots, run the ragged cached decode (per-row positions,
-    flash-decode kernel), scatter the rows back.
+    flash-decode kernel), scatter the rows back;
+  * ``paged_slot_write`` / ``paged_stage_decode`` / ``block_copy`` — the
+    same for the paged layout, whose K/V live in a pool of blocks reached
+    through per-request block tables.
 """
 from __future__ import annotations
 
@@ -77,6 +80,68 @@ def stage_decode(params: Any, x: torch.Tensor, slot_caches, slots: torch.Tensor,
     x_out, new_rows = model_lib.decode_stage_ragged(params, stage_idx, x, gathered, cfg)
     slot_write(slot_caches, new_rows, slots)
     return x_out
+
+
+def paged_slot_write(pool_stage, state_stage, new_caches, wtab: torch.Tensor,
+                     slots: torch.Tensor) -> None:
+    """Scatter a prefill batch's cache rows into the PAGED slot store, in place.
+
+    ``wtab`` is int64 [B, n_logical], each row's WRITE table: the pool block
+    per logical block, with prefix-shared blocks (already filled and read by
+    other rows) and blocks past the prompt sent to the trash block; padded
+    rows are all trash.  The ``k``/``v`` rows are cut into blocks and
+    scattered through ``wtab``; ``pos`` scatters at ``slots`` as in the
+    dense layout.  Only the trash block repeats in ``wtab``, and which
+    duplicate lands there does not matter: no row reads it.
+    """
+    flat = wtab.reshape(-1)  # [B * n_logical]
+    n_logical = wtab.shape[1]
+    for pool_d, state_d, new_d in zip(pool_stage, state_stage, new_caches):
+        for key, buf in pool_d.items():
+            new = new_d[key]  # [P, B, max_len, ...]
+            P, B, L = new.shape[:3]
+            bs = buf.shape[2]
+            pad = n_logical * bs - L
+            if pad:
+                new = torch.cat([new, new.new_zeros((P, B, pad) + tuple(new.shape[3:]))], dim=2)
+            buf[:, flat] = new.reshape((P, B * n_logical, bs) + tuple(new.shape[3:])).to(buf.dtype)
+        for key, buf in state_d.items():
+            new = new_d[key]
+            if new.ndim < buf.ndim:  # "pos" comes out of prefill as one scalar per period
+                new = new[:, None].expand(-1, slots.shape[0])
+            buf[:, slots] = new.to(buf.dtype)
+
+
+def paged_stage_decode(params: Any, x: torch.Tensor, pool_stage, state_stage,
+                       tables: torch.Tensor, slots: torch.Tensor, cfg: ArchConfig,
+                       stage_idx: int, seq_len: int) -> torch.Tensor:
+    """One cached decode token per row against the replica's PAGED store.
+
+    ``tables`` int32 [B, n_logical] maps each row's logical blocks to pool
+    rows (unallocated entries point at the trash block); ``slots`` int64 [B]
+    names each row's state row.  Gathers the state rows, runs the ragged
+    decode reading and writing K/V through the tables (the pool is updated
+    in place), scatters the state rows back and returns the stage output.
+    """
+    rows = tuple({k: a[:, slots] for k, a in d.items()} for d in state_stage)
+    x_out, new_caches = model_lib.decode_stage_paged(
+        params, stage_idx, x, pool_stage, rows, tables, cfg, seq_len
+    )
+    for state_d, new_d in zip(state_stage, new_caches):
+        for key, buf in state_d.items():
+            buf[:, slots] = new_d[key].to(buf.dtype)
+    return x_out
+
+
+def block_copy(pool_stage, src: torch.Tensor, dst: torch.Tensor) -> None:
+    """Copy pool blocks ``src -> dst`` (int64 [n] each) in every pool leaf,
+    in place: the device half of the allocator's copy-on-write.  The source
+    blocks are read into a temporary first, so a block that is both a source
+    and a destination is copied from its old contents."""
+    for pool_d in pool_stage:
+        for buf in pool_d.values():
+            blocks = buf[:, src]  # advanced indexing: a copy, not a view
+            buf[:, dst] = blocks
 
 
 def select_exit(

@@ -211,3 +211,35 @@ def test_cuda_backend_rejects_cpu_tensors():
         ops.set_backend("auto")
     with pytest.raises(ValueError):
         ops.set_backend("pallas")
+
+
+# ---------------------------------------------------------------------------
+# build
+# ---------------------------------------------------------------------------
+
+
+def test_build_target_hashes_the_headers_a_source_includes(tmp_path, monkeypatch):
+    """An edited header under ``csrc/`` renames the library of every source
+    that includes it, directly or through another header, and no other; no
+    nvcc is needed to name a build."""
+    import shutil
+
+    from repro_torch.kernels import build
+
+    for path in build.CSRC.iterdir():
+        shutil.copy(path, tmp_path / path.name)
+    (tmp_path / "inner.cuh").write_text("#pragma once\n")
+    core = tmp_path / "decode_attention_core.cuh"
+    core.write_text('#include "inner.cuh"\n' + core.read_text())
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    names = ("exit_confidence", "decode_attention", "paged_decode_attention")
+    assert sorted(p.name for p in build._sources("paged_decode_attention")) == [
+        "decode_attention_core.cuh", "inner.cuh", "paged_decode_attention.cu"]
+    before = {n: build._target(n) for n in names}
+    for header in (core, tmp_path / "inner.cuh"):
+        header.write_text(header.read_text() + "// edited\n")
+        after = {n: build._target(n) for n in names}
+        assert after["exit_confidence"] == before["exit_confidence"]
+        for n in ("decode_attention", "paged_decode_attention"):
+            assert after[n] != before[n] and after[n].parent == build.BUILD_DIR
+        before = after

@@ -8,7 +8,9 @@ inputs with a clear top-1 margin.  On the card two tighter gates come on
 top, each shown to reject a planted fault: decode attention element-wise at
 rtol 1.6e-2 / atol 1e-2 against the f32-score plain version (the kernel's
 own rounding), and conf at rtol 1e-4 as well (f32 summation order), since
-at V = 100352 the atol alone passes a head that drops vocab tiles.
+at V = 100352 the atol alone passes a head that drops vocab tiles.  Paged
+decode attention is held to the same element-wise gate on the gathered
+cache, and to the dense kernel bit for bit.
 """
 import math
 
@@ -17,6 +19,7 @@ import torch
 
 from repro_torch.kernels import decode_attention as tdec
 from repro_torch.kernels import exit_confidence as texit
+from repro_torch.kernels import paged_decode_attention as tpaged
 from repro_torch.kernels import ref
 
 pytestmark = pytest.mark.gpu
@@ -106,6 +109,111 @@ def test_decode_attention_rejects_what_it_cannot_take(cuda):
     with pytest.raises(TypeError):
         tdec.decode_attention(q.float(), k.float(), k.float(),
                               torch.ones(1, dtype=torch.int32, device=cuda))
+
+
+# ---------------------------------------------------------------------------
+# paged decode attention
+# ---------------------------------------------------------------------------
+
+
+def _paged_case(gen, dev, Hq, KVH, hd, bs, lengths):
+    """Shuffled physical blocks, one trailing trash block, and each row's
+    table pointing at the trash block past its length."""
+    B, S = len(lengths), max(lengths)
+    n_logical = -(-S // bs)
+    NB = B * n_logical + 1
+    perm = torch.randperm(NB - 1, generator=gen, device=dev).int()
+    table = torch.full((B, n_logical), NB - 1, dtype=torch.int32, device=dev)
+    for b, n in enumerate(lengths):
+        used = -(-n // bs)
+        table[b, :used] = perm[b * n_logical : b * n_logical + used]
+    q = _randn((B, Hq, hd), gen, dev)
+    k_pool = _randn((NB, bs, KVH, hd), gen, dev)
+    v_pool = _randn((NB, bs, KVH, hd), gen, dev)
+    return q, k_pool, v_pool, table, torch.tensor(lengths, dtype=torch.int32, device=dev)
+
+
+def _gathered(pool, table, seq_len):
+    B = table.shape[0]
+    return pool[table.long()].reshape(B, -1, *pool.shape[2:])[:, :seq_len].contiguous()
+
+
+def _assert_paged_gates(q, k_pool, v_pool, table, lengths, seq_len):
+    """Element-wise against the f32-score plain version on the gathered cache,
+    and bitwise against the dense kernel on it."""
+    n0 = tpaged.paged_decode_attention.launches
+    got = tpaged.paged_decode_attention(q, k_pool, v_pool, table, lengths, seq_len=seq_len)
+    torch.cuda.synchronize()
+    assert tpaged.paged_decode_attention.launches == n0 + 1
+    kg, vg = _gathered(k_pool, table, seq_len), _gathered(v_pool, table, seq_len)
+    ln = lengths.clamp(max=seq_len)
+    torch.testing.assert_close(got.float(), ref.decode_attention_f32_scores_ref(q, kg, vg, ln).float(),
+                               rtol=1.6e-2, atol=1e-2)
+    plain = ref.paged_decode_attention_ref(q, k_pool, v_pool, table, lengths, seq_len=seq_len)
+    nz = ln > 0  # the plain version gives a length-0 row the mean of V, the kernels zeros
+    torch.testing.assert_close(got[nz].float(), plain[nz].float(), rtol=0, atol=2e-2)
+    assert torch.equal(got, tdec.decode_attention(q, kg, vg, ln))
+    return got
+
+
+@pytest.mark.parametrize(
+    "Hq,KVH,hd,bs,lengths",
+    [
+        (32, 32, 64, 16, [68, 87, 88, 55, 112, 70, 60, 106]),  # stablelm-1.6b at the serve's shapes
+        (32, 32, 64, 1, [68, 87, 88, 55, 112, 70, 60, 106]),
+        (8, 2, 64, 3, [300, 17, 1, 256]),  # GQA 4:1
+        (16, 4, 128, 5, [129, 64, 200]),
+        (8, 1, 32, 4, [999, 513]),  # G = 8
+        (8, 4, 128, 16, [130, 7, 16, 33]),  # G = 2
+    ],
+)
+def test_paged_decode_attention_matches_plain_and_dense(cuda, Hq, KVH, hd, bs, lengths):
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    case = _paged_case(gen, cuda, Hq, KVH, hd, bs, lengths)
+    seq_len = max(lengths)
+    _assert_paged_gates(*case, seq_len)
+
+
+def test_paged_decode_attention_edge_rows(cuda):
+    """A length-0 row gives zeros; a padded all-trash row reads the trash
+    block; seq_len short of n_logical * bs cuts a row that overhangs it."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    q, k_pool, v_pool, table, lengths = _paged_case(gen, cuda, 8, 4, 64, 3, [40, 25, 1, 40])
+    lengths[2] = 0
+    table[3] = k_pool.shape[0] - 1  # padded row: every entry the trash block
+    lengths[3] = 3
+    got = _assert_paged_gates(q, k_pool, v_pool, table, lengths, seq_len=37)
+    assert torch.all(got[2] == 0)
+
+
+def test_paged_decode_attention_gate_rejects_planted_faults(cuda):
+    """Each fault, held to the gathered cache of the true table, fails the
+    element-wise gate: one table entry pointing at the neighbouring block,
+    and the last partial block of every row dropped."""
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    q, k_pool, v_pool, table, lengths = _paged_case(
+        gen, cuda, 32, 32, 64, 16, [68, 87, 88, 55, 112, 70, 60, 106])
+    S = int(lengths.max())
+    neighbour = table.clone()
+    neighbour[0, 1] = (neighbour[0, 1] + 1) % (k_pool.shape[0] - 1)
+    kg, vg = _gathered(k_pool, table, S), _gathered(v_pool, table, S)
+    want32 = ref.decode_attention_f32_scores_ref(q, kg, vg, lengths).float()
+    for fault in (tpaged.paged_decode_attention(q, k_pool, v_pool, neighbour, lengths, seq_len=S),
+                  tpaged.paged_decode_attention(q, k_pool, v_pool, table, lengths // 16 * 16,
+                                                seq_len=S)):
+        with pytest.raises(AssertionError):
+            torch.testing.assert_close(fault.float(), want32, rtol=1.6e-2, atol=1e-2)
+
+
+def test_paged_decode_attention_rejects_what_it_cannot_take(cuda):
+    q = torch.zeros((1, 6, 64), dtype=torch.bfloat16, device=cuda)
+    pool = torch.zeros((3, 4, 2, 64), dtype=torch.bfloat16, device=cuda)
+    table = torch.zeros((1, 2), dtype=torch.int32, device=cuda)
+    one = torch.ones(1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):  # G = 3
+        tpaged.paged_decode_attention(q, pool, pool, table, one)
+    with pytest.raises(TypeError):
+        tpaged.paged_decode_attention(q[:, :4], pool, pool, table.long(), one)
 
 
 # ---------------------------------------------------------------------------

@@ -12,23 +12,11 @@ import numpy as np
 import pytest
 import torch
 
-from repro.core.profiles import profile_from_arch as jprofile
-from repro.core.thresholds import synthetic_validation as jvalidation
-from repro.core.topology import NetworkSpec as JSpec
-from repro.core.topology import build_edge_network as jnetwork
-from repro.core.types import DtoHyperParams as JHyper
-from repro.serving import CollaborativeEngine as JEngine
-from repro_torch.core.profiles import profile_from_arch as tprofile
-from repro_torch.core.thresholds import synthetic_validation as tvalidation
-from repro_torch.core.topology import NetworkSpec as TSpec
-from repro_torch.core.topology import build_edge_network as tnetwork
-from repro_torch.core.types import DtoHyperParams as THyper
 from repro_torch.kernels import decode_attention as tdec
 from repro_torch.kernels import exit_confidence as texit
-from repro_torch.serving import CollaborativeEngine as TEngine
 from repro_torch.serving import monolithic_generate
 
-from torch_port_common import bridged_params
+from torch_port_common import engine_pair
 
 GEN = 6
 THRESHOLD = 0.1  # the mid-range threshold of tests/test_decode_serving.py
@@ -36,22 +24,7 @@ THRESHOLD = 0.1  # the mid-range threshold of tests/test_decode_serving.py
 
 @pytest.fixture(scope="module")
 def engines():
-    jparams, tparams, jcfg, tcfg = bridged_params(0)
-    jp, tp = jprofile(jcfg), tprofile(tcfg)
-    jeng = JEngine(
-        jparams, jcfg, jnetwork(seed=0, profile=jp, spec=JSpec(num_eds=4, es_per_stage=(2, 2))),
-        jp, jvalidation(seed=1, profile=jp), JHyper(rounds=20), seed=0,
-    )
-    jeng.configuration_phase()
-    jeng.state.thresholds = np.full_like(jeng.state.thresholds, THRESHOLD)
-    teng = TEngine(
-        tparams, tcfg, tnetwork(seed=0, profile=tp, spec=TSpec(num_eds=4, es_per_stage=(2, 2))),
-        tp, tvalidation(seed=1, profile=tp), THyper(rounds=20), seed=0, device="cpu",
-    )
-    teng.configuration_phase()
-    teng.state.carry = teng.state.carry._replace(p=torch.from_numpy(np.array(jeng.state.carry.p)))
-    teng.state.thresholds = jeng.state.thresholds.copy()
-    return jeng, teng
+    return engine_pair(THRESHOLD)
 
 
 @pytest.fixture(scope="module")
@@ -187,7 +160,7 @@ def test_select_exit_matches_jax():
 
 @pytest.mark.parametrize(
     "kw",
-    [{"cache_layout": "paged"}, {"scenario": object()}, {"controller": object()},
+    [{"scenario": object()}, {"controller": object()},
      {"telemetry": object()}, {"tracer": object()}, {"metrics": object()}],
 )
 def test_unported_serve_options_raise(engines, prompts, kw):
