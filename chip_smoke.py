@@ -4,36 +4,47 @@ Phases, each printed on its own line(s); any failure raises and the script
 exits non-zero without the final result line:
 
   1. device — the card's name and power limit (nvidia-smi) and torch's name;
-  2. build  — compiles the port's three CUDA kernels from ``src/repro_torch/
+  2. build  — compiles the port's four CUDA kernels from ``src/repro_torch/
      kernels/csrc`` (one nvcc per source, started together) and prints the
      build seconds and ptxas' registers / shared memory / spills;
   3. kernels vs their plain PyTorch versions at the serve's full-width shapes
-     (stablelm-1.6b: d 2048, V 100352, 32 heads of 64) plus edge cases; each
-     gate must also reject a fault planted on the same inputs; the paged
-     kernel is also held bit for bit to the dense kernel on the gathered
-     cache;
+     (stablelm-1.6b: d 2048, V 100352, 32 heads of 64; the prefill flash
+     kernel also at glm4-9b's 32 query heads over 2 KV heads of 128 and at
+     a 2048-token prompt; both decode kernels also at glm4-9b's G 16, hd
+     128) plus edge cases; each gate must also reject faults planted on the
+     same inputs; the paged kernel is also held bit for bit to the dense
+     kernel on the gathered cache;
   4. serve  — ``CollaborativeEngine.serve`` of 32 Poisson requests through
      full-width stablelm-1.6b (24 layers, random weights from a seed),
-     cached decode, 16 tokens each; the launch counts of both kernels over
-     this run must be non-zero; then one full-width ``stage_decode`` with the
-     kernels forced off and on, compared, and against the f32-score plain
-     attention and two planted faults; the same serve with full batches;
-     and a short serve under ``torch.profiler`` (device busy share, device
-     time by kernel);
+     cached decode, 16 tokens each; the launch counts of the exit, decode
+     and flash kernels over this run must be non-zero; then one full-width
+     ``stage_decode`` with the kernels forced off and on, compared, and
+     against the f32-score plain attention and two planted faults; one
+     full-width ``stage_prefill`` with the kernels forced off and on, and
+     two planted faults; the same serve with full batches; and a short serve
+     under ``torch.profiler`` (device busy share, device time by kernel);
   5. paged serve — the same serve with ``cache_layout="paged"`` (block 16,
      no prefix sharing): launches the paged kernel and not the dense one and
      must give the dense serve's tokens and exits; prefill row-invariance
      measured; a shared-prefix serve with sharing on (prefix hits, every pool
      drained) against its dense twin; ``block_copy`` on a full-width pool;
-  6. times  — each kernel at the serve's shapes (device time from the
+  6. glm4-9b — stablelm's weights freed, full-width glm4-9b (40 layers, d
+     4096, 32 query heads over 2 KV heads of 128, random weights from a seed)
+     serves 16 Poisson requests, 8 tokens each, dense and then paged (block
+     16): every request completes, each serve launches its kernels, and the
+     paged serve's tokens and exits equal the dense serve's;
+  7. times  — each kernel at the serve's shapes (device time from the
      profiler, cold L2) beside its bound, its plain version and one library
-     yardstick (none computes the paged function in one call).
+     yardstick (none computes the paged function in one call); the flash
+     kernel also at glm4-9b's heads and a 2048-token prompt, both decode
+     kernels also at glm4-9b's shapes.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits 2.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import re
@@ -51,7 +62,15 @@ BF16_FLOP_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak, published
 N_REQUESTS, GEN_LEN, BATCH = 32, 16, 8
 BLOCK = 16  # the paged serve's block size
 SEED = 0
-KERNELS = ("exit_confidence", "decode_attention", "paged_decode_attention")
+KERNELS = ("exit_confidence", "decode_attention", "paged_decode_attention", "flash_attention")
+GLM_REQUESTS, GLM_GEN = 16, 8  # the glm4-9b serves
+# flash_attention's timed shapes: (label, B, S, Hq, KVH, hd)
+FLASH_SHAPES = (
+    ("stablelm-1.6b's first prefill batch", 8, 104, 32, 32, 64),
+    ("the same batch at glm4-9b's heads", 8, 104, 32, 2, 128),
+    ("one 2048-token prompt", 1, 2048, 32, 32, 64),
+)
+GLM_LENGTHS = [112, 105, 120, 97, 116, 110, 101, 114]  # glm4-9b decode rows
 
 
 def phase(name: str) -> None:
@@ -66,24 +85,28 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def device_us(run) -> float:
-    """Device time in us of the kernels, copies and memsets that ``run``
-    enqueues, as the profiler records them."""
+def device_us(run) -> dict[str, float]:
+    """Device time in us, by name, of the kernels, copies and memsets that
+    ``run`` enqueues, as the profiler records them."""
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=activities) as prof:
         run()
         torch.cuda.synchronize()
     # device-side rows only: the CPU ops that launched them carry the same
     # time again
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA)
+    return {e.key: e.self_device_time_total for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
 
 
 def time_cold(fn, iters: int, flush: torch.Tensor) -> float:
     """Mean device ms of ``fn`` over ``iters`` launches, each after the L2 is
     overwritten (the real caller finds it cold).  The time is the sum of the
-    kernels' own durations, so the host's time in the wrapper is not in it;
-    the overwrites are profiled alone and taken off."""
+    kernels' own durations, so the host's time in the wrapper is not in it.
+    The overwrites are left out by name, within the same profile: the names
+    that a profile of the overwrites alone records.  (Taking off the time of
+    a second profile of the overwrites instead lets their spread between
+    profiles into the result, and that spread can exceed a short kernel's
+    whole time.)"""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -97,10 +120,11 @@ def time_cold(fn, iters: int, flush: torch.Tensor) -> float:
         for _ in range(iters):
             flush.zero_()
 
-    t_both, t_alone = device_us(both), device_us(alone)
-    if t_both <= t_alone:
+    overwrites = set(device_us(alone))
+    t = sum(us for key, us in device_us(both).items() if key not in overwrites)
+    if t <= 0:
         raise RuntimeError("the profiler recorded no device time for the timed function")
-    return (t_both - t_alone) / iters / 1e3
+    return t / iters / 1e3
 
 
 def bf16_close(a: torch.Tensor, b: torch.Tensor) -> tuple[bool, float, float]:
@@ -174,6 +198,7 @@ def main() -> None:
     from repro_torch.kernels import build, ops, ref
     from repro_torch.kernels import decode_attention as kdec
     from repro_torch.kernels import exit_confidence as kexit
+    from repro_torch.kernels import flash_attention as kflash
     from repro_torch.kernels import paged_decode_attention as kpaged
     from repro_torch.models import model as model_lib
     from repro_torch.serving import CollaborativeEngine
@@ -380,6 +405,76 @@ def main() -> None:
           ok and bool(torch.all(o[0] == 0)), f"row 0 zeros {bool(torch.all(o[0] == 0))}; "
           f"max|diff| {err32:.3g} to the f32-score plain; bitwise to dense {bitwise}")
 
+    # both decode kernels at glm4-9b's shapes: 16 query heads over each of 2
+    # KV heads of 128 (two CTAs per KV head)
+    glm = get_config("glm4-9b")
+    g_hq, g_kvh, g_hd = glm.num_heads, glm.num_kv_heads, glm.head_dim
+    g_len = max(GLM_LENGTHS) + 8
+    q, k, v, ln = dec_inputs(BATCH, g_len, g_hq, g_kvh, g_hd, GLM_LENGTHS)
+    o = kdec.decode_attention(q, k, v, ln)
+    err = float((o.float() - ref.decode_attention_ref(q, k, v, ln).float()).abs().max())
+    ok32, err32, _ = bf16_close(o, ref.decode_attention_f32_scores_ref(q, k, v, ln))
+    check(f"decode_attention glm4-9b G={g_hq // g_kvh} B={BATCH} S={g_len} Hq={g_hq} KVH={g_kvh} "
+          f"hd={g_hd}", err <= 2e-2 and ok32, f"max|err| {err:.3g} (tol 2e-2); against the "
+          f"f32-score plain version max|diff| {err32:.3g} (rtol 1.6e-2, atol 1e-2)")
+    n_log_g = -(-g_len // BLOCK)
+    args = paged_inputs(BATCH, g_hq, g_kvh, g_hd, BLOCK, GLM_LENGTHS, n_log_g)
+    o = kpaged.paged_decode_attention(*args, seq_len=g_len)
+    ok, err32, bitwise = paged_gate(o, *args, g_len)
+    err = float((o.float() - ref.paged_decode_attention_ref(*args, seq_len=g_len).float()).abs().max())
+    check(f"paged_decode_attention glm4-9b G={g_hq // g_kvh} bs={BLOCK} n_logical={n_log_g}",
+          ok and err <= 2e-2, f"against the f32-score plain version on the gathered cache "
+          f"max|diff| {err32:.3g}; bitwise equal to the dense kernel {bitwise}; against the plain "
+          f"version max|err| {err:.3g} (tol 2e-2)")
+
+    # prefill flash attention: element-wise at tests/test_kernels.py's bf16
+    # tolerance (atol 2e-2) against the plain version on the same inputs
+    def flash_inputs(B, Sq, Sk, hq, kvh, hd_):
+        return (torch.randn((B, Sq, hq, hd_), generator=gen, device=dev).bfloat16(),
+                torch.randn((B, Sk, kvh, hd_), generator=gen, device=dev).bfloat16(),
+                torch.randn((B, Sk, kvh, hd_), generator=gen, device=dev).bfloat16())
+
+    def flash_gate(out, want):
+        """(within atol 2e-2, max|err|, share of elements outside)."""
+        diff = (out.float() - want.float()).abs()
+        return bool(diff.max() <= 2e-2), float(diff.max()), float((diff > 2e-2).float().mean())
+
+    flash_cases = [(label, (B, S, S, hq, kvh, hd_), True, None)
+                   for label, B, S, hq, kvh, hd_ in FLASH_SHAPES]
+    flash_cases += [
+        ("Sk > Sq, causal", (2, 128, 384, 4, 4, 128), True, None),
+        ("not causal", (1, 128, 128, 2, 2, 64), False, None),
+        ("window 100", (1, 256, 256, 4, 4, 64), True, 100),
+        ("Sq = 1", (2, 1, 50, 8, 2, 32), True, None),
+        ("S not a multiple of 64", (3, 77, 77, 8, 2, 32), True, None),
+    ]
+    for label, shape, causal, window in flash_cases:
+        q, k, v = flash_inputs(*shape)
+        o = kflash.flash_attention(q, k, v, causal=causal, window=window)
+        want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+        ok, err, out_share = flash_gate(o, want)
+        B, Sq, Sk, hq, kvh, hd_ = shape
+        check(f"flash_attention {label} B={B} Sq={Sq} Sk={Sk} Hq={hq} KVH={kvh} hd={hd_}", ok,
+              f"max|err| {err:.3g} (atol 2e-2), {out_share:.2%} of elements outside")
+        if label == FLASH_SHAPES[0][0]:
+            max_err["flash_attention"] = err
+        if label == FLASH_SHAPES[1][0]:
+            glm_flash = (q, k, v, want)
+    # planted faults on the kernel's inputs at glm4-9b's heads, each held to
+    # the plain version on the true inputs
+    q, k, v, want = glm_flash
+    for fault, (kf, vf) in (
+        ("K/V shifted by one position (every query sees the next key)",
+         (torch.roll(k, -1, dims=1), torch.roll(v, -1, dims=1))),
+        ("Sk cut to the last whole tile (the ragged tail dropped)",
+         (k[:, : k.shape[1] // 64 * 64].contiguous(), v[:, : v.shape[1] // 64 * 64].contiguous())),
+        ("the KV heads permuted at G 16 (the wrong head map)",
+         (k.flip(2).contiguous(), v.flip(2).contiguous())),
+    ):
+        ok, err, out_share = flash_gate(kflash.flash_attention(q, kf, vf), want)
+        check(f"flash_attention gate rejects a planted fault: {fault}", not ok,
+              f"max|err| {err:.3g}, {out_share:.2%} of elements outside")
+
     # -- 4. full-width serve -------------------------------------------------
     phase("full-width serve")
     t0 = time.perf_counter()
@@ -402,11 +497,13 @@ def main() -> None:
         kexit.exit_confidence.launches = 0
         kdec.decode_attention.launches = 0
         kpaged.paged_decode_attention.launches = 0
+        kflash.flash_attention.launches = 0
 
     def read_counts():
         return {"exit_confidence": kexit.exit_confidence.launches,
                 "decode_attention": kdec.decode_attention.launches,
-                "paged_decode_attention": kpaged.paged_decode_attention.launches}
+                "paged_decode_attention": kpaged.paged_decode_attention.launches,
+                "flash_attention": kflash.flash_attention.launches}
 
     torch.cuda.reset_peak_memory_stats()
     engine.rng = np.random.default_rng(SEED)
@@ -426,7 +523,7 @@ def main() -> None:
     seqs = stats.gen_tokens
     check("serve tokens in vocab", all(0 <= t < V for g in seqs for t in g)
           and all(1 <= len(g) <= GEN_LEN for g in seqs), f"{len(seqs)} sequences")
-    for name in ("exit_confidence", "decode_attention"):
+    for name in ("exit_confidence", "decode_attention", "flash_attention"):
         check(f"{name} launched on the main path", launches[name] > 0, f"{launches[name]} launches")
     dense_seqs = stats.sequences_by_rid()
 
@@ -513,6 +610,58 @@ def main() -> None:
     if failed:
         raise AssertionError(f"stage_decode gate: {failed}")
 
+    # one stage_prefill at full width (stage 2, 6 layers), kernels forced off
+    # (chunked_attention) and on (the flash kernel): norm-wise at the bf16
+    # rtol plus equal exit-head tokens at each row's last prompt position.
+    # Faults planted inside the stage, on the flash kernel's inputs or
+    # output, must fail the same gate.
+    def prefill_with(backend, flash_fn=None):
+        kept = ops.flash_attention
+        ops.set_backend(backend)
+        if flash_fn is not None:
+            ops.flash_attention = flash_fn
+        try:
+            y, _ = programs.stage_prefill(2, x1, max_len)
+            return y, programs.exit_head(2, y[:, -1:].contiguous())[1]
+        finally:
+            ops.flash_attention = kept
+            ops.set_backend("auto")
+
+    yp_t, ip_t = prefill_with("torch")
+    n0 = kflash.flash_attention.launches
+    yp_c, ip_c = prefill_with("cuda")
+    per_pass = kflash.flash_attention.launches - n0
+
+    def prefill_gate(y, i):
+        rel_ = rel_norm(y, yp_t)
+        _, dmax_, outside_ = bf16_close(y, yp_t)
+        ok_ = rel_ <= 1.6e-2 and torch.equal(i, ip_t)
+        return ok_, (f"norm-wise rel {rel_:.3g} (tol 1.6e-2), exit-head argmax at the last prompt "
+                     f"position equal {torch.equal(i, ip_t)}; element-wise max|diff| {dmax_:.3g} at "
+                     f"max|y| {float(yp_t.float().abs().max()):.3g}, {outside_:.2%} of elements "
+                     f"outside rtol 1.6e-2/atol 1e-2")
+
+    verdicts = [(f"stage_prefill torch vs cuda (stage 2, 6 layers, B {BATCH}, S {x1.shape[1]}; "
+                 f"{per_pass} flash launches)", True, *prefill_gate(yp_c, ip_c))]
+    prefill_faults = {
+        "K/V shifted by one position":
+            lambda q_, k_, v_, **kw: kflash.flash_attention(
+                q_, torch.roll(k_, -1, dims=1), torch.roll(v_, -1, dims=1), **kw),
+        f"query head {Hq - 1} of {Hq} zeroed":
+            lambda q_, k_, v_, **kw: kflash.flash_attention(q_, k_, v_, **kw).index_fill(
+                2, torch.tensor([Hq - 1], device=dev), 0),
+    }
+    for fault, fn in prefill_faults.items():
+        verdicts.append((f"stage_prefill gate rejects a planted fault: {fault}", False,
+                         *prefill_gate(*prefill_with("cuda", fn))))
+    for name, want, ok, detail in verdicts:
+        print(f"  {'ok  ' if ok == want else 'FAIL'} {name}: {detail}", flush=True)
+    failed = [name for name, want, ok, _ in verdicts if ok != want]
+    check("stage_prefill launched the flash kernel", per_pass == cfg.stage_periods()[1],
+          f"{per_pass} launches for {cfg.stage_periods()[1]} layers")
+    if failed:
+        raise AssertionError(f"stage_prefill gate: {failed}")
+
     # the same serve with arrivals fast enough to fill every batch
     engine.rng = np.random.default_rng(SEED)
     t0 = time.perf_counter()
@@ -546,6 +695,9 @@ def main() -> None:
               f"{busy_us / 1e6:.4f} s = {busy_us / 1e6 / wall_prof:.1%} of wall")
         for key, t in sorted(by_kernel, key=lambda kv: -kv[1])[:8]:
             print(f"  {t / busy_us:6.1%}  {t / 1e3:9.3f} ms  {key[:90]}")
+        flash_us = sum(t for key, t in by_kernel if "flash_mma_kernel" in key)
+        print(f"  flash_attention kernel: {flash_us / 1e3:.3f} ms = {flash_us / busy_us:.2%} of device "
+              f"time")
     sys.stdout.flush()
 
     # -- 5. paged serve --------------------------------------------------------
@@ -710,12 +862,69 @@ def main() -> None:
           f"copied blocks equal their sources {copied}; the other blocks untouched {kept}")
     del pool, before
 
-    # -- 6. times -------------------------------------------------------------
+    # -- 6. glm4-9b --------------------------------------------------------------
+    phase("glm4-9b serve")
+    w_lm = params["lm_head"]  # phase 7 times the exit head on stablelm's LM head
+    del engine, programs, params, store, caches, outs, x1, x_dec, y_t, y_c, y_f, yp_t, yp_c
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    g_params = model_lib.init_params(glm, torch.Generator(device=dev).manual_seed(SEED), dev)
+    g_profile = profile_from_arch(glm)
+    g_engine = CollaborativeEngine(
+        g_params, glm,
+        build_edge_network(seed=0, profile=g_profile, spec=NetworkSpec(num_eds=4, es_per_stage=(2, 2))),
+        g_profile, synthetic_validation(seed=1, profile=g_profile), DtoHyperParams(), seed=SEED,
+        device=dev,
+    )
+    g_engine.configuration_phase()
+    torch.cuda.synchronize()
+    g_n = sum(t.numel() for t in torch.utils._pytree.tree_leaves(g_params))
+    g_prompts = [tok for _, tok in poisson_requests(glm, rcfg, duration=60.0)][:GLM_REQUESTS]
+    if len(g_prompts) != GLM_REQUESTS:
+        raise RuntimeError(f"request stream gave {len(g_prompts)} prompts")
+    print(f"glm4-9b full width: {glm.num_layers} layers, d {glm.d_model}, {g_hq} query heads over "
+          f"{g_kvh} KV heads of {g_hd}, d_ff {glm.d_ff}, vocab {glm.vocab_size}; {g_n / 1e9:.3f} B "
+          f"params; set-up {time.perf_counter() - t0:.1f} s; prompts {GLM_REQUESTS}, lengths "
+          f"{min(map(len, g_prompts))}..{max(map(len, g_prompts))}", flush=True)
+    g_runs = {}
+    for layout, kw in (("dense", {}),
+                       ("paged", {"cache_layout": "paged", "block_size": BLOCK, "prefix_sharing": False})):
+        torch.cuda.reset_peak_memory_stats()
+        g_engine.rng = np.random.default_rng(SEED)
+        zero_counts()
+        t0 = time.perf_counter()
+        g_stats = g_engine.serve(g_prompts, arrival_rate=1e4, batch_size=BATCH, gen_len=GLM_GEN,
+                                 decode_mode="cached", **kw)
+        torch.cuda.synchronize()
+        g_wall = time.perf_counter() - t0
+        g_counts = read_counts()
+        g_sum = g_stats.summary()
+        g_runs[layout] = g_stats.sequences_by_rid()
+        print(f"glm4-9b {layout} serve: wall {g_wall:.3f} s; generated tokens {g_sum['generated_tokens']}; "
+              f"{g_sum['generated_tokens'] / g_wall:.1f} tokens/s; batches {g_sum['num_batches']}; exit "
+              f"histogram {g_sum['exit_histogram']}; peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; kernel launches {g_counts}", flush=True)
+        check(f"glm4-9b {layout} serve completed", g_sum["num_completed"] == GLM_REQUESTS,
+              f"{g_sum['num_completed']} of {GLM_REQUESTS}")
+        names = (("exit_confidence", "decode_attention", "flash_attention") if layout == "dense"
+                 else ("paged_decode_attention",))
+        for name in names:
+            check(f"glm4-9b {layout} serve launched {name}", g_counts[name] > 0,
+                  f"{g_counts[name]} launches")
+    diverged = [r for r, v in g_runs["paged"].items() if g_runs["dense"].get(r) != v]
+    check("glm4-9b paged serve tokens and exits equal the dense serve's",
+          not diverged and len(g_runs["dense"]) == GLM_REQUESTS,
+          f"{len(diverged)} of {GLM_REQUESTS} requests differ")
+    del g_engine, g_params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 7. times -------------------------------------------------------------
     phase("times (device time from the profiler, cold L2, mean over launches)")
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
     kernels_out = []
 
-    w_lm = params["lm_head"]
     h = torch.randn((BATCH, d), generator=gen, device=dev).bfloat16()
 
     def library_head():
@@ -812,6 +1021,57 @@ def main() -> None:
         "ms": paged_ms[BLOCK], "plain_ms": t_p, "bound_ms": max(b_bytes, b_ops),
         "bound_by": "bytes" if b_bytes >= b_ops else "operations", "library_ms": None,
     })
+
+    # both decode kernels at glm4-9b's shapes (G 16, hd 128)
+    q, k, v, ln = dec_inputs(BATCH, g_len, g_hq, g_kvh, g_hd, GLM_LENGTHS)
+    t_k = time_cold(lambda: kdec.decode_attention(q, k, v, ln), 200, flush)
+    args = paged_inputs(BATCH, g_hq, g_kvh, g_hd, BLOCK, GLM_LENGTHS, n_log_g)
+    t_pg = time_cold(lambda: kpaged.paged_decode_attention(*args, seq_len=g_len), 200, flush)
+    t_p = time_cold(lambda: ref.decode_attention_ref(q, k, v, ln), 50, flush)
+    mask = (torch.arange(g_len, device=dev)[None, :] < ln[:, None])[:, None, None, :]
+    t_l = time_cold(lambda: F.scaled_dot_product_attention(
+        q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask, enable_gqa=True),
+        200, flush)
+    tot = int(sum(GLM_LENGTHS))
+    bytes_ = 2 * tot * g_kvh * g_hd * 2 + 2 * BATCH * g_hq * g_hd * 2 + BATCH * 4
+    flops = 4 * tot * g_hq * g_hd
+    b_bytes, b_ops = bytes_ / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOP_PER_S * 1e3
+    print(f"glm4-9b decode B={BATCH} S={g_len} Hq={g_hq} KVH={g_kvh} hd={g_hd} lengths {GLM_LENGTHS}: "
+          f"decode_attention {t_k:.4f} ms, paged_decode_attention (bs {BLOCK}) {t_pg:.4f} ms, plain "
+          f"{t_p:.4f} ms, library (SDPA, length mask, GQA) {t_l:.4f} ms, bound "
+          f"{max(b_bytes, b_ops):.5f} ms ({'bytes' if b_bytes >= b_ops else 'operations'}: "
+          f"{bytes_ / 1e6:.3f} MB, {flops / 1e6:.1f} MFLOP)")
+
+    # prefill flash attention at the three shapes; the first is the entry
+    for label, B, S, hq, kvh, hd_ in FLASH_SHAPES:
+        q, k, v = flash_inputs(B, S, S, hq, kvh, hd_)
+
+        def library_flash():
+            return F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                                  v.transpose(1, 2), is_causal=True, enable_gqa=True)
+
+        lib_err = float((library_flash().transpose(1, 2).float()
+                         - ref.flash_attention_ref(q, k, v).float()).abs().max())
+        t_k = time_cold(lambda: kflash.flash_attention(q, k, v), 100, flush)
+        t_p = time_cold(lambda: ref.flash_attention_ref(q, k, v), 10, flush)
+        t_l = time_cold(library_flash, 100, flush)
+        bytes_ = 2 * q.numel() * 2 + 2 * k.numel() * 2  # q and out, k and v
+        flops = 4 * B * hq * hd_ * (S * (S + 1) // 2)  # QK^T and PV over the causal triangle
+        b_bytes, b_ops = bytes_ / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOP_PER_S * 1e3
+        print(f"flash_attention {label} B={B} S={S} Hq={hq} KVH={kvh} hd={hd_}: kernel {t_k:.4f} ms, "
+              f"plain {t_p:.4f} ms, library (SDPA, is_causal, enable_gqa; max|diff| vs plain "
+              f"{lib_err:.3g}) {t_l:.4f} ms, bound {max(b_bytes, b_ops):.5f} ms "
+              f"({'bytes' if b_bytes >= b_ops else 'operations'}: {bytes_ / 1e6:.2f} MB, "
+              f"{flops / 1e9:.3f} GFLOP)")
+        if label == FLASH_SHAPES[0][0]:
+            kernels_out.append({
+                "name": "flash_attention", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+                "replaces": "src/repro/kernels/flash_attention.py:172",
+                "launches": launches["flash_attention"], "max_abs_err": max_err["flash_attention"],
+                "ms": t_k, "plain_ms": t_p, "bound_ms": max(b_bytes, b_ops),
+                "bound_by": "bytes" if b_bytes >= b_ops else "operations", "library_ms": t_l,
+            })
 
     print(f"nvidia-smi: {nvidia_smi()}")
     print(json.dumps({"kernels": kernels_out}))

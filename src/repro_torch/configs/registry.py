@@ -12,6 +12,7 @@ from repro_torch.configs.base import ArchConfig
 # arch id -> module holding CONFIG
 _MODULES: dict[str, str] = {
     "stablelm-1.6b": "repro_torch.configs.stablelm_1_6b",
+    "glm4-9b": "repro_torch.configs.glm4_9b",
 }
 
 

@@ -10,10 +10,12 @@
 //
 // Design:
 //   * One CTA of 128 threads per (batch row, KV head): 8 x 32 = 256 CTAs at
-//     stablelm-1.6b's serve shapes.  The CTA walks [0, lengths[b]) in tiles
-//     of 128 keys and never reads past the row's length (clamped to S).
-//   * The G query heads of the KV head share every K/V row the CTA loads
-//     (G is a template parameter, as is hd: 32, 64 or 128).
+//     stablelm-1.6b's serve shapes; at G = 16 (glm4-9b) two CTAs per KV
+//     head, each with 8 of its query heads (`decode_core::Split`).  The
+//     CTA walks [0, lengths[b]) in tiles of 128 keys and never reads past
+//     the row's length (clamped to S).
+//   * The CTA's query heads share every K/V row it loads (G is a template
+//     parameter, as is hd: 32, 64 or 128).
 //   * The walk itself (16-byte loads, scores by warp shuffles, online softmax
 //     in f32, P.V in registers) is `decode_core::attend` in
 //     decode_attention_core.cuh, shared with the paged kernel; key t of row
@@ -43,21 +45,23 @@ decode_attention_kernel(const __nv_bfloat16* __restrict__ q,  // [B, KVH * G, HD
                         const int* __restrict__ lengths,      // [B]
                         __nv_bfloat16* __restrict__ out,      // [B, KVH * G, HD]
                         int S, int KVH, float sm_scale) {
-  const int h = blockIdx.x;
+  using Split = decode_core::Split<G>;
+  const int h = blockIdx.x / Split::NS;
   const int b = blockIdx.y;
   int len = lengths[b];
   len = len < 0 ? 0 : (len > S ? S : len);
-  const size_t head = ((size_t)b * KVH + h) * G * HD;
-  decode_core::attend<HD, G>(q + head, k + (size_t)h * HD, v + (size_t)h * HD,
-                             (size_t)KVH * HD, len, DenseRows{(size_t)b * S}, out + head,
-                             sm_scale);
+  // this CTA's GC query heads of KV head h
+  const size_t head = (((size_t)b * KVH + h) * G + (blockIdx.x % Split::NS) * Split::GC) * HD;
+  decode_core::attend<HD, Split::GC>(q + head, k + (size_t)h * HD, v + (size_t)h * HD,
+                                     (size_t)KVH * HD, len, DenseRows{(size_t)b * S}, out + head,
+                                     sm_scale);
 }
 
 template <int HD, int G>
 struct Launch {
   static cudaError_t run(const void* q, const void* k, const void* v, const void* lengths,
                          void* out, int B, int S, int KVH, float sm_scale, cudaStream_t s) {
-    dim3 grid(KVH, B);
+    dim3 grid(KVH * decode_core::Split<G>::NS, B);
     decode_attention_kernel<HD, G><<<grid, decode_core::THREADS, 0, s>>>(
         static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
         static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(lengths),

@@ -1,13 +1,19 @@
 // The flash-decode walk shared by decode_attention.cu (contiguous cache rows)
 // and paged_decode_attention.cu (rows reached through a block table).
 //
-// One CTA of THREADS threads handles one (batch row, KV head): it walks keys
-// [0, len) in tiles of TILE keys with an online softmax in f32 and writes the
-// G query heads' outputs.  Where a key's K/V row lives is the only thing the
-// two kernels do differently, so the walk takes it as a functor
-// `row_of(key) -> row index` (units of one [KVH, HD] cache row).  Both kernels
-// then run the same loads, reductions and roundings in the same order, so on
-// the same logical cache they give bitwise equal outputs.
+// One CTA of THREADS threads handles one (batch row, KV head) and up to
+// MAX_G of its query heads: it walks keys [0, len) in tiles of TILE keys with
+// an online softmax in f32 and writes those heads' outputs.  A KV head with
+// G > MAX_G query heads (glm4-9b: G = 16) is split over G / MAX_G CTAs,
+// each with its own MAX_G heads (`Split`), so the shared reduction buffers
+// and the per-thread accumulators keep their G <= 8 sizes (`red` is
+// KEYS x G x HD floats: 64 KB at G 16, hd 128, over the 48 KB of static
+// shared memory).  For G <= 8 the split is 1 and the walk is unchanged.
+// Where a key's K/V row lives is the only thing the two kernels do
+// differently, so the walk takes it as a functor `row_of(key) -> row index`
+// (units of one [KVH, HD] cache row).  Both kernels then run the same loads,
+// reductions and roundings in the same order, so on the same logical cache
+// they give bitwise equal outputs.
 //
 //   * Scores: HD/8 threads cover one key row with one 16-byte load each, so a
 //     warp reads whole 128-byte rows; the partial dot products meet by warp
@@ -34,6 +40,15 @@ constexpr int THREADS = 128;
 constexpr int WARPS = THREADS / 32;
 constexpr int TILE = 128;  // keys per softmax tile
 constexpr float NEG_INF = -1e30f;
+constexpr int MAX_G = 8;  // query heads per CTA
+
+// G query heads per KV head -> GC heads per CTA over NS CTAs
+template <int G>
+struct Split {
+  static constexpr int GC = G < MAX_G ? G : MAX_G;
+  static constexpr int NS = G / GC;
+  static_assert(G % GC == 0, "G is a multiple of MAX_G when it exceeds it");
+};
 
 __device__ __forceinline__ void load8(const __nv_bfloat16* __restrict__ p, float (&out)[8]) {
   const uint4 raw = __ldg(reinterpret_cast<const uint4*>(p));
@@ -184,6 +199,7 @@ cudaError_t dispatch_g(int G, Args... args) {
     case 2: return Launch<HD, 2>::run(args...);
     case 4: return Launch<HD, 4>::run(args...);
     case 8: return Launch<HD, 8>::run(args...);
+    case 16: return Launch<HD, 16>::run(args...);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -12,7 +12,8 @@
 // read per query head.
 //
 // Design:
-//   * One CTA of 128 threads per (batch row, KV head), the same walk as
+//   * One CTA of 128 threads per (batch row, KV head) (two at G = 16, each
+//     with 8 query heads, as in the dense kernel), the same walk as
 //     decode_attention.cu (`decode_core::attend`): key t of row b is pool
 //     row table[b, t / bs] * bs + t % bs.  `bs` is a runtime value (any
 //     block size >= 1: the serving tests use 1, 3, 4 and 16), so the address
@@ -52,15 +53,18 @@ paged_decode_attention_kernel(const __nv_bfloat16* __restrict__ q,       // [B, 
                               const int* __restrict__ lengths,           // [B]
                               __nv_bfloat16* __restrict__ out,           // [B, KVH * G, HD]
                               int n_logical, int bs, int KVH, float sm_scale) {
-  const int h = blockIdx.x;
+  using Split = decode_core::Split<G>;
+  const int h = blockIdx.x / Split::NS;
   const int b = blockIdx.y;
   const int S = n_logical * bs;
   int len = lengths[b];
   len = len < 0 ? 0 : (len > S ? S : len);
-  const size_t head = ((size_t)b * KVH + h) * G * HD;
-  decode_core::attend<HD, G>(q + head, k_pool + (size_t)h * HD, v_pool + (size_t)h * HD,
-                             (size_t)KVH * HD, len,
-                             PagedRows{table + (size_t)b * n_logical, bs}, out + head, sm_scale);
+  // this CTA's GC query heads of KV head h
+  const size_t head = (((size_t)b * KVH + h) * G + (blockIdx.x % Split::NS) * Split::GC) * HD;
+  decode_core::attend<HD, Split::GC>(q + head, k_pool + (size_t)h * HD,
+                                     v_pool + (size_t)h * HD, (size_t)KVH * HD, len,
+                                     PagedRows{table + (size_t)b * n_logical, bs}, out + head,
+                                     sm_scale);
 }
 
 template <int HD, int G>
@@ -68,7 +72,7 @@ struct Launch {
   static cudaError_t run(const void* q, const void* k_pool, const void* v_pool,
                          const void* table, const void* lengths, void* out, int B,
                          int n_logical, int bs, int KVH, float sm_scale, cudaStream_t s) {
-    dim3 grid(KVH, B);
+    dim3 grid(KVH * decode_core::Split<G>::NS, B);
     paged_decode_attention_kernel<HD, G><<<grid, decode_core::THREADS, 0, s>>>(
         static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k_pool),
         static_cast<const __nv_bfloat16*>(v_pool), static_cast<const int*>(table),

@@ -2,9 +2,10 @@
 
 The counterpart of ``repro.kernels.decode_attention``.  On a CUDA tensor the
 wrapper launches the hand-written kernel in ``csrc/decode_attention.cu``
-(one CTA per (row, KV head), online softmax over the valid prefix); on a
-CPU tensor it runs the plain version in ``ref``.  There is no other path:
-a CUDA tensor the kernel cannot take raises.
+(one CTA per (row, KV head, up to 8 of its query heads), online softmax
+over the valid prefix); on a CPU tensor it runs the plain version in
+``ref``.  There is no other path: a CUDA tensor the kernel cannot take
+raises.
 
 As in the Pallas kernel, a row whose length is 0 returns zeros.
 """
@@ -18,7 +19,7 @@ import torch
 from repro_torch.kernels import build, ref
 
 HEAD_DIMS = (32, 64, 128)
-GROUPS = (1, 2, 4, 8)  # query heads per KV head the kernel is compiled for
+GROUPS = (1, 2, 4, 8, 16)  # query heads per KV head the kernel is compiled for
 
 
 def _lib():

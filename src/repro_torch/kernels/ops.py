@@ -16,6 +16,7 @@ import torch
 
 from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import exit_confidence as _exit
+from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import paged_decode_attention as _paged
 from repro_torch.kernels import ref
 
@@ -42,6 +43,28 @@ def _plain(x: torch.Tensor) -> bool:
     if _backend == "cuda" and not x.is_cuda:
         raise ValueError(f"kernel backend 'cuda' was asked for a tensor on {x.device}")
     return False
+
+
+def uses_kernel(x: torch.Tensor) -> bool:
+    """Whether the current backend launches a kernel for a tensor like
+    ``x``: True for a CUDA tensor under "auto" or "cuda", False under
+    "torch" or for a CPU tensor under "auto"; "cuda" on a CPU tensor
+    raises, as every op does."""
+    return not _plain(x) and x.is_cuda
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int | None = None,
+) -> torch.Tensor:
+    """Prefill attention, top-left positions (see ``ref.flash_attention_ref``)."""
+    if _plain(q):
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    return _flash.flash_attention(q, k, v, causal=causal, window=window)
 
 
 def decode_attention(

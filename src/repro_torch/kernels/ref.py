@@ -13,6 +13,34 @@ import torch
 NEG_INF = -1e30
 
 
+def flash_attention_ref(
+    q: torch.Tensor,  # [B, Sq, Hq, hd]
+    k: torch.Tensor,  # [B, Sk, kv, hd]
+    v: torch.Tensor,  # [B, Sk, kv, hd]
+    causal: bool = True,
+    window: int | None = None,
+) -> torch.Tensor:
+    """Prefill attention with top-left positions (``q_pos`` and ``k_pos``
+    both start at 0, also when Sk > Sq).  The scores are DIVIDED by
+    sqrt(hd), as this oracle does in the reference (the kernels multiply);
+    a fully masked row gives the mean of V (the kernels give zeros)."""
+    B, Sq, Hq, hd = q.shape
+    kvh = k.shape[2]
+    qg = q.reshape(B, Sq, kvh, Hq // kvh, hd)
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qg, k).float() / math.sqrt(hd)
+    q_pos = torch.arange(Sq, device=q.device)
+    k_pos = torch.arange(k.shape[1], device=q.device)
+    mask = torch.ones((Sq, k.shape[1]), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = mask & (q_pos[:, None] >= k_pos[None, :])
+    if window is not None:
+        mask = mask & (k_pos[None, :] > q_pos[:, None] - window)
+    scores = torch.where(mask, scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum("bkgqs,bskd->bqkgd", probs, v)
+    return out.reshape(B, Sq, Hq, hd)
+
+
 def decode_attention_ref(
     q: torch.Tensor,  # [B, Hq, hd]
     k: torch.Tensor,  # [B, S, kv, hd]

@@ -1,11 +1,16 @@
 """GQA attention (optional QKV bias) and its KV caches — the GQA half of
 ``repro.models.attention``.
 
-Prefill attention is q-chunked plain PyTorch (the reference's XLA
-``chunked_attention``; the Pallas ``flash_attention`` is not on its path).
-Cached one-token decode goes through ``kernels.ops.decode_attention``
-(dense slots) or ``kernels.ops.paged_decode_attention`` (paged blocks): the
-hand-written CUDA kernels on the card, their plain versions on the CPU.
+Prefill attention (``gqa_forward``) goes through
+``kernels.ops.flash_attention`` wherever the backend launches a kernel (a
+CUDA tensor under "auto" or "cuda"), and is the q-chunked plain
+``chunked_attention`` (the reference's XLA path) otherwise: on the CPU and
+under the "torch" backend.  Every caller prefills positions ``arange(S)``,
+where the kernel's top-left causal mask is ``chunked_attention``'s; other
+positions are not supported on the kernel path.  Cached one-token decode
+goes through ``kernels.ops.decode_attention`` (dense slots) or
+``kernels.ops.paged_decode_attention`` (paged blocks): the hand-written CUDA
+kernels on the card, their plain versions on the CPU.
 
 Caches are plain dicts of tensors:
   full  : {"k": [B,S,kv,hd], "v": [B,S,kv,hd], "pos": int32 [] or [B]}
@@ -123,14 +128,24 @@ def gqa_forward(
     q_chunk: int = 1024,
     return_kv: bool = False,
 ):
-    """Full-sequence causal attention (prefill)."""
+    """Full-sequence causal attention (prefill).
+
+    ``positions`` must be ``arange(S)`` (what every caller passes) wherever
+    the backend launches a kernel: the flash kernel masks by top-left
+    positions, which equals ``chunked_attention``'s causal mask only there.
+    Elsewhere (CPU, backend "torch") attention is ``chunked_attention`` at
+    the given positions.
+    """
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32, device=x.device)
     q, k, v = _project_qkv(params, x, dims)
     q = apply_rope(q, positions[None, :], dims.rope_theta)
     k = apply_rope(k, positions[None, :], dims.rope_theta)
-    out = chunked_attention(q, k, v, positions, positions, dims.groups, q_chunk)
+    if kernel_ops.uses_kernel(q):
+        out = kernel_ops.flash_attention(q, k, v, causal=True, window=dims.sliding_window)
+    else:
+        out = chunked_attention(q, k, v, positions, positions, dims.groups, q_chunk)
     out = matmul(out.reshape(B, S, dims.q_dim), params["w_o"])
     if return_kv:
         return out, (k, v)

@@ -10,7 +10,9 @@ rtol 1.6e-2 / atol 1e-2 against the f32-score plain version (the kernel's
 own rounding), and conf at rtol 1e-4 as well (f32 summation order), since
 at V = 100352 the atol alone passes a head that drops vocab tiles.  Paged
 decode attention is held to the same element-wise gate on the gathered
-cache, and to the dense kernel bit for bit.
+cache, and to the dense kernel bit for bit.  Prefill flash attention is held
+element-wise to its plain version at bf16 2e-2 and f32 2e-5, and its gate is
+shown to reject three planted faults.
 """
 import math
 
@@ -19,6 +21,7 @@ import torch
 
 from repro_torch.kernels import decode_attention as tdec
 from repro_torch.kernels import exit_confidence as texit
+from repro_torch.kernels import flash_attention as tflash
 from repro_torch.kernels import paged_decode_attention as tpaged
 from repro_torch.kernels import ref
 
@@ -51,6 +54,7 @@ def _randn(shape, gen, dev, dtype=torch.bfloat16):
         (3, 1000, 16, 4, 64),
         (2, 300, 8, 1, 32),  # MQA, G = 8
         (4, 130, 8, 4, 128),  # G = 2
+        (8, 130, 32, 2, 128),  # glm4-9b: G = 16, two CTAs per KV head
     ],
 )
 def test_decode_attention_matches_plain(cuda, B, S, Hq, KVH, hd):
@@ -106,6 +110,9 @@ def test_decode_attention_rejects_what_it_cannot_take(cuda):
     k = torch.zeros((1, 8, 2, 64), dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError):  # G = 3
         tdec.decode_attention(q, k, k, torch.ones(1, dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError):  # G = 32
+        tdec.decode_attention(torch.zeros((1, 64, 64), dtype=torch.bfloat16, device=cuda), k, k,
+                              torch.ones(1, dtype=torch.int32, device=cuda))
     with pytest.raises(TypeError):
         tdec.decode_attention(q.float(), k.float(), k.float(),
                               torch.ones(1, dtype=torch.int32, device=cuda))
@@ -165,6 +172,7 @@ def _assert_paged_gates(q, k_pool, v_pool, table, lengths, seq_len):
         (16, 4, 128, 5, [129, 64, 200]),
         (8, 1, 32, 4, [999, 513]),  # G = 8
         (8, 4, 128, 16, [130, 7, 16, 33]),  # G = 2
+        (32, 2, 128, 16, [104, 112, 97, 120, 1, 64, 110, 88]),  # glm4-9b: G = 16
     ],
 )
 def test_paged_decode_attention_matches_plain_and_dense(cuda, Hq, KVH, hd, bs, lengths):
@@ -303,3 +311,100 @@ def test_exit_confidence_padded_rows_do_not_leak(cuda):
     c8, i8 = texit.exit_confidence(hp, w)
     torch.testing.assert_close(c8[:3], c3, rtol=0, atol=0)
     assert torch.equal(i8[:3], i3)
+
+
+# ---------------------------------------------------------------------------
+# prefill flash attention
+# ---------------------------------------------------------------------------
+
+
+def _flash_case(gen, dev, B, Sq, Sk, Hq, KVH, hd, dtype=torch.bfloat16):
+    return (_randn((B, Sq, Hq, hd), gen, dev, dtype), _randn((B, Sk, KVH, hd), gen, dev, dtype),
+            _randn((B, Sk, KVH, hd), gen, dev, dtype))
+
+
+FLASH_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
+
+
+@pytest.mark.parametrize(
+    "B,Sq,Sk,Hq,KVH,hd,causal,window,dtype",
+    [
+        (8, 104, 104, 32, 32, 64, True, None, torch.bfloat16),  # stablelm-1.6b's first prefill batch
+        (8, 104, 104, 32, 2, 128, True, None, torch.bfloat16),  # glm4-9b's heads: G = 16
+        (1, 2048, 2048, 32, 32, 64, True, None, torch.bfloat16),  # one 2048-token prompt
+        (2, 128, 384, 4, 4, 128, True, None, torch.bfloat16),  # Sk > Sq, top-left positions
+        (1, 128, 128, 2, 2, 64, False, None, torch.bfloat16),  # not causal
+        (1, 256, 256, 4, 4, 64, True, 100, torch.bfloat16),  # sliding window
+        (2, 1, 50, 8, 2, 32, True, None, torch.bfloat16),  # Sq = 1
+        (3, 77, 77, 8, 2, 32, True, None, torch.bfloat16),  # S not a multiple of 64
+        # tests/test_kernels.py's sweep in f32
+        (1, 128, 128, 4, 4, 64, True, None, torch.float32),
+        (2, 256, 256, 8, 2, 64, True, None, torch.float32),
+        (1, 192, 192, 4, 1, 32, True, None, torch.float32),
+        (2, 128, 384, 4, 4, 128, True, None, torch.float32),
+        (1, 256, 256, 4, 4, 64, True, 32, torch.float32),
+        (1, 128, 128, 2, 2, 64, False, None, torch.float32),
+    ],
+)
+def test_flash_attention_matches_plain(cuda, B, Sq, Sk, Hq, KVH, hd, causal, window, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    q, k, v = _flash_case(gen, cuda, B, Sq, Sk, Hq, KVH, hd, dtype)
+    n0 = tflash.flash_attention.launches
+    got = tflash.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert tflash.flash_attention.launches == n0 + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=FLASH_TOL[dtype])
+
+
+def test_flash_attention_gate_rejects_planted_faults(cuda):
+    """Each fault, made on the kernel's inputs and held to the plain version
+    on the true inputs, fails the element-wise gate: K/V shifted by one
+    position, Sk cut to the last whole tile, the KV heads permuted at G 16."""
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    q, k, v = _flash_case(gen, cuda, 8, 104, 104, 32, 2, 128)
+    want = ref.flash_attention_ref(q, k, v).float()
+    torch.testing.assert_close(tflash.flash_attention(q, k, v).float(), want, rtol=0, atol=2e-2)
+    shift = (torch.roll(k, -1, dims=1), torch.roll(v, -1, dims=1))
+    cut = (k[:, :64].contiguous(), v[:, :64].contiguous())
+    perm = (k.flip(2).contiguous(), v.flip(2).contiguous())
+    for kf, vf in (shift, cut, perm):
+        with pytest.raises(AssertionError):
+            torch.testing.assert_close(tflash.flash_attention(q, kf, vf).float(), want,
+                                       rtol=0, atol=2e-2)
+
+
+def test_flash_attention_rows_do_not_depend_on_batch_or_length(cuda):
+    """A row's output is bitwise the same alone and inside a batch, and a
+    prefix's outputs are the same inside a longer prompt (causal): the key
+    tiles start at absolute positions.  A row that sees no key gives zeros."""
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    q, k, v = _flash_case(gen, cuda, 8, 68, 68, 8, 2, 64)
+    full = tflash.flash_attention(q, k, v)
+    alone = tflash.flash_attention(q[3:4].contiguous(), k[3:4].contiguous(), v[3:4].contiguous())
+    assert torch.equal(alone, full[3:4])
+    short = tflash.flash_attention(q[:, :57].contiguous(), k[:, :57].contiguous(),
+                                   v[:, :57].contiguous())
+    assert torch.equal(short, full[:, :57])
+    # not causal, window 5, Sk 10: rows 14 and on see no key
+    out = tflash.flash_attention(q, k[:, :10].contiguous(), v[:, :10].contiguous(),
+                                 causal=False, window=5)
+    assert torch.all(out[:, 14:] == 0)
+    want = ref.flash_attention_ref(q, k[:, :10], v[:, :10], causal=False, window=5)
+    torch.testing.assert_close(out[:, :14].float(), want[:, :14].float(), rtol=0, atol=2e-2)
+
+
+def test_flash_attention_rejects_what_it_cannot_take(cuda):
+    q = torch.zeros((1, 8, 4, 64), dtype=torch.bfloat16, device=cuda)
+    kv = torch.zeros((1, 8, 2, 64), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError):  # hd 96
+        tflash.flash_attention(*(torch.zeros((1, 8, 2, 96), dtype=torch.bfloat16, device=cuda),) * 3)
+    with pytest.raises(TypeError):
+        tflash.flash_attention(q, kv.float(), kv)
+    with pytest.raises(ValueError):  # not contiguous
+        tflash.flash_attention(q.transpose(1, 2), kv, kv)
+    with pytest.raises(ValueError):
+        tflash.flash_attention(q, kv, kv, window=0)
+    with pytest.raises(ValueError):  # 3 query heads over 2 KV heads
+        tflash.flash_attention(q[:, :, :3].contiguous(), kv, kv)

@@ -33,6 +33,8 @@ from repro_torch.models import model as tmodel
 from torch_port_common import F32_ATOL, as_np, assert_bf16_close, bridged_params
 
 S, B, MAX_LEN = 10, 3, 16
+# stablelm-1.6b reduced: MHA, hd 32, LayerNorm; glm4-9b reduced: G 2, hd 32, RMSNorm
+ARCHS = ("stablelm-1.6b", "glm4-9b")
 
 
 @pytest.fixture
@@ -41,9 +43,9 @@ def op_by_op():
         yield
 
 
-@pytest.fixture(scope="module")
-def bridged():
-    return bridged_params(0)
+@pytest.fixture(scope="module", params=ARCHS)
+def bridged(request):
+    return bridged_params(0, request.param)
 
 
 def _block(tree, i=0):
@@ -61,12 +63,13 @@ def _x(rng, shape, dtype=jnp.bfloat16):
 # ---------------------------------------------------------------------------
 
 
+@pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("reduced", [False, True])
-def test_config_matches_reference(reduced):
+def test_config_matches_reference(reduced, arch):
     from repro.configs import get_config
 
-    jcfg = get_config("stablelm-1.6b")
-    tcfg = tconfigs.get_config("stablelm-1.6b")
+    jcfg = get_config(arch)
+    tcfg = tconfigs.get_config(arch)
     if reduced:
         jcfg, tcfg = jcfg.reduced(vocab_size=128), tcfg.reduced(vocab_size=128)
     for f in dataclasses.fields(tcfg):

@@ -14,6 +14,7 @@ import torch
 
 from repro_torch.kernels import decode_attention as tdec
 from repro_torch.kernels import exit_confidence as texit
+from repro_torch.kernels import flash_attention as tflash
 from repro_torch.serving import monolithic_generate
 
 from torch_port_common import engine_pair
@@ -59,7 +60,15 @@ def _serve(engine, prompts, seed=7, **kw):
 
 
 def test_serve_matches_jax_engine(engines, prompts):
-    jeng, teng = engines
+    _assert_serves_match(*engines, prompts)
+
+
+def test_serve_matches_jax_engine_glm4(prompts):
+    """Reduced glm4-9b: GQA with 2 query heads per KV head, RMSNorm."""
+    _assert_serves_match(*engine_pair(THRESHOLD, "glm4-9b"), prompts)
+
+
+def _assert_serves_match(jeng, teng, prompts):
     np.testing.assert_array_equal(teng.p, jeng.p)
     want = _serve(jeng, prompts, decode_mode="cached")
     got = _serve(teng, prompts, decode_mode="cached")
@@ -130,9 +139,13 @@ def test_classification_default_is_single_shot(engines, prompts, reference):
 
 def test_cpu_serve_launches_no_kernel(engines, prompts):
     _, teng = engines
-    before = (texit.exit_confidence.launches, tdec.decode_attention.launches)
+    def counts():
+        return (texit.exit_confidence.launches, tdec.decode_attention.launches,
+                tflash.flash_attention.launches)
+
+    before = counts()
     _serve(teng, prompts, decode_mode="cached")
-    assert (texit.exit_confidence.launches, tdec.decode_attention.launches) == before
+    assert counts() == before
 
 
 def test_select_exit_matches_jax():

@@ -1,6 +1,7 @@
 """Shared set-up of the differential tests between the JAX package and the
-PyTorch port: one small stablelm config in both packages, the JAX weights
-bridged into the port, and a pair of serving engines built from them."""
+PyTorch port: one small config in both packages (stablelm-1.6b unless a
+test names another), the JAX weights bridged into the port, and a pair of
+serving engines built from them."""
 import functools
 
 import numpy as np
@@ -24,18 +25,18 @@ F32_ATOL = 2e-5
 BF16_RTOL, BF16_ATOL = 1.6e-2, 1e-2
 
 
-def configs():
+def configs(arch: str = "stablelm-1.6b"):
     return (
-        get_config("stablelm-1.6b").reduced(vocab_size=VOCAB),
-        tconfigs.get_config("stablelm-1.6b").reduced(vocab_size=VOCAB),
+        get_config(arch).reduced(vocab_size=VOCAB),
+        tconfigs.get_config(arch).reduced(vocab_size=VOCAB),
     )
 
 
 @functools.lru_cache(maxsize=None)
-def bridged_params(seed: int = 0):
+def bridged_params(seed: int = 0, arch: str = "stablelm-1.6b"):
     """(jax params, port params on the CPU, jax cfg, port cfg) from one seed;
     made once per process (nothing mutates them)."""
-    jcfg, tcfg = configs()
+    jcfg, tcfg = configs(arch)
     jparams = jmodel.init_params(jax.random.key(seed), jcfg)
     tparams = bridge.params_from_numpy(jax.tree.map(np.asarray, jparams), tcfg, "cpu")
     return jparams, tparams, jcfg, tcfg
@@ -51,7 +52,7 @@ def assert_bf16_close(got, want):
     np.testing.assert_allclose(as_np(got), as_np(want), rtol=BF16_RTOL, atol=BF16_ATOL)
 
 
-def engine_pair(threshold: float):
+def engine_pair(threshold: float, arch: str = "stablelm-1.6b"):
     """(JAX engine, port engine on the CPU) over the same bridged weights and
     edge network.  The port takes the JAX engine's strategy ``p`` and both
     take ``threshold`` at every exit branch, so control-plane float drift
@@ -69,7 +70,7 @@ def engine_pair(threshold: float):
     from repro_torch.core.types import DtoHyperParams as THyper
     from repro_torch.serving import CollaborativeEngine as TEngine
 
-    jparams, tparams, jcfg, tcfg = bridged_params(0)
+    jparams, tparams, jcfg, tcfg = bridged_params(0, arch)
     jp, tp = jprofile(jcfg), tprofile(tcfg)
     jeng = JEngine(
         jparams, jcfg, jnetwork(seed=0, profile=jp, spec=JSpec(num_eds=4, es_per_stage=(2, 2))),
