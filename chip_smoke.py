@@ -10,10 +10,11 @@ exits non-zero without the final result line:
   3. kernels vs their plain PyTorch versions at the serve's full-width shapes
      (stablelm-1.6b: d 2048, V 100352, 32 heads of 64; the prefill flash
      kernel also at glm4-9b's 32 query heads over 2 KV heads of 128 and at
-     a 2048-token prompt; both decode kernels also at glm4-9b's G 16, hd
-     128) plus edge cases; each gate must also reject faults planted on the
-     same inputs; the paged kernel is also held bit for bit to the dense
-     kernel on the gathered cache;
+     a 2048-token prompt with either's heads; both decode kernels also at
+     glm4-9b's G 16, hd 128, at the serve's lengths and on a 4096-key
+     cache split over the sequence) plus edge cases; each gate must also
+     reject faults planted on the same inputs; the paged kernel is also held
+     bit for bit to the dense kernel on the gathered cache;
   4. serve  — ``CollaborativeEngine.serve`` of 32 Poisson requests through
      full-width stablelm-1.6b (24 layers, random weights from a seed),
      cached decode, 16 tokens each; the launch counts of the exit, decode
@@ -36,8 +37,8 @@ exits non-zero without the final result line:
   7. times  — each kernel at the serve's shapes (device time from the
      profiler, cold L2) beside its bound, its plain version and one library
      yardstick (none computes the paged function in one call); the flash
-     kernel also at glm4-9b's heads and a 2048-token prompt, both decode
-     kernels also at glm4-9b's shapes.
+     kernel also at glm4-9b's heads and at 2048-token prompts, both decode
+     kernels also at glm4-9b's shapes and on its 4096-key cache.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits 2.
@@ -69,8 +70,12 @@ FLASH_SHAPES = (
     ("stablelm-1.6b's first prefill batch", 8, 104, 32, 32, 64),
     ("the same batch at glm4-9b's heads", 8, 104, 32, 2, 128),
     ("one 2048-token prompt", 1, 2048, 32, 32, 64),
+    ("one 2048-token prompt at glm4-9b's heads", 1, 2048, 32, 2, 128),
 )
 GLM_LENGTHS = [112, 105, 120, 97, 116, 110, 101, 114]  # glm4-9b decode rows
+# a long glm4-9b cache: several splits of the G 16 walk per row
+LONG_S = 4096
+LONG_LENGTHS = [4096, 3000, 3581, 3317, 4010, 3122, 3808, 3456]
 
 
 def phase(name: str) -> None:
@@ -85,20 +90,21 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def device_us(run) -> dict[str, float]:
-    """Device time in us, by name, of the kernels, copies and memsets that
-    ``run`` enqueues, as the profiler records them."""
+def device_us(run) -> dict[str, tuple[float, int]]:
+    """Device time in us and the number of launches, by name, of the
+    kernels, copies and memsets that ``run`` enqueues, as the profiler
+    records them."""
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=activities) as prof:
         run()
         torch.cuda.synchronize()
     # device-side rows only: the CPU ops that launched them carry the same
     # time again
-    return {e.key: e.self_device_time_total for e in prof.key_averages()
+    return {e.key: (e.self_device_time_total, e.count) for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA}
 
 
-def time_cold(fn, iters: int, flush: torch.Tensor) -> float:
+def time_cold(fn, iters: int, flush: torch.Tensor, tries: int = 3) -> float:
     """Mean device ms of ``fn`` over ``iters`` launches, each after the L2 is
     overwritten (the real caller finds it cold).  The time is the sum of the
     kernels' own durations, so the host's time in the wrapper is not in it.
@@ -106,7 +112,11 @@ def time_cold(fn, iters: int, flush: torch.Tensor) -> float:
     that a profile of the overwrites alone records.  (Taking off the time of
     a second profile of the overwrites instead lets their spread between
     profiles into the result, and that spread can exceed a short kernel's
-    whole time.)"""
+    whole time.)  The profiler loses a few launches of a profile now and
+    then (5 of 50 of the exit head's, for one), so each kernel counts as
+    its mean over the launches recorded times its launches per call; a
+    profile that recorded fewer than half of a timed kernel's launches, or
+    none, is taken again."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -121,10 +131,14 @@ def time_cold(fn, iters: int, flush: torch.Tensor) -> float:
             flush.zero_()
 
     overwrites = set(device_us(alone))
-    t = sum(us for key, us in device_us(both).items() if key not in overwrites)
-    if t <= 0:
-        raise RuntimeError("the profiler recorded no device time for the timed function")
-    return t / iters / 1e3
+    for _ in range(tries):
+        timed = {key: v for key, v in device_us(both).items() if key not in overwrites}
+        if timed and all(2 * n >= iters for _, n in timed.values()):
+            t = sum(us / n * max(1, round(n / iters)) for us, n in timed.values())
+            if t > 0:
+                return t / 1e3
+    raise RuntimeError(f"the profiler lost the timed function's device events {tries} times: "
+                       f"{ {key: n for key, (_, n) in timed.items()} } of {iters} calls")
 
 
 def bf16_close(a: torch.Tensor, b: torch.Tensor) -> tuple[bool, float, float]:
@@ -145,6 +159,19 @@ def conf_close(c: torch.Tensor, cr: torch.Tensor) -> tuple[bool, float, float]:
     return abs_err <= 1e-3 and rel_err <= 1e-4, abs_err, rel_err
 
 
+def kernel_name(raw: str) -> str:
+    """The `..._kernel` name inside a mangled entry: a run of digits giving
+    the length of the name that follows (a hash may precede the digits)."""
+    for m in re.finditer(r"\d+", raw):
+        run, end = m.group(), m.end()
+        for i in range(len(run)):
+            n = int(run[i:])
+            name = raw[end:end + n]
+            if len(name) == n and name.endswith("_kernel"):
+                return name
+    return raw
+
+
 def ptxas_lines(log: str):
     """(kernel<template args>, registers / smem / spills) per compiled entry."""
     name, spill = "?", ""
@@ -152,9 +179,8 @@ def ptxas_lines(log: str):
         m = re.search(r"entry function '(\w+)'", line)
         if m:
             raw = m.group(1)
-            base = re.findall(r"\d+([a-z_]+_kernel)", raw)
             args = ",".join(re.findall(r"Li(\d+)E", raw))
-            name, spill = f"{base[-1] if base else raw}<{args}>", ""
+            name, spill = f"{kernel_name(raw)}<{args}>", ""
         elif "spill" in line:
             spill = line.strip()
         elif "Used" in line:
@@ -427,6 +453,43 @@ def main() -> None:
           f"max|diff| {err32:.3g}; bitwise equal to the dense kernel {bitwise}; against the plain "
           f"version max|err| {err:.3g} (tol 2e-2)")
 
+    # both decode kernels on a long glm4-9b cache (S 4096): several splits of
+    # the G 16 walk per row, added by the combine; planted faults on the same
+    # inputs: the last split of every row dropped, and the combine skipped
+    split = kdec.SPLIT_KEYS
+    q, k, v, ln = dec_inputs(BATCH, LONG_S, g_hq, g_kvh, g_hd, LONG_LENGTHS)
+    o = kdec.decode_attention(q, k, v, ln)
+    want32 = ref.decode_attention_f32_scores_ref(q, k, v, ln)
+    err = float((o.float() - ref.decode_attention_ref(q, k, v, ln).float()).abs().max())
+    ok32, err32, _ = bf16_close(o, want32)
+    check(f"decode_attention glm4-9b long cache G=16 B={BATCH} S={LONG_S} lengths "
+          f"{min(LONG_LENGTHS)}..{max(LONG_LENGTHS)} ({len(kdec.split_bounds(min(LONG_LENGTHS)))}-"
+          f"{len(kdec.split_bounds(max(LONG_LENGTHS)))} splits of {split})", err <= 2e-2 and ok32,
+          f"max|err| {err:.3g} (tol 2e-2); against the f32-score plain version max|diff| {err32:.3g} "
+          f"(rtol 1.6e-2, atol 1e-2)")
+    skipped = torch.zeros_like(q)
+    kdec._launch(q, k, v, ln, skipped, combine=False)
+    for fault, out in (("the last split of every row dropped",
+                        kdec.decode_attention(q, k, v, (ln - 1) // split * split)),
+                       ("the combine over splits skipped", skipped)):
+        ok_f, err_f, out_f = bf16_close(out, want32)
+        check(f"decode_attention long-cache gate rejects a planted fault: {fault}", not ok_f,
+              f"max|diff| {err_f:.3g}, {out_f:.2%} of elements outside")
+    n_log_long = -(-LONG_S // BLOCK)
+    long_paged = paged_inputs(BATCH, g_hq, g_kvh, g_hd, BLOCK, LONG_LENGTHS, n_log_long)
+    o = kpaged.paged_decode_attention(*long_paged, seq_len=LONG_S)
+    ok, err32, bitwise = paged_gate(o, *long_paged, LONG_S)
+    check(f"paged_decode_attention glm4-9b long cache bs={BLOCK} n_logical={n_log_long}", ok,
+          f"against the f32-score plain version on the gathered cache max|diff| {err32:.3g}; "
+          f"bitwise equal to the dense kernel {bitwise}")
+    q, kp, vp, table, ln = long_paged
+    skipped = torch.zeros_like(q)
+    kpaged._launch(q, kp, vp, table, ln, skipped, combine=False)
+    want32 = ref.decode_attention_f32_scores_ref(q, gathered(kp, table, LONG_S), gathered(vp, table, LONG_S), ln)
+    ok_f, err_f, out_f = bf16_close(skipped, want32)
+    check("paged_decode_attention long-cache gate rejects a planted fault: the combine over splits "
+          "skipped", not ok_f, f"max|diff| {err_f:.3g}, {out_f:.2%} of elements outside")
+
     # prefill flash attention: element-wise at tests/test_kernels.py's bf16
     # tolerance (atol 2e-2) against the plain version on the same inputs
     def flash_inputs(B, Sq, Sk, hq, kvh, hd_):
@@ -460,6 +523,8 @@ def main() -> None:
             max_err["flash_attention"] = err
         if label == FLASH_SHAPES[1][0]:
             glm_flash = (q, k, v, want)
+        if label == FLASH_SHAPES[3][0]:
+            long_flash = (q, k, v, want)
     # planted faults on the kernel's inputs at glm4-9b's heads, each held to
     # the plain version on the true inputs
     q, k, v, want = glm_flash
@@ -474,6 +539,12 @@ def main() -> None:
         ok, err, out_share = flash_gate(kflash.flash_attention(q, kf, vf), want)
         check(f"flash_attention gate rejects a planted fault: {fault}", not ok,
               f"max|err| {err:.3g}, {out_share:.2%} of elements outside")
+    # and at 2048 tokens with glm4-9b's heads: the last 128-key tile dropped
+    q, k, v, want = long_flash
+    ok, err, out_share = flash_gate(kflash.flash_attention(q, k[:, :-128].contiguous(),
+                                                           v[:, :-128].contiguous()), want)
+    check("flash_attention gate rejects a planted fault at 2048 tokens: the last key tile dropped",
+          not ok, f"max|err| {err:.3g}, {out_share:.2%} of elements outside")
 
     # -- 4. full-width serve -------------------------------------------------
     phase("full-width serve")
@@ -695,7 +766,7 @@ def main() -> None:
               f"{busy_us / 1e6:.4f} s = {busy_us / 1e6 / wall_prof:.1%} of wall")
         for key, t in sorted(by_kernel, key=lambda kv: -kv[1])[:8]:
             print(f"  {t / busy_us:6.1%}  {t / 1e3:9.3f} ms  {key[:90]}")
-        flash_us = sum(t for key, t in by_kernel if "flash_mma_kernel" in key)
+        flash_us = sum(t for key, t in by_kernel if "flash_wgmma_kernel" in key)
         print(f"  flash_attention kernel: {flash_us / 1e3:.3f} ms = {flash_us / busy_us:.2%} of device "
               f"time")
     sys.stdout.flush()
@@ -1042,7 +1113,26 @@ def main() -> None:
           f"{max(b_bytes, b_ops):.5f} ms ({'bytes' if b_bytes >= b_ops else 'operations'}: "
           f"{bytes_ / 1e6:.3f} MB, {flops / 1e6:.1f} MFLOP)")
 
-    # prefill flash attention at the three shapes; the first is the entry
+    # both decode kernels on the long glm4-9b cache (S 4096)
+    q, k, v, ln = dec_inputs(BATCH, LONG_S, g_hq, g_kvh, g_hd, LONG_LENGTHS)
+    t_k = time_cold(lambda: kdec.decode_attention(q, k, v, ln), 100, flush)
+    t_pg = time_cold(lambda: kpaged.paged_decode_attention(*long_paged, seq_len=LONG_S), 100, flush)
+    t_p = time_cold(lambda: ref.decode_attention_ref(q, k, v, ln), 10, flush)
+    mask = (torch.arange(LONG_S, device=dev)[None, :] < ln[:, None])[:, None, None, :]
+    t_l = time_cold(lambda: F.scaled_dot_product_attention(
+        q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask, enable_gqa=True),
+        100, flush)
+    tot = int(sum(LONG_LENGTHS))
+    bytes_ = 2 * tot * g_kvh * g_hd * 2 + 2 * BATCH * g_hq * g_hd * 2 + BATCH * 4
+    flops = 4 * tot * g_hq * g_hd
+    b_bytes, b_ops = bytes_ / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOP_PER_S * 1e3
+    print(f"glm4-9b long-cache decode B={BATCH} S={LONG_S} Hq={g_hq} KVH={g_kvh} hd={g_hd} lengths "
+          f"{LONG_LENGTHS}: decode_attention {t_k:.4f} ms, paged_decode_attention (bs {BLOCK}) "
+          f"{t_pg:.4f} ms, plain {t_p:.4f} ms, library (SDPA, length mask, GQA) {t_l:.4f} ms, bound "
+          f"{max(b_bytes, b_ops):.5f} ms ({'bytes' if b_bytes >= b_ops else 'operations'}: "
+          f"{bytes_ / 1e6:.2f} MB, {flops / 1e6:.1f} MFLOP)")
+
+    # prefill flash attention at every timed shape; the first is the entry
     for label, B, S, hq, kvh, hd_ in FLASH_SHAPES:
         q, k, v = flash_inputs(B, S, S, hq, kvh, hd_)
 

@@ -1,10 +1,11 @@
 """Prefill flash attention: q [B, Sq, Hq, hd] against k, v [B, Sk, KVH, hd].
 
 The counterpart of ``repro.kernels.flash_attention``.  On a CUDA tensor the
-wrapper launches the hand-written kernel in ``csrc/flash_attention.cu`` (one
-CTA per (64 query rows, query head, batch row), online softmax over the key
-tiles of the causal/window band; tensor cores for bf16, CUDA cores for f32);
-on a CPU tensor it runs the plain version in ``ref``.  There is no other
+wrapper launches the hand-written kernel in ``csrc/flash_attention.cu``
+(bf16: one CTA per (128 query rows, query head, batch row), a producer warp
+loading K/V tiles by TMA and two consumer warpgroups on ``wgmma``; f32: CUDA
+cores; online softmax over the key tiles of the causal/window band); on a
+CPU tensor it runs the plain version in ``ref``.  There is no other
 path: a CUDA tensor the kernel cannot take raises.
 
 Positions are top-left: query i and key j sit at positions i and j, also

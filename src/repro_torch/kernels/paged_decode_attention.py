@@ -2,9 +2,9 @@
 
 The counterpart of ``repro.kernels.paged_decode_attention``.  On a CUDA
 tensor the wrapper launches the hand-written kernel in
-``csrc/paged_decode_attention.cu`` (one CTA per (row, KV head), the dense
-kernel's walk with each key row reached through ``table``); on a CPU tensor
-it runs the plain version in ``ref``.  There is no other path: a CUDA tensor
+``csrc/paged_decode_attention.cu`` (the dense kernel's walks, G <= 8 and
+G == 16, with each key row reached through ``table``); on a CPU tensor it
+runs the plain version in ``ref``.  There is no other path: a CUDA tensor
 the kernel cannot take raises.
 
 Key ``t`` of row ``b`` lives at pool row ``table[b, t // bs]``, offset
@@ -21,14 +21,14 @@ import math
 import torch
 
 from repro_torch.kernels import build, ref
-from repro_torch.kernels.decode_attention import GROUPS, HEAD_DIMS
+from repro_torch.kernels.decode_attention import GROUPS, HEAD_DIMS, SPLIT_KEYS, _ptr, split_scratch
 
 
 def _lib():
     lib = build.load("paged_decode_attention")
     fn = lib.paged_decode_attention_bf16
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -79,17 +79,29 @@ def paged_decode_attention(
             raise ValueError("paged_decode_attention: q, k_pool, v_pool must be 16-byte aligned")
     if seq_len is not None:
         lengths = lengths.clamp(max=seq_len)
-    fn = _lib()
     out = torch.empty((B, Hq, hd), dtype=torch.bfloat16, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(
+    _launch(q, k_pool, v_pool, table, lengths, out)
+    paged_decode_attention.launches += 1
+    return out
+
+
+def _launch(q, k_pool, v_pool, table, lengths, out, combine: bool = True) -> None:
+    """The C entry on checked inputs (``lengths`` already cut at
+    ``seq_len``).  ``combine=False`` leaves out the G 16 combine over
+    splits: a planted fault for the card's gates."""
+    B, Hq, hd = q.shape
+    bs, KVH = k_pool.shape[1], k_pool.shape[2]
+    n_logical = table.shape[1]
+    part_o, part_lse = (split_scratch(B, n_logical * bs, KVH, hd, q.device) if Hq // KVH == 16
+                        else (None, None))
+    err = _lib()(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), table.data_ptr(), lengths.data_ptr(),
-        out.data_ptr(), B, table.shape[1], bs, KVH, G, hd, float(1.0 / math.sqrt(hd)), stream,
+        out.data_ptr(), _ptr(part_o), _ptr(part_lse), B, n_logical, bs, KVH, Hq // KVH, hd,
+        SPLIT_KEYS, int(combine), float(1.0 / math.sqrt(hd)),
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"paged_decode_attention kernel launch failed: cudaError {err}")
-    paged_decode_attention.launches += 1
-    return out
 
 
 paged_decode_attention.launches = 0

@@ -175,6 +175,43 @@ def test_exit_confidence_tie_takes_first_index():
 
 
 # ---------------------------------------------------------------------------
+# the G 16 walk's split plan
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("length", [0, 1, 31, 32, 511, 512, 513, 1024, 1100, 4096, 4097])
+def test_split_plan_tiles_the_row_and_depends_on_its_length_alone(length):
+    """The G 16 walk's splits cover [0, length) exactly, in order, from
+    absolute multiples of SPLIT_KEYS, so a row's splits (and so its output)
+    depend on its length alone, never on the cache size S; the scratch of an
+    S-position cache holds every split a row of length <= S can have."""
+    spans = tdec.split_bounds(length)
+    assert spans[0][0] == 0 and spans[-1][1] == length
+    assert all(end == start for (_, end), (start, _) in zip(spans, spans[1:]))
+    assert all(start % tdec.SPLIT_KEYS == 0 and 0 < end - start <= tdec.SPLIT_KEYS
+               for start, end in spans) or spans == [(0, 0)]
+    assert len(spans) == max(1, -(-length // tdec.SPLIT_KEYS))
+    for S in {max(length, 1), length + 1, 4 * length + 7}:
+        part_o, part_lse = tdec.split_scratch(2, S, 2, 32, "cpu")
+        n = 1 if part_o is None else part_o.shape[2]
+        assert n == len(tdec.split_bounds(S)) >= len(spans)
+        if part_o is not None:
+            assert part_o.shape == (2, 2, n, 16, 32) and part_lse.shape == (2, 2, n, 16)
+
+
+def test_split_size_is_a_multiple_of_the_walks_warp_tile():
+    """The CUDA walk refuses a split that is not a multiple of its warp tile
+    (``WT`` in ``csrc/decode_attention_core.cuh``)."""
+    import re
+
+    from repro_torch.kernels import build
+
+    src = (build.CSRC / "decode_attention_core.cuh").read_text()
+    wt = int(re.search(r"constexpr int WT = (\d+);", src).group(1))
+    assert tdec.SPLIT_KEYS >= wt and tdec.SPLIT_KEYS % wt == 0
+
+
+# ---------------------------------------------------------------------------
 # dispatch
 # ---------------------------------------------------------------------------
 

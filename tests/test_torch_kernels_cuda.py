@@ -12,7 +12,9 @@ at V = 100352 the atol alone passes a head that drops vocab tiles.  Paged
 decode attention is held to the same element-wise gate on the gathered
 cache, and to the dense kernel bit for bit.  Prefill flash attention is held
 element-wise to its plain version at bf16 2e-2 and f32 2e-5, and its gate is
-shown to reject three planted faults.
+shown to reject three planted faults.  The G 16 decode walk (tensor cores,
+split over the sequence) is held to the same gates at the split's edges, and
+its gate is shown to reject a dropped last split and a skipped combine.
 """
 import math
 
@@ -225,6 +227,84 @@ def test_paged_decode_attention_rejects_what_it_cannot_take(cuda):
 
 
 # ---------------------------------------------------------------------------
+# decode attention at G 16: tensor cores, split over the sequence
+# ---------------------------------------------------------------------------
+
+SPLIT = tdec.SPLIT_KEYS
+
+
+def _g16_case(gen, dev, lengths, S, hd=128):
+    """glm4-9b's heads: 32 query heads over 2 KV heads."""
+    B = len(lengths)
+    return (_randn((B, 32, hd), gen, dev), _randn((B, S, 2, hd), gen, dev),
+            _randn((B, S, 2, hd), gen, dev), torch.tensor(lengths, dtype=torch.int32, device=dev))
+
+
+def _assert_g16_gates(got, q, k, v, lengths):
+    """Element-wise against the f32-score plain version, and at 2e-2 against
+    the plain version on the rows that have keys."""
+    want32 = ref.decode_attention_f32_scores_ref(q, k, v, lengths)
+    torch.testing.assert_close(got.float(), want32.float(), rtol=1.6e-2, atol=1e-2)
+    nz = lengths > 0
+    torch.testing.assert_close(got[nz].float(), ref.decode_attention_ref(q, k, v, lengths)[nz].float(),
+                               rtol=0, atol=2e-2)
+
+
+@pytest.mark.parametrize("hd", [32, 64, 128])
+def test_decode_attention_g16_split_edges_match_plain(cuda, hd):
+    """Lengths 0, 1, the split size, one past it and a whole 4096-key cache:
+    one split and no combine, two splits, eight."""
+    gen = torch.Generator(device=cuda).manual_seed(20)
+    q, k, v, ln = _g16_case(gen, cuda, [0, 1, SPLIT, SPLIT + 1, 4096, 3000], 4096, hd)
+    n0 = tdec.decode_attention.launches
+    got = tdec.decode_attention(q, k, v, ln)
+    torch.cuda.synchronize()
+    assert tdec.decode_attention.launches == n0 + 1
+    assert torch.all(got[0] == 0)  # an empty cache row returns zeros
+    _assert_g16_gates(got, q, k, v, ln)
+
+
+@pytest.mark.parametrize("bs", [16, 3, 1])
+def test_paged_decode_attention_g16_bitwise_equal_to_dense(cuda, bs):
+    gen = torch.Generator(device=cuda).manual_seed(21)
+    lengths = [4096, 3000, SPLIT + 1, 1, 0, 700, SPLIT, 2049]
+    case = _paged_case(gen, cuda, 32, 2, 128, bs, lengths)
+    got = _assert_paged_gates(*case, seq_len=max(lengths))
+    assert torch.all(got[4] == 0)
+
+
+def test_decode_attention_g16_row_does_not_depend_on_batch_or_cache_size(cuda):
+    """A row is bitwise the same alone, with a cache cut just past its length,
+    as inside a batch of 8 with a 4096-key cache: its splits depend on its
+    own length only."""
+    gen = torch.Generator(device=cuda).manual_seed(22)
+    q, k, v, ln = _g16_case(gen, cuda, [3000, 1100, 97, 4096, 513, 0, 2048, 777], 4096)
+    full = tdec.decode_attention(q, k, v, ln)
+    for b in range(8):
+        S_b = max(int(ln[b]), 1) + 5
+        alone = tdec.decode_attention(q[b:b + 1], k[b:b + 1, :S_b].contiguous(),
+                                      v[b:b + 1, :S_b].contiguous(), ln[b:b + 1])
+        assert torch.equal(alone, full[b:b + 1]), f"row {b}"
+
+
+def test_decode_attention_g16_gate_rejects_planted_faults(cuda):
+    """Each fault fails the element-wise gate against the f32-score plain
+    version: the last split of every row with more than one dropped, and the
+    combine over splits skipped (those rows keep the zeros they were given)."""
+    gen = torch.Generator(device=cuda).manual_seed(23)
+    q, k, v, ln = _g16_case(gen, cuda, [4096, 3000, 1500, SPLIT + 1], 4096)
+    want32 = ref.decode_attention_f32_scores_ref(q, k, v, ln).float()
+    torch.testing.assert_close(tdec.decode_attention(q, k, v, ln).float(), want32,
+                               rtol=1.6e-2, atol=1e-2)
+    dropped = tdec.decode_attention(q, k, v, (ln - 1) // SPLIT * SPLIT)
+    skipped = torch.zeros_like(q)
+    tdec._launch(q, k, v, ln, skipped, combine=False)
+    for fault in (dropped, skipped):
+        with pytest.raises(AssertionError):
+            torch.testing.assert_close(fault.float(), want32, rtol=1.6e-2, atol=1e-2)
+
+
+# ---------------------------------------------------------------------------
 # exit confidence
 # ---------------------------------------------------------------------------
 
@@ -356,6 +436,36 @@ def test_flash_attention_matches_plain(cuda, B, Sq, Sk, Hq, KVH, hd, causal, win
     assert got.dtype == dtype and got.shape == q.shape
     want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=FLASH_TOL[dtype])
+
+
+@pytest.mark.parametrize(
+    "B,Sq,Sk,Hq,KVH,hd,causal,window",
+    [
+        # query lengths that are not multiples of the 128-row work tile
+        (2, 129, 129, 4, 4, 32, True, None),
+        (2, 129, 129, 4, 4, 64, True, None),
+        (2, 129, 129, 4, 4, 128, True, None),
+        (2, 200, 200, 8, 2, 32, True, None),
+        (2, 200, 200, 8, 2, 64, True, None),
+        (2, 200, 200, 8, 2, 128, True, None),
+        # Sk > Sq, top-left positions
+        (2, 129, 400, 4, 4, 64, True, None),
+        (1, 200, 600, 4, 4, 128, True, None),
+        # windows whose bounds cross the 128-key tiles
+        (1, 300, 300, 4, 4, 64, True, 130),
+        (1, 200, 600, 4, 4, 128, False, 130),
+        (2, 257, 257, 4, 2, 32, True, 129),
+        # glm4-9b's GQA 16 at 2048 tokens
+        (1, 2048, 2048, 32, 2, 128, True, None),
+    ],
+)
+def test_flash_attention_wgmma_tiles_match_plain(cuda, B, Sq, Sk, Hq, KVH, hd, causal, window):
+    gen = torch.Generator(device=cuda).manual_seed(14)
+    q, k, v = _flash_case(gen, cuda, B, Sq, Sk, Hq, KVH, hd)
+    got = tflash.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=2e-2)
 
 
 def test_flash_attention_gate_rejects_planted_faults(cuda):
