@@ -11,16 +11,17 @@ exits non-zero without the final result line:
      (stablelm-1.6b: d 2048, V 100352, 32 heads of 64; the prefill flash
      kernel also at glm4-9b's 32 query heads over 2 KV heads of 128 and at
      a 2048-token prompt with either's heads; both decode kernels also at
-     glm4-9b's G 16, hd 128, at the serve's lengths and on a 4096-key
-     cache split over the sequence) plus edge cases; each gate must also
-     reject faults planted on the same inputs; the paged kernel is also held
-     bit for bit to the dense kernel on the gathered cache;
+     glm4-9b's G 16, hd 128, at the serve's lengths, and at either's heads
+     on a 4096-key cache split over the sequence) plus edge cases; each gate
+     must also reject faults planted on the same inputs; the paged kernel is
+     also held bit for bit to the dense kernel on the gathered cache;
   4. serve  — ``CollaborativeEngine.serve`` of 32 Poisson requests through
      full-width stablelm-1.6b (24 layers, random weights from a seed),
      cached decode, 16 tokens each; the launch counts of the exit, decode
      and flash kernels over this run must be non-zero; then one full-width
      ``stage_decode`` with the kernels forced off and on, compared, and
-     against the f32-score plain attention and two planted faults; one
+     against the f32-score plain attention (six layers norm-wise, and each
+     layer's attention output element-wise) and two planted faults; one
      full-width ``stage_prefill`` with the kernels forced off and on, and
      two planted faults; the same serve with full batches; and a short serve
      under ``torch.profiler`` (device busy share, device time by kernel);
@@ -36,9 +37,12 @@ exits non-zero without the final result line:
      paged serve's tokens and exits equal the dense serve's;
   7. times  — each kernel at the serve's shapes (device time from the
      profiler, cold L2) beside its bound, its plain version and one library
-     yardstick (none computes the paged function in one call); the flash
-     kernel also at glm4-9b's heads and at 2048-token prompts, both decode
-     kernels also at glm4-9b's shapes and on its 4096-key cache.
+     yardstick (none computes the paged function in one call; the exit head
+     and its yardstick timed in turns, medians of 4); the flash kernel also
+     at glm4-9b's heads and at 2048-token prompts (at B 8 in turns with
+     SDPA, medians of 4, each reading with its launches' spread), both
+     decode kernels also at glm4-9b's shapes and on the 4096-key cache at
+     either's heads.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits 2.
@@ -73,7 +77,7 @@ FLASH_SHAPES = (
     ("one 2048-token prompt at glm4-9b's heads", 1, 2048, 32, 2, 128),
 )
 GLM_LENGTHS = [112, 105, 120, 97, 116, 110, 101, 114]  # glm4-9b decode rows
-# a long glm4-9b cache: several splits of the G 16 walk per row
+# a long cache: several splits of the decode walk per row
 LONG_S = 4096
 LONG_LENGTHS = [4096, 3000, 3581, 3317, 4010, 3122, 3808, 3456]
 
@@ -90,33 +94,48 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def device_us(run) -> dict[str, tuple[float, int]]:
-    """Device time in us and the number of launches, by name, of the
-    kernels, copies and memsets that ``run`` enqueues, as the profiler
-    records them."""
+def device_launches(run) -> dict[str, list[float]]:
+    """The duration in us of each launch, by name, of the kernels, copies
+    and memsets that ``run`` enqueues, as the profiler records them."""
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=activities) as prof:
         run()
         torch.cuda.synchronize()
-    # device-side rows only: the CPU ops that launched them carry the same
+    # device-side events only: the CPU ops that launched them carry the same
     # time again
-    return {e.key: (e.self_device_time_total, e.count) for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA}
+    out = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            out.setdefault(e.key, []).append(e.self_device_time_total)
+    return out
 
 
-def time_cold(fn, iters: int, flush: torch.Tensor, tries: int = 3) -> float:
+def launch_summary(stats: dict) -> str:
+    """One line of ``time_cold``'s ``stats``: per timed name, its launches
+    and their min / median / max us, and the overwrites the same profile
+    recorded."""
+    return "; ".join(
+        [f"{kernel_name(key)[:40]} x{len(d)} {min(d):.2f}/{np.median(d):.2f}/{max(d):.2f} us"
+         for key, d in stats["launches"].items()] + [f"overwrites recorded x{stats['overwrites']}"])
+
+
+def time_cold(fn, iters: int, flush: torch.Tensor, tries: int = 3, stats: dict | None = None) -> float:
     """Mean device ms of ``fn`` over ``iters`` launches, each after the L2 is
     overwritten (the real caller finds it cold).  The time is the sum of the
     kernels' own durations, so the host's time in the wrapper is not in it.
     The overwrites are left out by name, within the same profile: the names
-    that a profile of the overwrites alone records.  (Taking off the time of
-    a second profile of the overwrites instead lets their spread between
-    profiles into the result, and that spread can exceed a short kernel's
-    whole time.)  The profiler loses a few launches of a profile now and
-    then (5 of 50 of the exit head's, for one), so each kernel counts as
-    its mean over the launches recorded times its launches per call; a
-    profile that recorded fewer than half of a timed kernel's launches, or
-    none, is taken again."""
+    that a profile of the overwrites alone records at least ``iters / 2``
+    times.  (Taking off the time of a second profile of the overwrites
+    instead lets their spread between profiles into the result, and that
+    spread can exceed a short kernel's whole time.)  The profiler loses a
+    few launches of a profile now and then (5 of 50 of the exit head's, for
+    one), so each kernel counts as its mean over the launches recorded times
+    its launches per call.  A profile is taken again that recorded fewer
+    than half of the overwrites or of a timed kernel's launches: one whose
+    overwrites went unrecognised once counted a 64 MB overwrite into a
+    reading.  ``stats``, when given, receives each timed name's per-launch
+    durations (us) and the number of overwrites the profile recorded (see
+    ``launch_summary``)."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -130,15 +149,25 @@ def time_cold(fn, iters: int, flush: torch.Tensor, tries: int = 3) -> float:
         for _ in range(iters):
             flush.zero_()
 
-    overwrites = set(device_us(alone))
     for _ in range(tries):
-        timed = {key: v for key, v in device_us(both).items() if key not in overwrites}
-        if timed and all(2 * n >= iters for _, n in timed.values()):
-            t = sum(us / n * max(1, round(n / iters)) for us, n in timed.values())
+        overwrites = {key for key, v in device_launches(alone).items() if 2 * len(v) >= iters}
+        if overwrites:
+            break
+    else:
+        raise RuntimeError(f"the profiler lost the overwrites' device events {tries} times")
+    for _ in range(tries):
+        every = device_launches(both)
+        timed = {key: v for key, v in every.items() if key not in overwrites}
+        n_over = sum(len(v) for key, v in every.items() if key in overwrites)
+        if timed and 2 * n_over >= iters and all(2 * len(v) >= iters for v in timed.values()):
+            t = sum(sum(v) / len(v) * max(1, round(len(v) / iters)) for v in timed.values())
             if t > 0:
+                if stats is not None:
+                    stats.update(launches=timed, overwrites=n_over)
                 return t / 1e3
     raise RuntimeError(f"the profiler lost the timed function's device events {tries} times: "
-                       f"{ {key: n for key, (_, n) in timed.items()} } of {iters} calls")
+                       f"{ {key: len(v) for key, v in timed.items()} } of {iters} calls, "
+                       f"{n_over} overwrites")
 
 
 def bf16_close(a: torch.Tensor, b: torch.Tensor) -> tuple[bool, float, float]:
@@ -453,42 +482,50 @@ def main() -> None:
           f"max|diff| {err32:.3g}; bitwise equal to the dense kernel {bitwise}; against the plain "
           f"version max|err| {err:.3g} (tol 2e-2)")
 
-    # both decode kernels on a long glm4-9b cache (S 4096): several splits of
-    # the G 16 walk per row, added by the combine; planted faults on the same
-    # inputs: the last split of every row dropped, and the combine skipped
+    # both decode kernels on a long cache (S 4096), at glm4-9b's heads (G 16)
+    # and at stablelm-1.6b's (G 1): several splits of the walk per row, added
+    # by the combine; planted faults on the same inputs: the last split of
+    # every row dropped, and the combine skipped
     split = kdec.SPLIT_KEYS
-    q, k, v, ln = dec_inputs(BATCH, LONG_S, g_hq, g_kvh, g_hd, LONG_LENGTHS)
-    o = kdec.decode_attention(q, k, v, ln)
-    want32 = ref.decode_attention_f32_scores_ref(q, k, v, ln)
-    err = float((o.float() - ref.decode_attention_ref(q, k, v, ln).float()).abs().max())
-    ok32, err32, _ = bf16_close(o, want32)
-    check(f"decode_attention glm4-9b long cache G=16 B={BATCH} S={LONG_S} lengths "
-          f"{min(LONG_LENGTHS)}..{max(LONG_LENGTHS)} ({len(kdec.split_bounds(min(LONG_LENGTHS)))}-"
-          f"{len(kdec.split_bounds(max(LONG_LENGTHS)))} splits of {split})", err <= 2e-2 and ok32,
-          f"max|err| {err:.3g} (tol 2e-2); against the f32-score plain version max|diff| {err32:.3g} "
-          f"(rtol 1.6e-2, atol 1e-2)")
-    skipped = torch.zeros_like(q)
-    kdec._launch(q, k, v, ln, skipped, combine=False)
-    for fault, out in (("the last split of every row dropped",
-                        kdec.decode_attention(q, k, v, (ln - 1) // split * split)),
-                       ("the combine over splits skipped", skipped)):
-        ok_f, err_f, out_f = bf16_close(out, want32)
-        check(f"decode_attention long-cache gate rejects a planted fault: {fault}", not ok_f,
-              f"max|diff| {err_f:.3g}, {out_f:.2%} of elements outside")
     n_log_long = -(-LONG_S // BLOCK)
-    long_paged = paged_inputs(BATCH, g_hq, g_kvh, g_hd, BLOCK, LONG_LENGTHS, n_log_long)
-    o = kpaged.paged_decode_attention(*long_paged, seq_len=LONG_S)
-    ok, err32, bitwise = paged_gate(o, *long_paged, LONG_S)
-    check(f"paged_decode_attention glm4-9b long cache bs={BLOCK} n_logical={n_log_long}", ok,
-          f"against the f32-score plain version on the gathered cache max|diff| {err32:.3g}; "
-          f"bitwise equal to the dense kernel {bitwise}")
-    q, kp, vp, table, ln = long_paged
-    skipped = torch.zeros_like(q)
-    kpaged._launch(q, kp, vp, table, ln, skipped, combine=False)
-    want32 = ref.decode_attention_f32_scores_ref(q, gathered(kp, table, LONG_S), gathered(vp, table, LONG_S), ln)
-    ok_f, err_f, out_f = bf16_close(skipped, want32)
-    check("paged_decode_attention long-cache gate rejects a planted fault: the combine over splits "
-          "skipped", not ok_f, f"max|diff| {err_f:.3g}, {out_f:.2%} of elements outside")
+    long_heads = {"glm4-9b": (g_hq, g_kvh, g_hd), "stablelm-1.6b": (Hq, KVH, hd)}
+    long_paged = {}
+    for name, (hq, kvh, hd_) in long_heads.items():
+        G = hq // kvh
+        q, k, v, ln = dec_inputs(BATCH, LONG_S, hq, kvh, hd_, LONG_LENGTHS)
+        o = kdec.decode_attention(q, k, v, ln)
+        want32 = ref.decode_attention_f32_scores_ref(q, k, v, ln)
+        err = float((o.float() - ref.decode_attention_ref(q, k, v, ln).float()).abs().max())
+        ok32, err32, _ = bf16_close(o, want32)
+        check(f"decode_attention {name} long cache G={G} B={BATCH} S={LONG_S} Hq={hq} KVH={kvh} "
+              f"hd={hd_} lengths {min(LONG_LENGTHS)}..{max(LONG_LENGTHS)} "
+              f"({len(kdec.split_bounds(min(LONG_LENGTHS)))}-{len(kdec.split_bounds(max(LONG_LENGTHS)))} "
+              f"splits of {split})", err <= 2e-2 and ok32,
+              f"max|err| {err:.3g} (tol 2e-2); against the f32-score plain version max|diff| {err32:.3g} "
+              f"(rtol 1.6e-2, atol 1e-2)")
+        skipped = torch.zeros_like(q)
+        kdec._launch(q, k, v, ln, skipped, combine=False)
+        for fault, out in (("the last split of every row dropped",
+                            kdec.decode_attention(q, k, v, (ln - 1) // split * split)),
+                           ("the combine over splits skipped", skipped)):
+            ok_f, err_f, out_f = bf16_close(out, want32)
+            check(f"decode_attention {name} long-cache gate rejects a planted fault: {fault}", not ok_f,
+                  f"max|diff| {err_f:.3g}, {out_f:.2%} of elements outside")
+        del q, k, v
+        long_paged[name] = paged_inputs(BATCH, hq, kvh, hd_, BLOCK, LONG_LENGTHS, n_log_long)
+        o = kpaged.paged_decode_attention(*long_paged[name], seq_len=LONG_S)
+        ok, err32, bitwise = paged_gate(o, *long_paged[name], LONG_S)
+        check(f"paged_decode_attention {name} long cache G={G} bs={BLOCK} n_logical={n_log_long}", ok,
+              f"against the f32-score plain version on the gathered cache max|diff| {err32:.3g}; "
+              f"bitwise equal to the dense kernel {bitwise}")
+        q, kp, vp, table, ln = long_paged[name]
+        skipped = torch.zeros_like(q)
+        kpaged._launch(q, kp, vp, table, ln, skipped, LONG_S, combine=False)
+        want32 = ref.decode_attention_f32_scores_ref(q, gathered(kp, table, LONG_S),
+                                                     gathered(vp, table, LONG_S), ln)
+        ok_f, err_f, out_f = bf16_close(skipped, want32)
+        check(f"paged_decode_attention {name} long-cache gate rejects a planted fault: the combine "
+              f"over splits skipped", not ok_f, f"max|diff| {err_f:.3g}, {out_f:.2%} of elements outside")
 
     # prefill flash attention: element-wise at tests/test_kernels.py's bf16
     # tolerance (atol 2e-2) against the plain version on the same inputs
@@ -636,15 +673,26 @@ def main() -> None:
           f"exit conf max|diff| {float((c_c - c_t).abs().max()):.3g}")
 
     # The gate with a margin: the same stage with the f32-score plain
-    # version in place of the kernel.  It shares the kernel's rounding, so
-    # the attention outputs differ by at most one bf16 ulp (f32 summation
-    # order); six bf16 layers still carry those flips past the element-wise
-    # tolerance where the residual stream cancels, so the gate is norm-wise
-    # at two bf16 ulps (2^-7) plus equal exit-head tokens.  Planted faults on
-    # the same inputs must fail it.
-    def stage_with(decode_fn):
+    # version in place of the kernel.  It shares the kernel's f32 scores;
+    # the kernel also rounds P to bf16 for P.V, as the Pallas body does
+    # (against each warp's running max), so the attention outputs differ by
+    # up to one bf16 ulp in many elements.  Six bf16 layers carry those
+    # flips past the element-wise tolerance where the residual stream
+    # cancels, so the gate is norm-wise at two bf16 ulps (2^-7) plus equal
+    # exit-head tokens.  Planted faults on the same inputs must fail it.
+    # Beside it, a gate with the kernel gate's margin: each layer's attention
+    # output element-wise at the bf16 tolerance against the f32-score plain
+    # version on that layer's own inputs (`layers` collects the verdicts).
+    def stage_with(decode_fn, layers=None):
         kept = ops.decode_attention
-        ops.decode_attention = decode_fn
+
+        def recorded(q_, k_, v_, n_):
+            o_ = decode_fn(q_, k_, v_, n_)
+            if layers is not None:
+                layers.append(bf16_close(o_, ref.decode_attention_f32_scores_ref(q_, k_, v_, n_)))
+            return o_
+
+        ops.decode_attention = recorded
         try:
             st = tuple({k: t.clone() for k, t in dct.items()} for dct in store)
             y = programs.stage_decode(2, x_dec, st, slots)
@@ -660,9 +708,22 @@ def main() -> None:
                      f"{torch.equal(i, i_f)}; element-wise max|diff| {dmax_:.3g}, {outside_:.2%} of "
                      f"elements outside rtol 1.6e-2/atol 1e-2")
 
+    n_layers = cfg.stage_periods()[1]
+
+    def layer_gate(layers):
+        ok_ = len(layers) == n_layers and all(ok for ok, _, _ in layers)
+        return ok_, (f"{sum(ok for ok, _, _ in layers)} of {len(layers)} layers' attention outputs "
+                     f"within the bf16 tolerance of the f32-score plain version on their own inputs "
+                     f"(want {n_layers}); max|diff| {max(e for _, e, _ in layers):.3g}, up to "
+                     f"{max(s for _, _, s in layers):.2%} of a layer's elements outside")
+
     y_f, i_f = stage_with(ref.decode_attention_f32_scores_ref)
+    kernel_layers = []
+    stage_with(kdec.decode_attention, kernel_layers)
     verdicts = [("stage_decode f32-score plain vs cuda (stage 2, 6 layers)", True,
-                 *stage_gate(y_c, i_c))]
+                 *stage_gate(y_c, i_c)),
+                ("stage_decode each layer's attention, cuda vs f32-score plain", True,
+                 *layer_gate(kernel_layers))]
     faults = {
         "current token dropped (lengths - 1)":
             lambda q_, k_, v_, n_: kdec.decode_attention(q_, k_, v_, n_ - 1),
@@ -671,10 +732,17 @@ def main() -> None:
                 1, torch.tensor([Hq - 1], device=dev), 0),
     }
     for fault, fn in faults.items():
+        fault_layers = []
+        y_, i_ = stage_with(fn, fault_layers)
         verdicts.append((f"stage_decode gate rejects a planted fault: {fault}", False,
-                         *stage_gate(*stage_with(fn))))
+                         *stage_gate(y_, i_)))
+        verdicts.append((f"stage_decode per-layer gate rejects a planted fault: {fault}", False,
+                         *layer_gate(fault_layers)))
     _, detail = stage_gate(y_t, i_t)
     print(f"  info stage_decode plain (bf16 scores) against the f32-score plain: {detail}")
+    plain_layers = []
+    stage_with(ref.decode_attention_ref, plain_layers)
+    print(f"  info the plain version (bf16 scores) in the per-layer gate: {layer_gate(plain_layers)[1]}")
     for name, want, ok, detail in verdicts:  # every reading printed before any raises
         print(f"  {'ok  ' if ok == want else 'FAIL'} {name}: {detail}", flush=True)
     failed = [name for name, want, ok, _ in verdicts if ok != want]
@@ -755,7 +823,7 @@ def main() -> None:
         engine.serve(prompts[:BATCH], batch_size=BATCH, gen_len=4, decode_mode="cached")
         torch.cuda.synchronize()
         wall_prof = time.perf_counter() - t0
-    # device-side rows only, as in device_us
+    # device-side rows only, as in device_launches
     by_kernel = [(e.key, e.self_device_time_total) for e in prof.key_averages()
                  if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
     busy_us = sum(t for _, t in by_kernel)
@@ -1002,15 +1070,24 @@ def main() -> None:
         logits = torch.matmul(h, w_lm).float()
         return logits.max(-1).values, torch.logsumexp(logits, -1), logits.argmax(-1)
 
-    t_k = time_cold(lambda: kexit.exit_confidence(h, w_lm), 50, flush)
+    # the kernel and its library yardstick in turns (kernel, library,
+    # library, kernel, twice): the medians of 4 readings each
+    head_ms = {"kernel": [], "library": []}
+    for _ in range(2):
+        for tag, fn in (("kernel", lambda: kexit.exit_confidence(h, w_lm)), ("library", library_head),
+                        ("library", library_head), ("kernel", lambda: kexit.exit_confidence(h, w_lm))):
+            head_ms[tag].append(time_cold(fn, 50, flush))
+    t_k, t_l = (float(np.median(head_ms[tag])) for tag in ("kernel", "library"))
     t_p = time_cold(lambda: ref.exit_confidence_ref(h, w_lm), 10, flush)
-    t_l = time_cold(library_head, 50, flush)
     bytes_ = d * V * 2 + BATCH * d * 2 + BATCH * 8
     flops = 2 * BATCH * d * V
     b_bytes, b_ops = bytes_ / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOP_PER_S * 1e3
     print(f"exit_confidence B={BATCH} d={d} V={V}: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
           f"library (bf16 matmul + max/logsumexp/argmax) {t_l:.4f} ms, bound {max(b_bytes, b_ops):.4f} ms "
           f"({'bytes' if b_bytes >= b_ops else 'operations'}: {bytes_ / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+    print("  in turns, ms: " + "; ".join(
+        f"{tag} {' '.join(f'{t:.5f}' for t in ts)} (median {np.median(ts):.5f}, spread "
+        f"{max(ts) - min(ts):.5f})" for tag, ts in head_ms.items()))
     h1 = h[:1].contiguous()
     t_k1 = time_cold(lambda: kexit.exit_confidence(h1, w_lm), 50, flush)
     print(f"exit_confidence B=1: kernel {t_k1:.4f} ms")
@@ -1113,27 +1190,34 @@ def main() -> None:
           f"{max(b_bytes, b_ops):.5f} ms ({'bytes' if b_bytes >= b_ops else 'operations'}: "
           f"{bytes_ / 1e6:.3f} MB, {flops / 1e6:.1f} MFLOP)")
 
-    # both decode kernels on the long glm4-9b cache (S 4096)
-    q, k, v, ln = dec_inputs(BATCH, LONG_S, g_hq, g_kvh, g_hd, LONG_LENGTHS)
-    t_k = time_cold(lambda: kdec.decode_attention(q, k, v, ln), 100, flush)
-    t_pg = time_cold(lambda: kpaged.paged_decode_attention(*long_paged, seq_len=LONG_S), 100, flush)
-    t_p = time_cold(lambda: ref.decode_attention_ref(q, k, v, ln), 10, flush)
-    mask = (torch.arange(LONG_S, device=dev)[None, :] < ln[:, None])[:, None, None, :]
-    t_l = time_cold(lambda: F.scaled_dot_product_attention(
-        q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask, enable_gqa=True),
-        100, flush)
-    tot = int(sum(LONG_LENGTHS))
-    bytes_ = 2 * tot * g_kvh * g_hd * 2 + 2 * BATCH * g_hq * g_hd * 2 + BATCH * 4
-    flops = 4 * tot * g_hq * g_hd
-    b_bytes, b_ops = bytes_ / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOP_PER_S * 1e3
-    print(f"glm4-9b long-cache decode B={BATCH} S={LONG_S} Hq={g_hq} KVH={g_kvh} hd={g_hd} lengths "
-          f"{LONG_LENGTHS}: decode_attention {t_k:.4f} ms, paged_decode_attention (bs {BLOCK}) "
-          f"{t_pg:.4f} ms, plain {t_p:.4f} ms, library (SDPA, length mask, GQA) {t_l:.4f} ms, bound "
-          f"{max(b_bytes, b_ops):.5f} ms ({'bytes' if b_bytes >= b_ops else 'operations'}: "
-          f"{bytes_ / 1e6:.2f} MB, {flops / 1e6:.1f} MFLOP)")
+    # both decode kernels on the long cache (S 4096), at glm4-9b's heads and
+    # at stablelm-1.6b's
+    for name, (hq, kvh, hd_) in long_heads.items():
+        q, k, v, ln = dec_inputs(BATCH, LONG_S, hq, kvh, hd_, LONG_LENGTHS)
+        t_k = time_cold(lambda: kdec.decode_attention(q, k, v, ln), 100, flush)
+        t_pg = time_cold(lambda: kpaged.paged_decode_attention(*long_paged[name], seq_len=LONG_S),
+                         100, flush)
+        t_p = time_cold(lambda: ref.decode_attention_ref(q, k, v, ln), 10, flush)
+        mask = (torch.arange(LONG_S, device=dev)[None, :] < ln[:, None])[:, None, None, :]
+        t_l = time_cold(lambda: F.scaled_dot_product_attention(
+            q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask, enable_gqa=True),
+            100, flush)
+        tot = int(sum(LONG_LENGTHS))
+        bytes_ = 2 * tot * kvh * hd_ * 2 + 2 * BATCH * hq * hd_ * 2 + BATCH * 4
+        flops = 4 * tot * hq * hd_
+        b_bytes, b_ops = bytes_ / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOP_PER_S * 1e3
+        print(f"{name} long-cache decode G={hq // kvh} B={BATCH} S={LONG_S} Hq={hq} KVH={kvh} hd={hd_} "
+              f"lengths {LONG_LENGTHS}: decode_attention {t_k:.4f} ms, paged_decode_attention (bs "
+              f"{BLOCK}) {t_pg:.4f} ms, plain {t_p:.4f} ms, library (SDPA, length mask, GQA) {t_l:.4f} "
+              f"ms, bound {max(b_bytes, b_ops):.5f} ms ({'bytes' if b_bytes >= b_ops else 'operations'}: "
+              f"{bytes_ / 1e6:.2f} MB, {flops / 1e6:.1f} MFLOP)")
+        del q, k, v
 
-    # prefill flash attention at every timed shape; the first is the entry
-    for label, B, S, hq, kvh, hd_ in FLASH_SHAPES:
+    # prefill flash attention at every timed shape; the first is the entry.
+    # At the two B 8 shapes the kernel and SDPA are timed in turns (medians
+    # of 4), each reading printed with its launches' spread: one reading in
+    # a run has come out 2x off before.
+    for n_shape, (label, B, S, hq, kvh, hd_) in enumerate(FLASH_SHAPES):
         q, k, v = flash_inputs(B, S, S, hq, kvh, hd_)
 
         def library_flash():
@@ -1142,9 +1226,18 @@ def main() -> None:
 
         lib_err = float((library_flash().transpose(1, 2).float()
                          - ref.flash_attention_ref(q, k, v).float()).abs().max())
-        t_k = time_cold(lambda: kflash.flash_attention(q, k, v), 100, flush)
+        def kernel_flash():
+            return kflash.flash_attention(q, k, v)
+
+        turns = [("kernel", kernel_flash), ("library", library_flash)]
+        if B == BATCH:
+            turns = (turns + turns[::-1]) * 2
+        readings = {"kernel": [], "library": []}
+        for tag, fn in turns:
+            st = {}
+            readings[tag].append((time_cold(fn, 100, flush, stats=st), launch_summary(st)))
+        t_k, t_l = (float(np.median([ms for ms, _ in readings[tag]])) for tag in ("kernel", "library"))
         t_p = time_cold(lambda: ref.flash_attention_ref(q, k, v), 10, flush)
-        t_l = time_cold(library_flash, 100, flush)
         bytes_ = 2 * q.numel() * 2 + 2 * k.numel() * 2  # q and out, k and v
         flops = 4 * B * hq * hd_ * (S * (S + 1) // 2)  # QK^T and PV over the causal triangle
         b_bytes, b_ops = bytes_ / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOP_PER_S * 1e3
@@ -1153,7 +1246,10 @@ def main() -> None:
               f"{lib_err:.3g}) {t_l:.4f} ms, bound {max(b_bytes, b_ops):.5f} ms "
               f"({'bytes' if b_bytes >= b_ops else 'operations'}: {bytes_ / 1e6:.2f} MB, "
               f"{flops / 1e9:.3f} GFLOP)")
-        if label == FLASH_SHAPES[0][0]:
+        for tag, rs in readings.items():
+            for ms, summary in rs:
+                print(f"  {tag} {ms:.5f} ms: {summary}")
+        if n_shape == 0:
             kernels_out.append({
                 "name": "flash_attention", "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/flash_attention.cu",

@@ -1,51 +1,45 @@
-// The flash-decode walks shared by decode_attention.cu (contiguous cache
+// The flash-decode walk shared by decode_attention.cu (contiguous cache
 // rows) and paged_decode_attention.cu (rows reached through a block table).
 //
 // Where a key's K/V row lives is the only thing the two kernels do
-// differently, so each walk takes it as a functor `row_of(key) -> row index`
-// (units of one [KVH, HD] cache row).  Both kernels then run the same loads,
-// reductions and roundings in the same order, so on the same logical cache
-// they give bitwise equal outputs.
+// differently, so the walk takes it as a functor `row_of` (rows in units of
+// one [KVH, HD] cache row): `row_of.tile(key0, n_keys, lane)` once per warp
+// tile, then `row_of(tile, key0, r)` for its row r.  Both kernels then run
+// the same loads, reductions and roundings in the same order, so on the
+// same logical cache they give bitwise equal outputs.
 //
-// G <= 8 (`attend`, CUDA cores): one CTA of THREADS threads handles one
-// (batch row, KV head) and its G query heads: it walks keys [0, len) in
-// tiles of TILE keys with an online softmax in f32 and writes the heads'
-// outputs.
-//   * Scores: HD/8 threads cover one key row with one 16-byte load each, so a
-//     warp reads whole 128-byte rows; the partial dot products meet by warp
-//     shuffles.  s = (q . k) * sm_scale in f32 (a multiply, as the reference
-//     scales).
-//   * Softmax: one warp per query head updates the running max m and sum l in
-//     f32 for the tile and turns the scores into probabilities in shared
-//     memory.
-//   * P.V: each thread keeps an f32 accumulator for its 8 dimensions over the
-//     keys of its lane, rescaled by exp(m_old - m_new) per tile; the lanes'
-//     accumulators are added in lane order at the end.
-//
-// G == 16 (`attend_g16`, tensor cores, split over the sequence; glm4-9b):
-// one CTA of 4 warps per (batch row, KV head, split of SPLIT keys), where
-// SPLIT is fixed by the caller (a multiple of WT), so a row's splits, and
-// so its output, depend on its own length only, never on B or S.
-//   * The 16 query heads of the KV head are the M = 16 rows of mma.sync
-//     m16n8k16 tiles; their A fragments are loaded once into registers.
-//     Each K/V row is read once, by one warp.
-//   * Each warp walks every 4th tile of WT = 32 keys of the split (tile
-//     w, w + 4, ...), staged by cp.async 16-byte copies, one key row at a
-//     time through `row_of`, in its own ring of RING = 3 stages (rows
-//     padded by 16 bytes so the fragment reads hit 32 distinct banks; keys
-//     past the split's end are zero-filled and masked).  Per tile: S = Q K^T
-//     (four independent 8-key fragments), the online softmax in f32 with
-//     quad shuffles (exp as one ex2), P rounded to bf16 as the Pallas body
-//     casts p to v's dtype, and P.V by mma.sync in two 16-key steps with V
-//     read by ldmatrix.trans.
+// One walk for every G (query heads per KV head, 1 to 16), on the tensor
+// cores, split over the sequence: one CTA of 4 warps per (batch row, KV
+// head, split of `split` keys).  The split is fixed by the caller (a
+// multiple of WT), so a row's splits, and so its output, depend on its own
+// length only, never on B or S.
+//   * The G query heads of the KV head are the first G of the M = 16 rows of
+//     mma.sync m16n8k16 tiles; their A fragments are loaded once into
+//     registers, rows >= G as zeros.  Decode is bound by bytes, so the
+//     padded rows cost tensor-core issue slots the walk has to spare.  Each
+//     K/V row is read once, by one warp.
+//   * Each warp walks every 4th tile of WT = 32 keys of the split (tile w,
+//     w + 4, ...): the tile's K and V rows are issued together by cp.async
+//     16-byte copies into the warp's own ring (one DRAM trip for both), rows
+//     padded by 16 bytes so the fragment reads hit 32 distinct banks, keys
+//     past the split's end zero-filled and masked.  The ring has RING = 2
+//     stages: a warp's next tile is in flight while it works on this one.
+//     Per tile: S = Q K^T (four independent 8-key fragments), the online
+//     softmax in f32 with quad shuffles (exp as one ex2), P rounded to bf16
+//     as the Pallas body casts p to v's dtype, and P.V by mma.sync in two
+//     16-key steps with V read by ldmatrix.trans.  No block barrier until
+//     the end of the walk.
 //   * The 4 warps' (m, l, acc) meet in shared memory and are combined in
 //     warp order.  A row with one split writes acc / l in bf16 directly; a
 //     row with more writes its splits' normalised partials o and
 //     log-sum-exps (scratch allocated by the caller), and `combine_kernel`
 //     adds them in split order, each weighted by exp(lse - max lse).
 //
-// Both walks: len == 0 reads nothing and returns zeros (acc / l with the
-// l > 0 guard).  The output is bf16.
+// len == 0 reads nothing and returns zeros (acc / l with the l > 0 guard).
+// The output is bf16.
+//
+// `PROBE:` comments mark the lines where tools/probe_decode_walk.py patches
+// its variants of the walk: keep each with its line.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -53,176 +47,30 @@
 #include <stddef.h>
 #include <stdint.h>
 
-namespace decode_core {
+namespace decode_core {  // PROBE: namespace
 
 constexpr int THREADS = 128;
 constexpr int WARPS = THREADS / 32;
-constexpr int TILE = 128;  // keys per softmax tile (G <= 8)
-constexpr float NEG_INF = -1e30f;
-
-__device__ __forceinline__ void load8(const __nv_bfloat16* __restrict__ p, float (&out)[8]) {
-  const uint4 raw = __ldg(reinterpret_cast<const uint4*>(p));
-  const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const float2 f = __bfloat1622float2(h2[j]);
-    out[2 * j] = f.x;
-    out[2 * j + 1] = f.y;
-  }
-}
-
-// q_h: the G query rows of this KV head [G, HD]; k_h, v_h: the K/V bases
-// offset to this KV head (row r of the cache starts at k_h + r * row_stride);
-// out_h: [G, HD].
-template <int HD, int G, class RowOf>
-__device__ __forceinline__ void attend(const __nv_bfloat16* __restrict__ q_h,
-                                       const __nv_bfloat16* __restrict__ k_h,
-                                       const __nv_bfloat16* __restrict__ v_h,
-                                       size_t row_stride, int len, RowOf row_of,
-                                       __nv_bfloat16* __restrict__ out_h, float sm_scale) {
-  constexpr int TPK = HD / 8;           // threads per key row
-  constexpr int KEYS = THREADS / TPK;   // key rows per pass
-  constexpr int PASSES = TILE / KEYS;
-  static_assert(TPK <= 32 && 32 % TPK == 0, "a key row lies within one warp");
-
-  __shared__ float p_s[G][TILE];
-  __shared__ float m_s[G], l_s[G], alpha_s[G];
-  __shared__ float red[KEYS][G][HD];
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int key_lane = tid / TPK;
-  const int part = tid % TPK;
-  const __nv_bfloat16* kb = k_h + part * 8;
-  const __nv_bfloat16* vb = v_h + part * 8;
-
-  float qr[G][8];
-#pragma unroll
-  for (int g = 0; g < G; ++g) load8(q_h + (size_t)g * HD + part * 8, qr[g]);
-  float acc[G][8];
-#pragma unroll
-  for (int g = 0; g < G; ++g)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[g][j] = 0.f;
-  if (tid < G) {
-    m_s[tid] = NEG_INF;
-    l_s[tid] = 0.f;
-  }
-  __syncthreads();
-
-  for (int t0 = 0; t0 < len; t0 += TILE) {
-    // scores of this tile's keys
-#pragma unroll
-    for (int pass = 0; pass < PASSES; ++pass) {
-      const int j = pass * KEYS + key_lane;
-      const int key = t0 + j;
-      float kv[8];
-      if (key < len) {
-        load8(kb + row_of(key) * row_stride, kv);
-      } else {
-#pragma unroll
-        for (int i = 0; i < 8; ++i) kv[i] = 0.f;
-      }
-#pragma unroll
-      for (int g = 0; g < G; ++g) {
-        float s = 0.f;
-#pragma unroll
-        for (int i = 0; i < 8; ++i) s = fmaf(qr[g][i], kv[i], s);
-#pragma unroll
-        for (int off = TPK / 2; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-        if (part == 0) p_s[g][j] = (key < len) ? s * sm_scale : NEG_INF;
-      }
-    }
-    __syncthreads();
-
-    // online softmax update: one warp per query head
-    for (int g = warp; g < G; g += WARPS) {
-      float mt = NEG_INF;
-      for (int j = lane; j < TILE; j += 32) mt = fmaxf(mt, p_s[g][j]);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, off));
-      const float m_old = m_s[g];
-      const float m_new = fmaxf(m_old, mt);
-      float sum = 0.f;
-      for (int j = lane; j < TILE; j += 32) {
-        const float p = (t0 + j < len) ? expf(p_s[g][j] - m_new) : 0.f;
-        p_s[g][j] = p;
-        sum += p;
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      if (lane == 0) {
-        const float alpha = expf(m_old - m_new);
-        alpha_s[g] = alpha;
-        l_s[g] = l_s[g] * alpha + sum;
-        m_s[g] = m_new;
-      }
-    }
-    __syncthreads();
-
-    // P.V over this lane's keys of the tile
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      const float a = alpha_s[g];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) acc[g][i] *= a;
-    }
-#pragma unroll
-    for (int pass = 0; pass < PASSES; ++pass) {
-      const int j = pass * KEYS + key_lane;
-      if (t0 + j < len) {
-        float vv[8];
-        load8(vb + row_of(t0 + j) * row_stride, vv);
-#pragma unroll
-        for (int g = 0; g < G; ++g) {
-          const float p = p_s[g][j];
-#pragma unroll
-          for (int i = 0; i < 8; ++i) acc[g][i] = fmaf(p, vv[i], acc[g][i]);
-        }
-      }
-    }
-    __syncthreads();  // p_s and alpha_s are rewritten by the next tile
-  }
-
-#pragma unroll
-  for (int g = 0; g < G; ++g)
-#pragma unroll
-    for (int i = 0; i < 8; ++i) red[key_lane][g][part * 8 + i] = acc[g][i];
-  __syncthreads();
-  for (int e = tid; e < G * HD; e += THREADS) {
-    const int g = e / HD, dd = e % HD;
-    float s = 0.f;
-#pragma unroll
-    for (int kl = 0; kl < KEYS; ++kl) s += red[kl][g][dd];
-    const float l = l_s[g];
-    out_h[e] = __float2bfloat16(l > 0.f ? s / l : 0.f);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// G == 16: tensor cores, split over the sequence
-// ---------------------------------------------------------------------------
-
-constexpr int MMA_G = 16;  // query heads of one KV head: the M of m16n8k16
+constexpr int MMA_G = 16;  // the M of m16n8k16: the most query heads per KV head
 constexpr int WT = 32;     // keys per warp tile: two 16-key steps of P.V
+constexpr int RING = 2;    // cp.async stages per warp; PROBE: ring
+constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
-constexpr int RING = 3;    // cp.async stages per warp
-
-template <int HD>
-struct G16Smem {
-  static constexpr int PITCH = HD + 8;                      // bf16 per shared row
-  static constexpr int TILE_ELEMS = WT * PITCH;             // one K or V tile
-  static constexpr int WARP_ELEMS = RING * 2 * TILE_ELEMS;  // one warp's ring
-  static constexpr int RING_BYTES = WARPS * WARP_ELEMS * 2;
-  static constexpr int RED_BYTES = WARPS * MMA_G * (HD + 2) * 4;  // each warp's acc, m, l
-  static constexpr int BYTES = RING_BYTES > RED_BYTES ? RING_BYTES : RED_BYTES;
-};
 
 // splits of `split` keys over [0, len); a row of length 0 keeps one
 __host__ __device__ __forceinline__ int n_splits(int len, int split) {
   return len > split ? (len + split - 1) / split : 1;
 }
+
+template <int HD>
+struct Smem {
+  static constexpr int PITCH = HD + 8;           // bf16 per shared row
+  static constexpr int TILE_ELEMS = WT * PITCH;  // one K or V tile
+  // dynamic shared memory of one CTA: the warps' rings, which then become
+  // the reduction area (each warp's acc, m and l for its G heads)
+  static constexpr int BYTES = WARPS * RING * 2 * TILE_ELEMS * 2;
+  static_assert(BYTES >= WARPS * MMA_G * (HD + 2) * 4, "the reduction area fits in the rings");
+};
 
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
                                          uint32_t b1) {
@@ -274,50 +122,53 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Split `s` of one (batch row, KV head).  q_h: the 16 query rows [16, HD];
+// Split `s` of one (batch row, KV head).  q_h: the G query rows [G, HD];
 // k_h, v_h: the K/V bases offset to this KV head (row r of the cache starts
-// at k_h + r * row_stride); out_h: [16, HD]; part_o [n_split_max, 16, HD]
-// and part_lse [n_split_max, 16]: this (row, KV head)'s scratch, read only
-// when the row has more than one split; smem: G16Smem<HD>::BYTES.
+// at k_h + r * row_stride); out_h: [G, HD]; part_o [n_split_max, G, HD]
+// and part_lse [n_split_max, G]: this (row, KV head)'s scratch, written only
+// when the row has more than one split; smem: Smem<HD>::BYTES.
 //
 // mma.m16n8k16 fragments (lane = 4 * quad + qi): A holds rows quad and
 // quad + 8, columns 2 qi (+1) and 2 qi + 8 (+1); B holds columns (n) quad,
 // rows (k) 2 qi (+1) and 2 qi + 8 (+1); C holds rows quad and quad + 8,
 // columns 2 qi (+1).  The lower column or row sits in the low half.
 template <int HD, class RowOf>
-__device__ __forceinline__ void attend_g16(const __nv_bfloat16* __restrict__ q_h,
-                                           const __nv_bfloat16* __restrict__ k_h,
-                                           const __nv_bfloat16* __restrict__ v_h,
-                                           size_t row_stride, int len, int split, int s,
-                                           RowOf row_of, __nv_bfloat16* __restrict__ out_h,
-                                           float* __restrict__ part_o,
-                                           float* __restrict__ part_lse, float sm_scale,
-                                           uint8_t* smem) {
-  using L = G16Smem<HD>;
+__device__ __forceinline__ void attend(const __nv_bfloat16* __restrict__ q_h,
+                                       const __nv_bfloat16* __restrict__ k_h,
+                                       const __nv_bfloat16* __restrict__ v_h, size_t row_stride,
+                                       int len, int G, int split, int s, RowOf row_of,
+                                       __nv_bfloat16* __restrict__ out_h,
+                                       float* __restrict__ part_o, float* __restrict__ part_lse,
+                                       float sm_scale, uint8_t* smem) {
+  using L = Smem<HD>;
   constexpr int CH = HD / 8;  // 16-byte chunks per key row
   static_assert((WT * CH) % 32 == 0, "a tile's chunks spread evenly over a warp");
   const int n_split = n_splits(len, split);
-  if (s >= n_split) return;
+  if (s >= n_split) return;  // PROBE: entry
   const int k_begin = s * split, k_end = min(len, k_begin + split);
   const int n_tiles = (k_end - k_begin + WT - 1) / WT;  // 0 when len == 0
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int quad = lane >> 2, qi = lane & 3;
-  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem) + warp * L::WARP_ELEMS;
+  const bool lo = quad < G, hi = quad + 8 < G;  // this lane's fragment rows are heads
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem) + warp * RING * 2 * L::TILE_ELEMS;
   const int mine = n_tiles > warp ? (n_tiles - warp + WARPS - 1) / WARPS : 0;
 
-  // this warp's i-th tile (keys from k_begin + (warp + 4 i) * WT) into stage i % RING
+  // this warp's i-th tile (keys from k_begin + (warp + 4 i) * WT) into stage
+  // i % RING: its rows' places once, then K and V of each row together
   auto load = [&](int i) {
     const int key0 = k_begin + (warp + i * WARPS) * WT;
     __nv_bfloat16* ks = ring + (i % RING) * 2 * L::TILE_ELEMS;
     __nv_bfloat16* vs = ks + L::TILE_ELEMS;
+    const auto tile = row_of.tile(key0, min(WT, k_end - key0), lane);
 #pragma unroll
     for (int e = lane; e < WT * CH; e += 32) {
       const int r = e / CH, c = (e % CH) * 8;
       const bool ok = key0 + r < k_end;
-      const size_t row = ok ? row_of(key0 + r) : 0;
-      cp_async16(ks + r * L::PITCH + c, k_h + row * row_stride + c, ok);
-      cp_async16(vs + r * L::PITCH + c, v_h + row * row_stride + c, ok);
+      const size_t row = row_of(tile, key0, r);  // every lane: it may shuffle
+      const size_t at = (ok ? row : 0) * row_stride + c;
+      cp_async16(ks + r * L::PITCH + c, k_h + at, ok);
+      cp_async16(vs + r * L::PITCH + c, v_h + at, ok);
     }
   };
 #pragma unroll
@@ -326,15 +177,15 @@ __device__ __forceinline__ void attend_g16(const __nv_bfloat16* __restrict__ q_h
     cp_async_commit();
   }
 
-  // Q's A fragments, once, straight from device memory
+  // Q's A fragments, once, straight from device memory; rows >= G are zeros
   uint32_t qf[HD / 16][4];
 #pragma unroll
   for (int kk = 0; kk < HD / 16; ++kk) {
     const int c = kk * 16 + qi * 2;
-    qf[kk][0] = ld32(q_h + quad * HD + c);
-    qf[kk][1] = ld32(q_h + (quad + 8) * HD + c);
-    qf[kk][2] = ld32(q_h + quad * HD + c + 8);
-    qf[kk][3] = ld32(q_h + (quad + 8) * HD + c + 8);
+    qf[kk][0] = lo ? ld32(q_h + quad * HD + c) : 0u;
+    qf[kk][1] = hi ? ld32(q_h + (quad + 8) * HD + c) : 0u;
+    qf[kk][2] = lo ? ld32(q_h + quad * HD + c + 8) : 0u;
+    qf[kk][3] = hi ? ld32(q_h + (quad + 8) * HD + c + 8) : 0u;
   }
   float o[HD / 8][4];
 #pragma unroll
@@ -350,7 +201,8 @@ __device__ __forceinline__ void attend_g16(const __nv_bfloat16* __restrict__ q_h
     const __nv_bfloat16* vs = ks + L::TILE_ELEMS;
     const int key0 = k_begin + (warp + i * WARPS) * WT;
 
-    // S = Q K^T: 16 heads x WT keys, NJ independent 8-key fragments
+    // PROBE: compute begins
+    // S = Q K^T: 16 rows x WT keys, NJ independent 8-key fragments
     constexpr int NJ = WT / 8;
     float sc[NJ][4];
 #pragma unroll
@@ -364,7 +216,7 @@ __device__ __forceinline__ void attend_g16(const __nv_bfloat16* __restrict__ q_h
       }
     }
 
-    // scale and mask; the heads' maxima over the quad's 4 lanes
+    // scale and mask; the rows' maxima over the quad's 4 lanes
     float mt_lo = NEG_INF, mt_hi = NEG_INF;
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
@@ -413,7 +265,7 @@ __device__ __forceinline__ void attend_g16(const __nv_bfloat16* __restrict__ q_h
     }
 
     // O += P V, 16 keys per step: P rounded to bf16 is the A fragment (16
-    // heads x 16 keys); V's B fragments by ldmatrix.trans, two 8-dim column
+    // rows x 16 keys); V's B fragments by ldmatrix.trans, two 8-dim column
     // blocks per call
 #pragma unroll
     for (int kk = 0; kk < WT / 16; ++kk) {
@@ -430,106 +282,135 @@ __device__ __forceinline__ void attend_g16(const __nv_bfloat16* __restrict__ q_h
         mma_bf16(o[j + 1], a, bv[2], bv[3]);
       }
     }
-    __syncwarp();  // every lane is done with stage i % RING before it is refilled
+    // PROBE: compute ends
+    __syncwarp();  // every lane is done with this stage before it is refilled
   }
-  cp_async_wait<0>();
+  cp_async_wait<0>();  // PROBE: walk ends
   __syncthreads();  // every ring is drained: the buffer becomes the reduction area
 
-  // the warps' (m, l, acc) meet in shared memory, combined in warp order
-  float* red_o = reinterpret_cast<float*>(smem);  // [WARPS][16][HD]
-  float* red_m = red_o + WARPS * MMA_G * HD;  // [WARPS][16]: m, then each warp's weight
-  float* red_l = red_m + WARPS * MMA_G;       // [WARPS][16]: l, then the sum in [0][g]
+  // the warps' (m, l, acc) of the G heads meet in shared memory, combined in
+  // warp order
+  float* red_o = reinterpret_cast<float*>(smem);  // [WARPS][G][HD]
+  float* red_m = red_o + WARPS * G * HD;  // [WARPS][G]: m, then each warp's weight
+  float* red_l = red_m + WARPS * G;       // [WARPS][G]: l, then the sum in [0][g]
 #pragma unroll
   for (int j = 0; j < HD / 8; ++j) {
     const int c = j * 8 + qi * 2;
-    *reinterpret_cast<float2*>(red_o + (warp * MMA_G + quad) * HD + c) =
-        make_float2(o[j][0], o[j][1]);
-    *reinterpret_cast<float2*>(red_o + (warp * MMA_G + quad + 8) * HD + c) =
-        make_float2(o[j][2], o[j][3]);
+    if (lo)
+      *reinterpret_cast<float2*>(red_o + (warp * G + quad) * HD + c) = make_float2(o[j][0], o[j][1]);
+    if (hi)
+      *reinterpret_cast<float2*>(red_o + (warp * G + quad + 8) * HD + c) =
+          make_float2(o[j][2], o[j][3]);
   }
   if (qi == 0) {
-    red_m[warp * MMA_G + quad] = m_lo;
-    red_m[warp * MMA_G + quad + 8] = m_hi;
-    red_l[warp * MMA_G + quad] = l_lo;
-    red_l[warp * MMA_G + quad + 8] = l_hi;
+    if (lo) {
+      red_m[warp * G + quad] = m_lo;
+      red_l[warp * G + quad] = l_lo;
+    }
+    if (hi) {
+      red_m[warp * G + quad + 8] = m_hi;
+      red_l[warp * G + quad + 8] = l_hi;
+    }
   }
   __syncthreads();
   float m = NEG_INF;  // head tid's max over the warps, and its weights exp(m_w - m)
-  if (tid < MMA_G) {
+  if (tid < G) {
 #pragma unroll
-    for (int w = 0; w < WARPS; ++w) m = fmaxf(m, red_m[w * MMA_G + tid]);
+    for (int w = 0; w < WARPS; ++w) m = fmaxf(m, red_m[w * G + tid]);
     float l = 0.f;
 #pragma unroll
     for (int w = 0; w < WARPS; ++w) {
-      const float c = expf(red_m[w * MMA_G + tid] - m);
-      l += red_l[w * MMA_G + tid] * c;
-      red_m[w * MMA_G + tid] = c;
+      const float c = expf(red_m[w * G + tid] - m);
+      l += red_l[w * G + tid] * c;
+      red_m[w * G + tid] = c;
     }
     red_l[tid] = l;
   }
   __syncthreads();
-  if (n_split > 1 && tid < MMA_G) part_lse[s * MMA_G + tid] = m + logf(red_l[tid]);
-  for (int e = tid; e < MMA_G * HD; e += THREADS) {
+  if (n_split > 1 && tid < G) part_lse[s * G + tid] = m + logf(red_l[tid]);
+  for (int e = tid; e < G * HD; e += THREADS) {
     const int g = e / HD, d = e % HD;
     float acc = 0.f;
 #pragma unroll
-    for (int w = 0; w < WARPS; ++w) acc += red_o[(w * MMA_G + g) * HD + d] * red_m[w * MMA_G + g];
+    for (int w = 0; w < WARPS; ++w) acc += red_o[(w * G + g) * HD + d] * red_m[w * G + g];
     const float l = red_l[g];
     if (n_split == 1) out_h[e] = __float2bfloat16(l > 0.f ? acc / l : 0.f);
-    else part_o[(size_t)s * MMA_G * HD + e] = acc / l;  // a split holds a key, so l > 0
+    else part_o[(size_t)s * G * HD + e] = acc / l;  // a split holds a key, so l > 0
   }
-}
+}  // PROBE: exit
 
 // The splits of each row with more than one, added in split order, each
 // weighted by exp(lse - max lse): one CTA of HD threads per (KV head, batch
-// row, query head), thread d adding dimension d.  part_o [B, KVH,
-// n_split_max, 16, HD], part_lse [B, KVH, n_split_max, 16], lengths clamped
-// to [0, S] as the walk clamps them.
+// row, query head of the KV head), thread d adding dimension d.  part_o [B,
+// KVH, n_split_max, G, HD], part_lse [B, KVH, n_split_max, G], lengths
+// clamped to [0, S] as the walk clamps them.
 template <int HD>
 __global__ void __launch_bounds__(HD)
 combine_kernel(const float* __restrict__ part_o, const float* __restrict__ part_lse,
                const int* __restrict__ lengths, __nv_bfloat16* __restrict__ out, int S, int KVH,
-               int split, int n_split_max) {
+               int G, int split, int n_split_max) {
   const int h = blockIdx.x, b = blockIdx.y, g = blockIdx.z;
   int len = lengths[b];
   len = len < 0 ? 0 : (len > S ? S : len);
   const int n = n_splits(len, split);
   if (n == 1) return;  // written by the walk itself
   const size_t bh = (size_t)b * KVH + h;
-  const float* pl = part_lse + bh * n_split_max * MMA_G + g;                     // split stride 16
-  const float* po = part_o + (bh * n_split_max * MMA_G + g) * HD + threadIdx.x;  // 16 HD
+  const float* pl = part_lse + bh * n_split_max * G + g;                     // split stride G
+  const float* po = part_o + (bh * n_split_max * G + g) * HD + threadIdx.x;  // split stride G HD
   float mx = NEG_INF;
-  for (int s = 0; s < n; ++s) mx = fmaxf(mx, pl[s * MMA_G]);
+  for (int s = 0; s < n; ++s) mx = fmaxf(mx, pl[s * G]);
   float wsum = 0.f, acc = 0.f;
 #pragma unroll 4
   for (int s = 0; s < n; ++s) {
-    const float w = expf(pl[s * MMA_G] - mx);
+    const float w = expf(pl[s * G] - mx);
     wsum += w;
-    acc += po[(size_t)s * MMA_G * HD] * w;
+    acc += po[(size_t)s * G * HD] * w;
   }
-  out[(bh * MMA_G + g) * HD + threadIdx.x] = __float2bfloat16(acc / wsum);
+  out[(bh * G + g) * HD + threadIdx.x] = __float2bfloat16(acc / wsum);
 }
 
-// Host side: instantiate `Launch<HD, G>::run(args...)` for the compiled
-// (hd, G) pairs; anything else is cudaErrorInvalidValue.
-template <template <int, int> class Launch, int HD, class... Args>
-cudaError_t dispatch_g(int G, Args... args) {
-  switch (G) {
-    case 1: return Launch<HD, 1>::run(args...);
-    case 2: return Launch<HD, 2>::run(args...);
-    case 4: return Launch<HD, 4>::run(args...);
-    case 8: return Launch<HD, 8>::run(args...);
-    case 16: return Launch<HD, 16>::run(args...);
-    default: return cudaErrorInvalidValue;
+// Host side: launch `kernel` (a walk over (KV head, batch row, split) taking
+// `args...`) on a cache of S positions, n_splits(S, split) splits per row,
+// then the combine where a row can have more than one split (`combine` 0
+// leaves it out: a planted fault for the tests, never the wrappers' call).
+// `static`: internal linkage, so each library keeps its own `smem_set` (a
+// function template's static local is otherwise one object shared by every
+// library the process loads, and a second library would skip its own
+// cudaFuncSetAttribute).
+template <int HD, class Kernel, class... Args>
+static cudaError_t launch_walk(Kernel kernel, const void* lengths, void* out, const void* part_o,
+                        const void* part_lse, int B, int S, int KVH, int G, int split, int combine,
+                        cudaStream_t stream, Args... args) {
+  if (G < 1 || G > MMA_G || split < WT || split % WT != 0 || B > 65535)
+    return cudaErrorInvalidValue;
+  const int n_split_max = n_splits(S, split);
+  if (n_split_max > 65535 || (n_split_max > 1 && (part_o == nullptr || part_lse == nullptr)))
+    return cudaErrorInvalidValue;
+  static bool smem_set = false;  // one per (HD, kernel)
+  if (!smem_set) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Smem<HD>::BYTES);
+    if (err != cudaSuccess) return err;
+    smem_set = true;
   }
+  kernel<<<dim3(KVH, B, n_split_max), THREADS, Smem<HD>::BYTES, stream>>>(args...);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || n_split_max == 1 || !combine) return err;
+  combine_kernel<HD><<<dim3(KVH, B, G), HD, 0, stream>>>(
+      static_cast<const float*>(part_o), static_cast<const float*>(part_lse),
+      static_cast<const int*>(lengths), static_cast<__nv_bfloat16*>(out), S, KVH, G, split,
+      n_split_max);
+  return cudaGetLastError();
 }
 
-template <template <int, int> class Launch, class... Args>
-cudaError_t dispatch(int hd, int G, Args... args) {
+// Host side: `Launch<HD>::run(args...)` for the compiled head dims; anything
+// else is cudaErrorInvalidValue.
+template <template <int> class Launch, class... Args>
+cudaError_t dispatch(int hd, Args... args) {
   switch (hd) {
-    case 32: return dispatch_g<Launch, 32>(G, args...);
-    case 64: return dispatch_g<Launch, 64>(G, args...);
-    case 128: return dispatch_g<Launch, 128>(G, args...);
+    case 32: return Launch<32>::run(args...);
+    case 64: return Launch<64>::run(args...);
+    case 128: return Launch<128>::run(args...);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -2,11 +2,11 @@
 
 The counterpart of ``repro.kernels.decode_attention``.  On a CUDA tensor the
 wrapper launches the hand-written kernel in ``csrc/decode_attention.cu``
-(G <= 8: one CTA per (row, KV head) on the CUDA cores; G == 16: one CTA per
-(row, KV head, split of ``SPLIT_KEYS`` keys) on the tensor cores, plus a
-combine over the splits), online softmax over the valid prefix; on a CPU
-tensor it runs the plain version in ``ref``.  There is no other path: a
-CUDA tensor the kernel cannot take raises.
+(one walk for every G: one CTA per (row, KV head, split of ``SPLIT_KEYS``
+keys) on the tensor cores, plus a combine over the splits), online softmax
+over the valid prefix; on a CPU tensor it runs the plain version in
+``ref``.  There is no other path: a CUDA tensor the kernel cannot take
+raises.
 
 As in the Pallas kernel, a row whose length is 0 returns zeros.
 """
@@ -20,30 +20,30 @@ import torch
 from repro_torch.kernels import build, ref
 
 HEAD_DIMS = (32, 64, 128)
-GROUPS = (1, 2, 4, 8, 16)  # query heads per KV head the kernel is compiled for
-# Keys per split of the G 16 walk: a multiple of its 32-key warp tile.  Fixed,
-# so a row's splits, and so its output, depend on its own length only.
+GROUPS = (1, 2, 4, 8, 16)  # query heads per KV head the kernel takes
+# Keys per split of the walk: a multiple of its 32-key warp tile.  Fixed, so
+# a row's splits, and so its output, depend on its own length only.
 SPLIT_KEYS = 512
 
 
 def split_bounds(length: int) -> list[tuple[int, int]]:
-    """The key ranges ``[start, end)`` the G 16 walk gives its CTAs for a row
+    """The key ranges ``[start, end)`` the walk gives its CTAs for a row
     of ``length`` keys, in the order the combine adds them.  A row of length
     0 keeps one empty split, whose CTA writes zeros."""
     n = max(1, -(-length // SPLIT_KEYS))
     return [(i * SPLIT_KEYS, min(length, (i + 1) * SPLIT_KEYS)) for i in range(n)]
 
 
-def split_scratch(B: int, S: int, kvh: int, hd: int, device):
-    """The G 16 walk's per-split partials for a cache of S positions: (o
-    [B, kvh, n, 16, hd], lse [B, kvh, n, 16]) in f32, with n the most
-    splits a row of length <= S can have; (None, None) when that is one,
-    since then every row writes its output directly."""
+def split_scratch(B: int, S: int, kvh: int, G: int, hd: int, device):
+    """The walk's per-split partials for a cache of S positions and G query
+    heads per KV head: (o [B, kvh, n, G, hd], lse [B, kvh, n, G]) in f32,
+    with n the most splits a row of length <= S can have; (None, None) when
+    that is one, since then every row writes its output directly."""
     n = len(split_bounds(S))
     if n == 1:
         return None, None
-    return (torch.empty((B, kvh, n, 16, hd), dtype=torch.float32, device=device),
-            torch.empty((B, kvh, n, 16), dtype=torch.float32, device=device))
+    return (torch.empty((B, kvh, n, G, hd), dtype=torch.float32, device=device),
+            torch.empty((B, kvh, n, G), dtype=torch.float32, device=device))
 
 
 def _lib():
@@ -98,13 +98,12 @@ def decode_attention(
 
 
 def _launch(q, k, v, lengths, out, combine: bool = True) -> None:
-    """The C entry on checked inputs.  ``combine=False`` leaves out the G 16
+    """The C entry on checked inputs.  ``combine=False`` leaves out the
     combine over splits: a planted fault for the card's gates, which rows
     with more than one split must fail."""
     B, Hq, hd = q.shape
     S, KVH = k.shape[1], k.shape[2]
-    part_o, part_lse = (split_scratch(B, S, KVH, hd, q.device) if Hq // KVH == 16
-                        else (None, None))
+    part_o, part_lse = split_scratch(B, S, KVH, Hq // KVH, hd, q.device)
     err = _lib()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(), out.data_ptr(),
         _ptr(part_o), _ptr(part_lse), B, S, KVH, Hq // KVH, hd, SPLIT_KEYS, int(combine),

@@ -2,16 +2,16 @@
 
 The counterpart of ``repro.kernels.paged_decode_attention``.  On a CUDA
 tensor the wrapper launches the hand-written kernel in
-``csrc/paged_decode_attention.cu`` (the dense kernel's walks, G <= 8 and
-G == 16, with each key row reached through ``table``); on a CPU tensor it
-runs the plain version in ``ref``.  There is no other path: a CUDA tensor
+``csrc/paged_decode_attention.cu`` (the dense kernel's walk, with each key
+row reached through ``table``, read once per 32-key tile); on a CPU tensor
+it runs the plain version in ``ref``.  There is no other path: a CUDA tensor
 the kernel cannot take raises.
 
 Key ``t`` of row ``b`` lives at pool row ``table[b, t // bs]``, offset
-``t % bs``.  The walk covers ``[0, min(lengths[b], n_logical * bs))``; table
-entries past a row's length may point anywhere (the engine points them at
-the trash block) and are never read.  As in the Pallas kernel, a row whose
-length is 0 returns zeros.
+``t % bs``.  The walk covers ``[0, min(lengths[b], seq_len, n_logical *
+bs))``; table entries past a row's length may point anywhere (the engine
+points them at the trash block) and are never read.  As in the Pallas
+kernel, a row whose length is 0 returns zeros.
 """
 from __future__ import annotations
 
@@ -28,7 +28,7 @@ def _lib():
     lib = build.load("paged_decode_attention")
     fn = lib.paged_decode_attention_bf16
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -43,8 +43,8 @@ def paged_decode_attention(
 ) -> torch.Tensor:
     """``seq_len`` cuts every row's view at that length, as the serving path
     asks: the plain version slices its gathered cache there, and the kernel
-    gets ``min(lengths, seq_len)``, which gives it the dense kernel's walk
-    on the sliced cache."""
+    walks ``min(lengths, seq_len)`` keys of each row, which gives it the
+    dense kernel's walk on the sliced cache."""
     if q.device.type == "cpu":
         return ref.paged_decode_attention_ref(q, k_pool, v_pool, table, lengths, seq_len=seq_len)
     dev = q.device
@@ -77,26 +77,26 @@ def paged_decode_attention(
     for t in (q, k_pool, v_pool):
         if t.data_ptr() % 16:
             raise ValueError("paged_decode_attention: q, k_pool, v_pool must be 16-byte aligned")
-    if seq_len is not None:
-        lengths = lengths.clamp(max=seq_len)
     out = torch.empty((B, Hq, hd), dtype=torch.bfloat16, device=dev)
-    _launch(q, k_pool, v_pool, table, lengths, out)
+    _launch(q, k_pool, v_pool, table, lengths, out, seq_len)
     paged_decode_attention.launches += 1
     return out
 
 
-def _launch(q, k_pool, v_pool, table, lengths, out, combine: bool = True) -> None:
-    """The C entry on checked inputs (``lengths`` already cut at
-    ``seq_len``).  ``combine=False`` leaves out the G 16 combine over
-    splits: a planted fault for the card's gates."""
+def _launch(q, k_pool, v_pool, table, lengths, out, seq_len: int | None = None,
+            combine: bool = True) -> None:
+    """The C entry on checked inputs: the kernel walks a view of S =
+    ``min(seq_len, n_logical * bs)`` positions of every row, so it cuts the
+    lengths at ``seq_len`` itself.  ``combine=False`` leaves out the combine
+    over splits: a planted fault for the card's gates."""
     B, Hq, hd = q.shape
     bs, KVH = k_pool.shape[1], k_pool.shape[2]
     n_logical = table.shape[1]
-    part_o, part_lse = (split_scratch(B, n_logical * bs, KVH, hd, q.device) if Hq // KVH == 16
-                        else (None, None))
+    S = n_logical * bs if seq_len is None else max(0, min(seq_len, n_logical * bs))
+    part_o, part_lse = split_scratch(B, S, KVH, Hq // KVH, hd, q.device)
     err = _lib()(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), table.data_ptr(), lengths.data_ptr(),
-        out.data_ptr(), _ptr(part_o), _ptr(part_lse), B, n_logical, bs, KVH, Hq // KVH, hd,
+        out.data_ptr(), _ptr(part_o), _ptr(part_lse), B, n_logical, bs, S, KVH, Hq // KVH, hd,
         SPLIT_KEYS, int(combine), float(1.0 / math.sqrt(hd)),
         torch.cuda.current_stream(q.device).cuda_stream,
     )

@@ -94,8 +94,8 @@ def decode_attention_f32_scores_ref(
     """The decode kernels' f32 softmax in plain PyTorch.
 
     Scores, probabilities and the P.V sums stay in f32 and the output is
-    rounded once, after the division by l (l > 0 guarded), as the CUDA
-    kernel does; the Pallas body differs only in casting the unnormalised
+    rounded once, after the division by l (l > 0 guarded); the Pallas body
+    and the CUDA kernels differ only in casting the unnormalised
     probabilities to ``v``'s dtype for P.V.  ``decode_attention_ref`` rounds
     the scores to the input dtype first, as ``repro.kernels.ref`` does,
     which at bf16 moves the output by more than its own rounding; the CUDA

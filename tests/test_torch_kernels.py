@@ -175,16 +175,17 @@ def test_exit_confidence_tie_takes_first_index():
 
 
 # ---------------------------------------------------------------------------
-# the G 16 walk's split plan
+# the decode walk's split plan
 # ---------------------------------------------------------------------------
 
 
 @pytest.mark.parametrize("length", [0, 1, 31, 32, 511, 512, 513, 1024, 1100, 4096, 4097])
 def test_split_plan_tiles_the_row_and_depends_on_its_length_alone(length):
-    """The G 16 walk's splits cover [0, length) exactly, in order, from
-    absolute multiples of SPLIT_KEYS, so a row's splits (and so its output)
-    depend on its length alone, never on the cache size S; the scratch of an
-    S-position cache holds every split a row of length <= S can have."""
+    """The walk's splits cover [0, length) exactly, in order, from absolute
+    multiples of SPLIT_KEYS, so a row's splits (and so its output) depend on
+    its length alone, never on the cache size S; the scratch of an
+    S-position cache holds every split a row of length <= S can have, for
+    each of the G query heads of a KV head, at every G the kernels take."""
     spans = tdec.split_bounds(length)
     assert spans[0][0] == 0 and spans[-1][1] == length
     assert all(end == start for (_, end), (start, _) in zip(spans, spans[1:]))
@@ -192,23 +193,57 @@ def test_split_plan_tiles_the_row_and_depends_on_its_length_alone(length):
                for start, end in spans) or spans == [(0, 0)]
     assert len(spans) == max(1, -(-length // tdec.SPLIT_KEYS))
     for S in {max(length, 1), length + 1, 4 * length + 7}:
-        part_o, part_lse = tdec.split_scratch(2, S, 2, 32, "cpu")
-        n = 1 if part_o is None else part_o.shape[2]
-        assert n == len(tdec.split_bounds(S)) >= len(spans)
-        if part_o is not None:
-            assert part_o.shape == (2, 2, n, 16, 32) and part_lse.shape == (2, 2, n, 16)
+        for G in tdec.GROUPS:
+            part_o, part_lse = tdec.split_scratch(2, S, 3, G, 32, "cpu")
+            n = 1 if part_o is None else part_o.shape[2]
+            assert n == len(tdec.split_bounds(S)) >= len(spans)
+            assert (part_o is None) == (S <= tdec.SPLIT_KEYS)
+            if part_o is not None:
+                assert part_o.shape == (2, 3, n, G, 32) and part_lse.shape == (2, 3, n, G)
 
 
-def test_split_size_is_a_multiple_of_the_walks_warp_tile():
-    """The CUDA walk refuses a split that is not a multiple of its warp tile
-    (``WT`` in ``csrc/decode_attention_core.cuh``)."""
+def _walk_constant(name: str) -> int:
+    """A ``constexpr int`` of the CUDA walk, ``csrc/decode_attention_core.cuh``."""
     import re
 
     from repro_torch.kernels import build
 
     src = (build.CSRC / "decode_attention_core.cuh").read_text()
-    wt = int(re.search(r"constexpr int WT = (\d+);", src).group(1))
+    return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+
+def test_split_size_is_a_multiple_of_the_walks_warp_tile():
+    """The CUDA walk refuses a split that is not a multiple of its warp tile
+    (``WT``)."""
+    wt = _walk_constant("WT")
     assert tdec.SPLIT_KEYS >= wt and tdec.SPLIT_KEYS % wt == 0
+
+
+def test_every_group_fits_the_walks_tensor_core_rows():
+    """The CUDA walk refuses a G above the M rows of its tensor-core tiles
+    (``MMA_G``): every G the wrappers take fits them."""
+    assert 1 <= min(tdec.GROUPS) and max(tdec.GROUPS) <= _walk_constant("MMA_G")
+
+
+def test_every_probe_variant_finds_its_marked_lines():
+    """``tools/probe_decode_walk.py`` patches its variants of the walk in at
+    the lines marked ``// PROBE: <name>``: each marker it names is on exactly
+    one line of the sources, so every variant builds from them as they are."""
+    import importlib.util
+    from pathlib import Path
+
+    from repro_torch.kernels import build
+
+    path = Path(__file__).resolve().parents[1] / "tools" / "probe_decode_walk.py"
+    spec = importlib.util.spec_from_file_location("probe_decode_walk", path)
+    probe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probe)
+    for name, patches in probe.PATCHES.items():
+        texts = {}
+        for file, marker, where, new in patches:
+            text = texts.get(file, (build.CSRC / file).read_text())
+            texts[file] = probe.patched(text, marker, where, new)
+            assert texts[file] != text, (name, marker)
 
 
 # ---------------------------------------------------------------------------

@@ -12,9 +12,10 @@ at V = 100352 the atol alone passes a head that drops vocab tiles.  Paged
 decode attention is held to the same element-wise gate on the gathered
 cache, and to the dense kernel bit for bit.  Prefill flash attention is held
 element-wise to its plain version at bf16 2e-2 and f32 2e-5, and its gate is
-shown to reject three planted faults.  The G 16 decode walk (tensor cores,
-split over the sequence) is held to the same gates at the split's edges, and
-its gate is shown to reject a dropped last split and a skipped combine.
+shown to reject three planted faults.  The decode walk (tensor cores, split
+over the sequence, one walk for every G) is held to the same gates at the
+warp tile's and the split's edges at every G, and its gate is shown to
+reject a dropped last split and a skipped combine at G 1 and 16.
 """
 import math
 
@@ -227,20 +228,21 @@ def test_paged_decode_attention_rejects_what_it_cannot_take(cuda):
 
 
 # ---------------------------------------------------------------------------
-# decode attention at G 16: tensor cores, split over the sequence
+# the decode walk at every G: tensor cores, split over the sequence
 # ---------------------------------------------------------------------------
 
 SPLIT = tdec.SPLIT_KEYS
+EDGE_LENGTHS = [0, 1, 31, 32, 33, SPLIT - 1, SPLIT, SPLIT + 1, 3000, 4096]
 
 
-def _g16_case(gen, dev, lengths, S, hd=128):
-    """glm4-9b's heads: 32 query heads over 2 KV heads."""
+def _split_case(gen, dev, lengths, S, hd=128, G=16):
+    """G query heads over each of 2 KV heads (glm4-9b's heads at G 16)."""
     B = len(lengths)
-    return (_randn((B, 32, hd), gen, dev), _randn((B, S, 2, hd), gen, dev),
+    return (_randn((B, 2 * G, hd), gen, dev), _randn((B, S, 2, hd), gen, dev),
             _randn((B, S, 2, hd), gen, dev), torch.tensor(lengths, dtype=torch.int32, device=dev))
 
 
-def _assert_g16_gates(got, q, k, v, lengths):
+def _assert_split_gates(got, q, k, v, lengths):
     """Element-wise against the f32-score plain version, and at 2e-2 against
     the plain version on the rows that have keys."""
     want32 = ref.decode_attention_f32_scores_ref(q, k, v, lengths)
@@ -250,35 +252,39 @@ def _assert_g16_gates(got, q, k, v, lengths):
                                rtol=0, atol=2e-2)
 
 
+@pytest.mark.parametrize("G", tdec.GROUPS)
 @pytest.mark.parametrize("hd", [32, 64, 128])
-def test_decode_attention_g16_split_edges_match_plain(cuda, hd):
-    """Lengths 0, 1, the split size, one past it and a whole 4096-key cache:
-    one split and no combine, two splits, eight."""
+def test_decode_attention_g16_split_edges_match_plain(cuda, hd, G):
+    """Lengths 0, 1, either side of the 32-key warp tile and of the split
+    size, and a whole 4096-key cache: one split and no combine, two splits,
+    eight; at every G."""
     gen = torch.Generator(device=cuda).manual_seed(20)
-    q, k, v, ln = _g16_case(gen, cuda, [0, 1, SPLIT, SPLIT + 1, 4096, 3000], 4096, hd)
+    q, k, v, ln = _split_case(gen, cuda, EDGE_LENGTHS, 4096, hd, G)
     n0 = tdec.decode_attention.launches
     got = tdec.decode_attention(q, k, v, ln)
     torch.cuda.synchronize()
     assert tdec.decode_attention.launches == n0 + 1
     assert torch.all(got[0] == 0)  # an empty cache row returns zeros
-    _assert_g16_gates(got, q, k, v, ln)
+    _assert_split_gates(got, q, k, v, ln)
 
 
+@pytest.mark.parametrize("G", [1, 8, 16])
 @pytest.mark.parametrize("bs", [16, 3, 1])
-def test_paged_decode_attention_g16_bitwise_equal_to_dense(cuda, bs):
+def test_paged_decode_attention_g16_bitwise_equal_to_dense(cuda, bs, G):
     gen = torch.Generator(device=cuda).manual_seed(21)
     lengths = [4096, 3000, SPLIT + 1, 1, 0, 700, SPLIT, 2049]
-    case = _paged_case(gen, cuda, 32, 2, 128, bs, lengths)
+    case = _paged_case(gen, cuda, 2 * G, 2, 128, bs, lengths)
     got = _assert_paged_gates(*case, seq_len=max(lengths))
     assert torch.all(got[4] == 0)
 
 
-def test_decode_attention_g16_row_does_not_depend_on_batch_or_cache_size(cuda):
+@pytest.mark.parametrize("G", [1, 16])
+def test_decode_attention_g16_row_does_not_depend_on_batch_or_cache_size(cuda, G):
     """A row is bitwise the same alone, with a cache cut just past its length,
     as inside a batch of 8 with a 4096-key cache: its splits depend on its
     own length only."""
     gen = torch.Generator(device=cuda).manual_seed(22)
-    q, k, v, ln = _g16_case(gen, cuda, [3000, 1100, 97, 4096, 513, 0, 2048, 777], 4096)
+    q, k, v, ln = _split_case(gen, cuda, [3000, 1100, 97, 4096, 513, 0, 2048, 777], 4096, G=G)
     full = tdec.decode_attention(q, k, v, ln)
     for b in range(8):
         S_b = max(int(ln[b]), 1) + 5
@@ -287,12 +293,13 @@ def test_decode_attention_g16_row_does_not_depend_on_batch_or_cache_size(cuda):
         assert torch.equal(alone, full[b:b + 1]), f"row {b}"
 
 
-def test_decode_attention_g16_gate_rejects_planted_faults(cuda):
+@pytest.mark.parametrize("G", [1, 16])
+def test_decode_attention_g16_gate_rejects_planted_faults(cuda, G):
     """Each fault fails the element-wise gate against the f32-score plain
     version: the last split of every row with more than one dropped, and the
     combine over splits skipped (those rows keep the zeros they were given)."""
     gen = torch.Generator(device=cuda).manual_seed(23)
-    q, k, v, ln = _g16_case(gen, cuda, [4096, 3000, 1500, SPLIT + 1], 4096)
+    q, k, v, ln = _split_case(gen, cuda, [4096, 3000, 1500, SPLIT + 1], 4096, G=G)
     want32 = ref.decode_attention_f32_scores_ref(q, k, v, ln).float()
     torch.testing.assert_close(tdec.decode_attention(q, k, v, ln).float(), want32,
                                rtol=1.6e-2, atol=1e-2)
