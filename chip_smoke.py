@@ -12,9 +12,12 @@ exits non-zero without the final result line:
      kernel also at glm4-9b's 32 query heads over 2 KV heads of 128 and at
      a 2048-token prompt with either's heads; both decode kernels also at
      glm4-9b's G 16, hd 128, at the serve's lengths, and at either's heads
-     on a 4096-key cache split over the sequence) plus edge cases; each gate
-     must also reject faults planted on the same inputs; the paged kernel is
-     also held bit for bit to the dense kernel on the gathered cache;
+     on a 4096-key cache split over the sequence; both also at qwen2.5-32b's
+     G 5 and internlm2-20b's G 6, hd 128, dense and paged at block sizes 16,
+     3 and 1, at the serve's lengths and on the 4096-key cache) plus edge
+     cases; each gate must also reject faults planted on the same inputs;
+     the paged kernel is also held bit for bit to the dense kernel on the
+     gathered cache;
   4. serve  — ``CollaborativeEngine.serve`` of 32 Poisson requests through
      full-width stablelm-1.6b (24 layers, random weights from a seed),
      cached decode, 16 tokens each; the launch counts of the exit, decode
@@ -25,24 +28,37 @@ exits non-zero without the final result line:
      full-width ``stage_prefill`` with the kernels forced off and on, and
      two planted faults; the same serve with full batches; and a short serve
      under ``torch.profiler`` (device busy share, device time by kernel);
+     the first serve again with a span tracer and a metrics collector
+     attached: bitwise the untraced serve's tokens, exits and delays, delays
+     reconciled with the span trees, every tree closed, the Perfetto export
+     valid, and each (stage, phase) row of the roofline join measured and
+     within its H100 bound (utilization <= 1);
   5. paged serve — the same serve with ``cache_layout="paged"`` (block 16,
      no prefix sharing): launches the paged kernel and not the dense one and
      must give the dense serve's tokens and exits; prefill row-invariance
      measured; a shared-prefix serve with sharing on (prefix hits, every pool
      drained) against its dense twin; ``block_copy`` on a full-width pool;
-  6. glm4-9b — stablelm's weights freed, full-width glm4-9b (40 layers, d
+  6. control loop — full-width stablelm-1.6b, 16 requests of 8 tokens,
+     under a ``slowdown`` scenario (held past the serve's end) with a
+     ``ReconfigController`` and threshold-aware packing: at least one
+     reconfiguration, every request done, and the slowed replica's capacity
+     estimate at least halfway to its slowed rate; then the ``failure``
+     scenario (stateless, one token each, traced): every request done and
+     every span tree closed;
+  7. glm4-9b — stablelm's weights freed, full-width glm4-9b (40 layers, d
      4096, 32 query heads over 2 KV heads of 128, random weights from a seed)
      serves 16 Poisson requests, 8 tokens each, dense and then paged (block
      16): every request completes, each serve launches its kernels, and the
      paged serve's tokens and exits equal the dense serve's;
-  7. times  — each kernel at the serve's shapes (device time from the
+  8. times  — each kernel at the serve's shapes (device time from the
      profiler, cold L2) beside its bound, its plain version and one library
      yardstick (none computes the paged function in one call; the exit head
      and its yardstick timed in turns, medians of 4); the flash kernel also
      at glm4-9b's heads and at 2048-token prompts (at B 8 in turns with
      SDPA, medians of 4, each reading with its launches' spread), both
-     decode kernels also at glm4-9b's shapes and on the 4096-key cache at
-     either's heads.
+     decode kernels also at glm4-9b's shapes, on the 4096-key cache at
+     either's heads, and at G 5 and G 6 at the serve's lengths and on the
+     4096-key cache.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits 2.
@@ -52,6 +68,7 @@ from __future__ import annotations
 import gc
 import json
 import math
+from collections import Counter
 import re
 import subprocess
 import sys
@@ -62,8 +79,6 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
-BF16_FLOP_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak, published
 N_REQUESTS, GEN_LEN, BATCH = 32, 16, 8
 BLOCK = 16  # the paged serve's block size
 SEED = 0
@@ -80,6 +95,10 @@ GLM_LENGTHS = [112, 105, 120, 97, 116, 110, 101, 114]  # glm4-9b decode rows
 # a long cache: several splits of the decode walk per row
 LONG_S = 4096
 LONG_LENGTHS = [4096, 3000, 3581, 3317, 4010, 3122, 3808, 3456]
+# (query heads, KV heads, head dim) of the JAX package's qwen2.5-32b (G 5)
+# and internlm2-20b (G 6); the port's registry does not hold them yet
+GQA_HEADS = {"qwen2.5-32b": (40, 8, 128), "internlm2-20b": (48, 8, 128)}
+CTRL_REQUESTS, CTRL_GEN = 16, 8  # the control-loop serves
 
 
 def phase(name: str) -> None:
@@ -119,7 +138,20 @@ def launch_summary(stats: dict) -> str:
          for key, d in stats["launches"].items()] + [f"overwrites recorded x{stats['overwrites']}"])
 
 
-def time_cold(fn, iters: int, flush: torch.Tensor, tries: int = 3, stats: dict | None = None) -> float:
+class L2Flush:
+    """A 64 MB buffer whose overwrite evicts the L2 between timed launches,
+    and the names the profiler gives the overwrite's kernels, once a profile
+    of the overwrites alone has recorded them."""
+
+    def __init__(self, dev):
+        self.buf = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
+        self.names: set[str] = set()
+
+    def __call__(self) -> None:
+        self.buf.zero_()
+
+
+def time_cold(fn, iters: int, flush: L2Flush, tries: int = 3, stats: dict | None = None) -> float:
     """Mean device ms of ``fn`` over ``iters`` launches, each after the L2 is
     overwritten (the real caller finds it cold).  The time is the sum of the
     kernels' own durations, so the host's time in the wrapper is not in it.
@@ -133,28 +165,38 @@ def time_cold(fn, iters: int, flush: torch.Tensor, tries: int = 3, stats: dict |
     its launches per call.  A profile is taken again that recorded fewer
     than half of the overwrites or of a timed kernel's launches: one whose
     overwrites went unrecognised once counted a 64 MB overwrite into a
-    reading.  ``stats``, when given, receives each timed name's per-launch
-    durations (us) and the number of overwrites the profile recorded (see
-    ``launch_summary``)."""
+    reading.  Late in a long process a profile of the overwrites alone has
+    recorded fewer than half of them three times in a row; the names of the
+    last profile that did record them (``flush.names``, the same kernels
+    every time) then stand in.  ``stats``, when given, receives each timed
+    name's per-launch durations (us) and the number of overwrites the
+    profile recorded (see ``launch_summary``)."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
 
     def both():
         for _ in range(iters):
-            flush.zero_()
+            flush()
             fn()
 
     def alone():
         for _ in range(iters):
-            flush.zero_()
+            flush()
 
     for _ in range(tries):
-        overwrites = {key for key, v in device_launches(alone).items() if 2 * len(v) >= iters}
+        recorded = {key: len(v) for key, v in device_launches(alone).items()}
+        overwrites = {key for key, n in recorded.items() if 2 * n >= iters}
         if overwrites:
+            flush.names = overwrites
             break
     else:
-        raise RuntimeError(f"the profiler lost the overwrites' device events {tries} times")
+        if not flush.names:
+            raise RuntimeError(f"the profiler lost the overwrites' device events {tries} times: "
+                               f"{recorded} of {iters}")
+        print(f"  info time_cold: {tries} profiles of the overwrites alone recorded {recorded} of "
+              f"{iters}; the names of an earlier profile stand in", flush=True)
+        overwrites = flush.names
     for _ in range(tries):
         every = device_launches(both)
         timed = {key: v for key, v in every.items() if key not in overwrites}
@@ -245,6 +287,8 @@ def main() -> None:
         sys.exit(2)
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.configs import get_config
+    from repro_torch.control import (ControllerConfig, ReconfigController, Telemetry,
+                                     TelemetryConfig, busiest_replica, get_scenario, node_slowdown)
     from repro_torch.core.profiles import profile_from_arch
     from repro_torch.core.thresholds import synthetic_validation
     from repro_torch.core.topology import NetworkSpec, build_edge_network
@@ -256,6 +300,9 @@ def main() -> None:
     from repro_torch.kernels import flash_attention as kflash
     from repro_torch.kernels import paged_decode_attention as kpaged
     from repro_torch.models import model as model_lib
+    from repro_torch.obs import (MetricsCollector, SpanTracer, chrome_trace, decompose,
+                                 roofline_utilization, validate_chrome_trace)
+    from repro_torch.roofline.constants import HBM_BW, PEAK_FLOPS_BF16
     from repro_torch.serving import CollaborativeEngine
 
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain head runs in full f32
@@ -527,6 +574,32 @@ def main() -> None:
         check(f"paged_decode_attention {name} long-cache gate rejects a planted fault: the combine "
               f"over splits skipped", not ok_f, f"max|diff| {err_f:.3g}, {out_f:.2%} of elements outside")
 
+    # both decode kernels at G 5 and G 6 (hd 128), at the serve's lengths and
+    # on the long cache: dense against the plain version (atol 2e-2) and the
+    # f32-score plain version (element-wise, bf16 tolerance); paged at bs 16,
+    # 3 and 1 against the f32-score plain version on the gathered cache and
+    # bit for bit against the dense kernel on it
+    gqa_lengths = (("serve lengths", max_len, dec_lengths), ("long cache", LONG_S, LONG_LENGTHS))
+    for name, (hq, kvh, hd_) in GQA_HEADS.items():
+        G = hq // kvh
+        for label, S, lengths in gqa_lengths:
+            q, k, v, ln = dec_inputs(BATCH, S, hq, kvh, hd_, lengths)
+            o = kdec.decode_attention(q, k, v, ln)
+            err = float((o.float() - ref.decode_attention_ref(q, k, v, ln).float()).abs().max())
+            ok32, err32, _ = bf16_close(o, ref.decode_attention_f32_scores_ref(q, k, v, ln))
+            check(f"decode_attention {name} G={G} {label} B={BATCH} S={S} Hq={hq} KVH={kvh} hd={hd_}",
+                  err <= 2e-2 and ok32, f"max|err| {err:.3g} (tol 2e-2); against the f32-score plain "
+                  f"version max|diff| {err32:.3g} (rtol 1.6e-2, atol 1e-2)")
+            del q, k, v
+            for bs in (BLOCK, 3, 1):
+                args = paged_inputs(BATCH, hq, kvh, hd_, bs, lengths, -(-S // bs))
+                o = kpaged.paged_decode_attention(*args, seq_len=S)
+                ok, err32, bitwise = paged_gate(o, *args, S)
+                check(f"paged_decode_attention {name} G={G} {label} bs={bs}", ok,
+                      f"against the f32-score plain version on the gathered cache max|diff| "
+                      f"{err32:.3g}; bitwise equal to the dense kernel {bitwise}")
+                del args
+
     # prefill flash attention: element-wise at tests/test_kernels.py's bf16
     # tolerance (atol 2e-2) against the plain version on the same inputs
     def flash_inputs(B, Sq, Sk, hq, kvh, hd_):
@@ -634,6 +707,63 @@ def main() -> None:
     for name in ("exit_confidence", "decode_attention", "flash_attention"):
         check(f"{name} launched on the main path", launches[name] > 0, f"{launches[name]} launches")
     dense_seqs = stats.sequences_by_rid()
+
+    # the same serve observed: a span tracer and a metrics collector on the
+    # engine's instrumentation stream.  The tracer asks for the wall time of
+    # every stage batch, and the engine then synchronizes after each one.
+    engine.rng = np.random.default_rng(SEED)
+    tracer, metrics = SpanTracer(), MetricsCollector()
+    zero_counts()
+    t0 = time.perf_counter()
+    obs_stats = engine.serve(prompts, batch_size=BATCH, gen_len=GEN_LEN, decode_mode="cached",
+                             tracer=tracer, metrics=metrics)
+    torch.cuda.synchronize()
+    wall_traced = time.perf_counter() - t0
+    obs_launches = read_counts()
+    delay_h = metrics.registry.histogram("delay_s")
+    print(f"observed serve: wall {wall_traced:.3f} s traced against {wall:.3f} s untraced (the serve "
+          f"above; its first call of each shape included); kernel launches {obs_launches}; metrics: "
+          f"{metrics.registry.counter('batches').value:.0f} batches, simulated delay p50 "
+          f"{delay_h.quantile(0.5) * 1e3:.2f} ms p95 {delay_h.quantile(0.95) * 1e3:.2f} ms", flush=True)
+    for name in ("exit_confidence", "decode_attention", "flash_attention"):
+        check(f"{name} launched in the observed serve", obs_launches[name] > 0,
+              f"{obs_launches[name]} launches")
+    same = (obs_stats.rids == stats.rids and obs_stats.exit_stage == stats.exit_stage
+            and obs_stats.gen_tokens == stats.gen_tokens and obs_stats.delays == stats.delays)
+    check("observed serve bitwise equal to the untraced serve", same,
+          f"rids, exits, tokens and simulated delays of {len(obs_stats.rids)} requests")
+    dec = decompose(tracer, obs_stats)
+    check("observed serve's delays reconcile with its span trees", dec["reconciles"]
+          and dec["num_requests"] == N_REQUESTS,
+          f"max residual {dec['max_residual_s']!r} s over {dec['num_requests']} requests; mean "
+          f"components (ms) " + ", ".join(f"{k} {v * 1e3:.3f}" for k, v in
+                                          dec["mean_components_s"].items()))
+    open_trees = {rid: errs for rid in obs_stats.rids if (errs := tracer.check_tree(rid))}
+    check("observed serve's span trees all closed", not open_trees,
+          f"{len(open_trees)} of {len(obs_stats.rids)} trees with violations "
+          f"{list(open_trees.values())[:2]}")
+    payload = chrome_trace(tracer)
+    errs = validate_chrome_trace(payload)
+    check("observed serve's Perfetto export validates", errs == [],
+          f"{len(payload['traceEvents'])} events; {errs[:3]}")
+    rows = roofline_utilization(tracer, cfg)
+    print(f"  roofline join ({torch.cuda.get_device_name(0)}; bound from the H100 SXM peaks, "
+          f"{PEAK_FLOPS_BF16 / 1e12:.0f} TFLOP/s bf16, {HBM_BW / 1e12:.2f} TB/s):")
+    print(f"  {'row':16} {'calls':>6} {'live/rows':>11} {'tokens':>7} {'GFLOP':>9} {'GB':>8} "
+          f"{'measured ms':>12} {'bound ms':>9} {'ms/call':>8} {'bound/call':>10} {'util':>7}")
+    for key, r in rows.items():
+        print(f"  {key:16} {r['calls']:6d} {r['live_rows']:5d}/{r['device_rows']:<5d} "
+              f"{r['device_tokens']:7d} {r['analytic_gflops']:9.1f} {r['analytic_gbytes']:8.2f} "
+              f"{r['measured_wall_s'] * 1e3:12.3f} {r['bound_s'] * 1e3:9.3f} "
+              f"{r['measured_wall_s'] * 1e3 / r['calls']:8.3f} {r['bound_s'] * 1e3 / r['calls']:10.4f} "
+              f"{r['utilization']:7.4f}")
+    sys.stdout.flush()
+    bad = [key for key, r in rows.items() if not (r["measured_wall_s"] > 0 and r["utilization"] <= 1.0)]
+    check("every (stage, phase) row measured and within its H100 bound",
+          len(rows) == 2 * cfg.num_stages and not bad,
+          f"{len(rows)} rows (want {2 * cfg.num_stages}); outside: {bad}; sum of measured walls "
+          f"{sum(r['measured_wall_s'] for r in rows.values()):.3f} s of the {wall_traced:.3f} s serve")
+    del tracer, metrics, payload
 
     # one stage_decode at full width, kernels forced off and on
     programs = engine.programs
@@ -1001,9 +1131,87 @@ def main() -> None:
           f"copied blocks equal their sources {copied}; the other blocks untouched {kept}")
     del pool, before
 
-    # -- 6. glm4-9b --------------------------------------------------------------
+    # -- 6. control loop --------------------------------------------------------
+    # the closed DTO-EE loop at full width: the busiest stage-1 replica
+    # throttles to 15% of nameplate at 0.2 of the arrival span and stays so
+    # past the serve's end (the full-width stages overload this network, so
+    # the serve runs several times the arrival span: a recovery at
+    # ``get_scenario``'s 2 spans would hand the estimate back to nameplate
+    # before the end); the telemetry folds every batch's service into the
+    # engine's capacity EWMA, and the controller re-plans p and the
+    # thresholds every sixth of the span
+    phase("control loop")
+    ctrl_prompts = prompts[:CTRL_REQUESTS]
+    rate = float(engine.topo.phi_ext.sum())
+    span = CTRL_REQUESTS / rate
+    scn = node_slowdown(engine.topo, 0.2 * span, 10 * span, p=engine.p)
+    victim, factor = scn.events[0].node, scn.events[0].factor
+    mu0 = float(engine.topo.mu[victim])
+    if victim != busiest_replica(engine.topo, engine.p):
+        raise RuntimeError("the slowdown scenario did not pick the busiest stage-1 replica")
+    into_victim = float(engine.p[engine.topo.edge_dst == victim].sum())
+    ctrl = ReconfigController(Telemetry(engine.topo, TelemetryConfig(window_s=span / 6)),
+                              ControllerConfig(interval=span / 6))
+    engine.rng = np.random.default_rng(SEED)
+    zero_counts()
+    t0 = time.perf_counter()
+    c_stats = engine.serve(ctrl_prompts, batch_size=BATCH, gen_len=CTRL_GEN, decode_mode="cached",
+                           batch_policy="threshold", scenario=scn, controller=ctrl)
+    torch.cuda.synchronize()
+    c_wall = time.perf_counter() - t0
+    c_counts = read_counts()
+    c_sum = c_stats.summary()
+    cap = c_sum["capacity_estimates"][victim]
+    actions = dict(Counter(e["action"] for e in ctrl.log))
+    print(f"slowdown serve ({CTRL_REQUESTS} requests, {CTRL_GEN} tokens, arrival rate {rate:.3f}/s, "
+          f"replica {victim} at {factor} of {mu0:.1f} GFLOP/s from {scn.events[0].time:.4f} s): wall "
+          f"{c_wall:.3f} s; reconfigurations {c_stats.num_reconfigs} at "
+          f"{[round(t, 4) for t in c_stats.reconfig_times]} s; controller log {actions}; capacity "
+          f"estimate of replica {victim} {cap:.2f} GFLOP/s; strategy mass into it {into_victim:.3f} "
+          f"before, {float(engine.p[engine.topo.edge_dst == victim].sum()):.3f} after; padded rows "
+          f"{c_sum['padded_row_frac']:.1%}; thresholds {engine.thresholds}; simulated makespan "
+          f"{max(c_stats.dones) - min(c_stats.arrivals):.2f} s; kernel launches {c_counts}", flush=True)
+    check("control loop reconfigured", c_stats.num_reconfigs >= 1, f"{c_stats.num_reconfigs} installs")
+    check("control loop completed every request", c_sum["num_completed"] == CTRL_REQUESTS,
+          f"{c_sum['num_completed']} of {CTRL_REQUESTS}")
+    check("slowed replica's capacity estimate moved toward its slowed rate",
+          cap <= (1 + factor) / 2 * mu0, f"{cap:.3f} GFLOP/s, at most halfway from {mu0:.3f} "
+          f"(nameplate) to {factor * mu0:.3f} (slowed)")
+    for name in ("exit_confidence", "decode_attention", "flash_attention"):
+        check(f"{name} launched in the slowdown serve", c_counts[name] > 0, f"{c_counts[name]} launches")
+
+    # fail-stop of the busiest safe stage-1 replica at 0.25 of the span, on
+    # the stateless single-shot plane, arrivals 4x faster so that the victim
+    # holds queued work when it dies
+    scn = get_scenario("failure", engine.topo, p=engine.p, horizon=span / 4, seed=SEED)
+    dead = scn.events[0].node
+    f_tracer = SpanTracer()
+    engine.rng = np.random.default_rng(SEED)
+    zero_counts()
+    t0 = time.perf_counter()
+    f_stats = engine.serve(ctrl_prompts, arrival_rate=4 * rate, batch_size=BATCH, scenario=scn,
+                           tracer=f_tracer)
+    torch.cuda.synchronize()
+    f_wall = time.perf_counter() - t0
+    f_counts = read_counts()
+    dec = decompose(f_tracer, f_stats)
+    open_trees = [rid for rid in f_stats.rids if f_tracer.check_tree(rid)]
+    print(f"failure serve ({CTRL_REQUESTS} requests, one token, replica {dead} dead at "
+          f"{scn.events[0].time:.4f} s): wall {f_wall:.3f} s; re-executed {f_stats.resubmitted}, "
+          f"{dec['num_with_lost_time']} with lost time; exits {f_stats.summary()['exit_histogram']}; "
+          f"kernel launches {f_counts}", flush=True)
+    check("failure serve completed every request", len(f_stats.delays) == CTRL_REQUESTS
+          and dead not in set(engine.topo.edge_dst.tolist()),
+          f"{len(f_stats.delays)} of {CTRL_REQUESTS}; replica {dead} dropped from the view")
+    check("failure serve's span trees all closed", not open_trees and dec["reconciles"],
+          f"{len(open_trees)} trees with violations; max residual {dec['max_residual_s']!r} s")
+    for name in ("exit_confidence", "flash_attention"):
+        check(f"{name} launched in the failure serve", f_counts[name] > 0, f"{f_counts[name]} launches")
+    del f_tracer
+
+    # -- 7. glm4-9b --------------------------------------------------------------
     phase("glm4-9b serve")
-    w_lm = params["lm_head"]  # phase 7 times the exit head on stablelm's LM head
+    w_lm = params["lm_head"]  # phase 8 times the exit head on stablelm's LM head
     del engine, programs, params, store, caches, outs, x1, x_dec, y_t, y_c, y_f, yp_t, yp_c
     gc.collect()
     torch.cuda.empty_cache()
@@ -1059,9 +1267,9 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # -- 7. times -------------------------------------------------------------
+    # -- 8. times -------------------------------------------------------------
     phase("times (device time from the profiler, cold L2, mean over launches)")
-    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
+    flush = L2Flush(dev)
     kernels_out = []
 
     h = torch.randn((BATCH, d), generator=gen, device=dev).bfloat16()
@@ -1081,7 +1289,7 @@ def main() -> None:
     t_p = time_cold(lambda: ref.exit_confidence_ref(h, w_lm), 10, flush)
     bytes_ = d * V * 2 + BATCH * d * 2 + BATCH * 8
     flops = 2 * BATCH * d * V
-    b_bytes, b_ops = bytes_ / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOP_PER_S * 1e3
+    b_bytes, b_ops = bytes_ / HBM_BW * 1e3, flops / PEAK_FLOPS_BF16 * 1e3
     print(f"exit_confidence B={BATCH} d={d} V={V}: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
           f"library (bf16 matmul + max/logsumexp/argmax) {t_l:.4f} ms, bound {max(b_bytes, b_ops):.4f} ms "
           f"({'bytes' if b_bytes >= b_ops else 'operations'}: {bytes_ / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
@@ -1115,7 +1323,7 @@ def main() -> None:
     tot = int(sum(dec_lengths))
     bytes_ = 2 * tot * KVH * hd * 2 + 2 * BATCH * Hq * hd * 2 + BATCH * 4
     flops = 4 * tot * Hq * hd
-    b_bytes, b_ops = bytes_ / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOP_PER_S * 1e3
+    b_bytes, b_ops = bytes_ / HBM_BW * 1e3, flops / PEAK_FLOPS_BF16 * 1e3
     print(f"decode_attention B={BATCH} S={max_len} Hq={Hq} KVH={KVH} hd={hd} lengths {dec_lengths}: "
           f"kernel {t_k:.4f} ms, plain {t_p:.4f} ms, library (SDPA, length mask; max|diff| vs plain "
           f"{lib_err:.3g}) {t_l:.4f} ms, bound {max(b_bytes, b_ops):.5f} ms "
@@ -1153,7 +1361,7 @@ def main() -> None:
             blocks_read = sum(-(-n // bs) for n in dec_lengths)
             bytes_ = 2 * tot * KVH * hd * 2 + blocks_read * 4 + 2 * BATCH * Hq * hd * 2 + BATCH * 4
             flops = 4 * tot * Hq * hd
-            b_bytes, b_ops = bytes_ / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOP_PER_S * 1e3
+            b_bytes, b_ops = bytes_ / HBM_BW * 1e3, flops / PEAK_FLOPS_BF16 * 1e3
     print(f"paged_decode_attention B={BATCH} Hq={Hq} KVH={KVH} hd={hd} lengths {dec_lengths}, "
           f"shuffled blocks: kernel {paged_ms[BLOCK]:.4f} ms at bs {BLOCK} (n_logical {n_log[BLOCK]}), "
           f"{paged_ms[1]:.4f} ms at bs 1 (n_logical {n_log[1]}); plain {t_p:.4f} ms; dense kernel on "
@@ -1170,6 +1378,32 @@ def main() -> None:
         "bound_by": "bytes" if b_bytes >= b_ops else "operations", "library_ms": None,
     })
 
+    # both decode kernels at G 5 and G 6 (hd 128), at the serve's lengths and
+    # on the long cache
+    for name, (hq, kvh, hd_) in GQA_HEADS.items():
+        for label, S, lengths in gqa_lengths:
+            q, k, v, ln = dec_inputs(BATCH, S, hq, kvh, hd_, lengths)
+            args = paged_inputs(BATCH, hq, kvh, hd_, BLOCK, lengths, -(-S // BLOCK))
+            iters = 200 if S == max_len else 100
+            t_k = time_cold(lambda: kdec.decode_attention(q, k, v, ln), iters, flush)
+            t_pg = time_cold(lambda: kpaged.paged_decode_attention(*args, seq_len=S), iters, flush)
+            t_p = time_cold(lambda: ref.decode_attention_ref(q, k, v, ln), iters // 10, flush)
+            mask = (torch.arange(S, device=dev)[None, :] < ln[:, None])[:, None, None, :]
+            t_l = time_cold(lambda: F.scaled_dot_product_attention(
+                q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask,
+                enable_gqa=True), iters, flush)
+            tot = int(sum(lengths))
+            bytes_ = 2 * tot * kvh * hd_ * 2 + 2 * BATCH * hq * hd_ * 2 + BATCH * 4
+            flops = 4 * tot * hq * hd_
+            b_bytes, b_ops = bytes_ / HBM_BW * 1e3, flops / PEAK_FLOPS_BF16 * 1e3
+            print(f"{name} decode G={hq // kvh} {label} B={BATCH} S={S} Hq={hq} KVH={kvh} hd={hd_} "
+                  f"lengths {min(lengths)}..{max(lengths)}: decode_attention {t_k:.4f} ms, "
+                  f"paged_decode_attention (bs {BLOCK}) {t_pg:.4f} ms, plain {t_p:.4f} ms, library "
+                  f"(SDPA, length mask, GQA) {t_l:.4f} ms, bound {max(b_bytes, b_ops):.5f} ms "
+                  f"({'bytes' if b_bytes >= b_ops else 'operations'}: {bytes_ / 1e6:.2f} MB, "
+                  f"{flops / 1e6:.1f} MFLOP)", flush=True)
+            del q, k, v, args
+
     # both decode kernels at glm4-9b's shapes (G 16, hd 128)
     q, k, v, ln = dec_inputs(BATCH, g_len, g_hq, g_kvh, g_hd, GLM_LENGTHS)
     t_k = time_cold(lambda: kdec.decode_attention(q, k, v, ln), 200, flush)
@@ -1183,7 +1417,7 @@ def main() -> None:
     tot = int(sum(GLM_LENGTHS))
     bytes_ = 2 * tot * g_kvh * g_hd * 2 + 2 * BATCH * g_hq * g_hd * 2 + BATCH * 4
     flops = 4 * tot * g_hq * g_hd
-    b_bytes, b_ops = bytes_ / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOP_PER_S * 1e3
+    b_bytes, b_ops = bytes_ / HBM_BW * 1e3, flops / PEAK_FLOPS_BF16 * 1e3
     print(f"glm4-9b decode B={BATCH} S={g_len} Hq={g_hq} KVH={g_kvh} hd={g_hd} lengths {GLM_LENGTHS}: "
           f"decode_attention {t_k:.4f} ms, paged_decode_attention (bs {BLOCK}) {t_pg:.4f} ms, plain "
           f"{t_p:.4f} ms, library (SDPA, length mask, GQA) {t_l:.4f} ms, bound "
@@ -1205,7 +1439,7 @@ def main() -> None:
         tot = int(sum(LONG_LENGTHS))
         bytes_ = 2 * tot * kvh * hd_ * 2 + 2 * BATCH * hq * hd_ * 2 + BATCH * 4
         flops = 4 * tot * hq * hd_
-        b_bytes, b_ops = bytes_ / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOP_PER_S * 1e3
+        b_bytes, b_ops = bytes_ / HBM_BW * 1e3, flops / PEAK_FLOPS_BF16 * 1e3
         print(f"{name} long-cache decode G={hq // kvh} B={BATCH} S={LONG_S} Hq={hq} KVH={kvh} hd={hd_} "
               f"lengths {LONG_LENGTHS}: decode_attention {t_k:.4f} ms, paged_decode_attention (bs "
               f"{BLOCK}) {t_pg:.4f} ms, plain {t_p:.4f} ms, library (SDPA, length mask, GQA) {t_l:.4f} "
@@ -1240,7 +1474,7 @@ def main() -> None:
         t_p = time_cold(lambda: ref.flash_attention_ref(q, k, v), 10, flush)
         bytes_ = 2 * q.numel() * 2 + 2 * k.numel() * 2  # q and out, k and v
         flops = 4 * B * hq * hd_ * (S * (S + 1) // 2)  # QK^T and PV over the causal triangle
-        b_bytes, b_ops = bytes_ / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOP_PER_S * 1e3
+        b_bytes, b_ops = bytes_ / HBM_BW * 1e3, flops / PEAK_FLOPS_BF16 * 1e3
         print(f"flash_attention {label} B={B} S={S} Hq={hq} KVH={kvh} hd={hd_}: kernel {t_k:.4f} ms, "
               f"plain {t_p:.4f} ms, library (SDPA, is_causal, enable_gqa; max|diff| vs plain "
               f"{lib_err:.3g}) {t_l:.4f} ms, bound {max(b_bytes, b_ops):.5f} ms "

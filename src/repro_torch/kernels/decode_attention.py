@@ -20,7 +20,9 @@ import torch
 from repro_torch.kernels import build, ref
 
 HEAD_DIMS = (32, 64, 128)
-GROUPS = (1, 2, 4, 8, 16)  # query heads per KV head the kernel takes
+# Query heads per KV head the kernel takes: the walk puts a KV head's G
+# query heads on the first G of its tensor-core tiles' 16 M rows
+GROUPS = tuple(range(1, 17))
 # Keys per split of the walk: a multiple of its 32-key warp tile.  Fixed, so
 # a row's splits, and so its output, depend on its own length only.
 SPLIT_KEYS = 512
@@ -84,7 +86,8 @@ def decode_attention(
         raise ValueError(f"q heads {Hq} not a multiple of kv heads {KVH}")
     G = Hq // KVH
     if hd not in HEAD_DIMS or G not in GROUPS:
-        raise ValueError(f"decode_attention kernel takes hd in {HEAD_DIMS}, G in {GROUPS}; got {hd}, {G}")
+        raise ValueError(f"decode_attention kernel takes hd in {HEAD_DIMS} and 1 <= G <= "
+                         f"{GROUPS[-1]} query heads per KV head; got hd {hd}, G {G}")
     for t in (q, k, v, lengths):
         if not t.is_contiguous():
             raise ValueError("decode_attention: inputs must be contiguous")

@@ -69,8 +69,8 @@ def paged_decode_attention(
         raise ValueError(f"q heads {Hq} not a multiple of kv heads {KVH}")
     G = Hq // KVH
     if hd not in HEAD_DIMS or G not in GROUPS:
-        raise ValueError(f"paged_decode_attention kernel takes hd in {HEAD_DIMS}, G in {GROUPS}; "
-                         f"got {hd}, {G}")
+        raise ValueError(f"paged_decode_attention kernel takes hd in {HEAD_DIMS} and 1 <= G <= "
+                         f"{GROUPS[-1]} query heads per KV head; got hd {hd}, G {G}")
     for t in (q, k_pool, v_pool, table, lengths):
         if not t.is_contiguous():
             raise ValueError("paged_decode_attention: inputs must be contiguous")

@@ -2,8 +2,9 @@
 
 A copy of ``repro.obs.stream``.  The engine emits each event ONCE to an
 :class:`InstrumentationStream`, which fans it out to whatever subscribed —
-in the JAX package: the control plane's ``Telemetry``, a ``SpanTracer``, a
-``MetricsCollector`` (not ported yet; see ROADMAP) — each consuming the
+the control plane's :class:`~repro_torch.control.telemetry.Telemetry`, a
+:class:`~repro_torch.obs.trace.SpanTracer`, a
+:class:`~repro_torch.obs.metrics.MetricsCollector` — each consuming the
 subset of hooks it defines.
 
 Dispatch cost is kept off the hot path:

@@ -27,8 +27,13 @@ Hidden states travel between replicas as device tensors (each request
 keeps its row of the stage output; a batch is assembled with ``torch.cat``);
 the confidences and tokens of a batch come to the host once.
 
-Not ported yet (each raises ``NotImplementedError``): scenarios, the online
-controller, telemetry, tracing and metrics.
+Observers and the online control plane, as in the reference: a
+``telemetry`` sink, a ``tracer`` (span trees, the roofline join's wall
+times) and ``metrics`` subscribe to one instrumentation stream
+(``obs.stream``); a ``controller`` re-plans DTO-EE mid-serve from the
+telemetry; a ``scenario`` perturbs a private copy of the topology
+(bursts, slowdowns, link degradation, fail-stop).  With no observer the
+stream is None and the serve adds no host work and no device sync.
 """
 from __future__ import annotations
 
@@ -44,10 +49,12 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import dto_ee
+from repro_torch.core import topology as topo_lib
 from repro_torch.core.simulator import RoutingCdf
 from repro_torch.core.thresholds import ExitProfile
 from repro_torch.core.types import DtoHyperParams, ModelProfile, Topology
 from repro_torch.models import model as model_lib
+from repro_torch.obs.attribution import decompose
 from repro_torch.obs.stream import build_stream
 from repro_torch.runtime import elastic
 from repro_torch.serving import steps
@@ -75,8 +82,23 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP: {item})")
+def _thinned_arrivals(
+    rng: np.random.Generator, base_rate: float, factor, f_max: float, n: int
+) -> np.ndarray:
+    """Non-homogeneous Poisson arrival times for ``n`` requests by thinning:
+    candidates arrive at ``base_rate * f_max`` and are accepted with
+    probability ``factor(t) / f_max`` (the scenario's piecewise arrival-rate
+    modulation, e.g. a burst window)."""
+    lam = base_rate * max(f_max, 1e-12)
+    out = np.empty(n, np.float64)
+    t = 0.0
+    k = 0
+    while k < n:
+        t += rng.exponential(1.0 / lam)
+        if rng.random() * f_max <= factor(t):
+            out[k] = t
+            k += 1
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -179,7 +201,16 @@ class ServeStats:
     prefix_total_blocks: int = 0
     block_occupancy: list = dataclasses.field(default_factory=list)
     allocators: dict = dataclasses.field(default_factory=dict)
+    # online control plane: mid-serve strategy installs, failure re-executions,
+    # and the straggler monitor's end-of-serve capacity estimates per ES
+    num_reconfigs: int = 0
+    reconfig_times: list = dataclasses.field(default_factory=list)
+    resubmitted: int = 0
     capacity_estimates: dict = dataclasses.field(default_factory=dict)
+    # observability: the SpanTracer / MetricsCollector attached to the serve
+    # (None when tracing was off)
+    trace: Any = None
+    metrics: Any = None
 
     def summary(self) -> dict:
         d = np.asarray(self.delays)
@@ -187,7 +218,7 @@ class ServeStats:
         total_tokens = int(sum(len(g) for g in self.gen_tokens))
         makespan = float(max(self.dones) - min(self.arrivals)) if self.dones else float("nan")
         nan = float("nan")
-        return {
+        out = {
             "num_completed": int(d.size),
             "mean_delay": float(d.mean()) if d.size else nan,
             "delay_std": float(d.std()) if d.size else nan,
@@ -218,8 +249,27 @@ class ServeStats:
             "block_occupancy_peak": (
                 float(np.max(self.block_occupancy)) if self.block_occupancy else nan
             ),
+            # online control plane
+            "num_reconfigs": self.num_reconfigs,
+            "resubmitted": self.resubmitted,
             "capacity_estimates": dict(self.capacity_estimates),
         }
+        if self.trace is not None:
+            dec = decompose(self.trace, self)
+            out["delay_components"] = dec["mean_components_s"]
+            out["per_stage_components"] = dec["per_stage"]
+        return out
+
+    def report(self) -> dict:
+        """Machine-readable serve report: the summary plus, when a tracer
+        was attached, the full per-request delay decomposition and, when a
+        metrics collector was attached, its registry snapshot."""
+        out = {"summary": self.summary()}
+        if self.trace is not None:
+            out["decomposition"] = decompose(self.trace, self)
+        if self.metrics is not None:
+            out["metrics"] = self.metrics.snapshot()
+        return out
 
     def by_rid(self) -> dict[int, tuple[int, int]]:
         """rid -> (exit_stage, token); completion-order independent view."""
@@ -344,15 +394,27 @@ class CollaborativeEngine:
         blocks are shared across requests (``prefix_sharing``).  Tokens and
         exits equal the dense layout's; admission also waits for pool
         blocks, and a pool too small for the working set raises.
+
+        Observers (``repro_torch.obs``, ``repro_torch.control``):
+        ``telemetry``, ``tracer`` and ``metrics`` subscribe to one
+        instrumentation stream.  ``tracer`` (a ``SpanTracer``) builds one
+        span tree per request tiling ``[arrival, retirement]`` and takes the
+        wall time of every stage batch for the roofline join; on a CUDA
+        device the engine then synchronizes after each batch, so the wall
+        holds the batch's device work.  ``metrics`` (a ``MetricsCollector``)
+        feeds a metrics registry.  With none attached every emission is
+        skipped and nothing is synchronized.  Attached observers land on
+        ``stats.trace`` / ``stats.metrics`` for ``ServeStats.report()``.
+
+        ``controller`` (a ``ReconfigController``) plans a reconfiguration
+        from its telemetry every ``controller.interval`` simulated seconds
+        and installs it once the plan's decision time has passed.
+        ``scenario`` (a ``Scenario``) perturbs a private copy of the
+        topology at its event times; ``self.topo`` stays the optimizer's
+        view.  A failure event re-executes the dead replica's tasks from
+        their source EDs and needs the stateless single-shot plane
+        (gen_len=1).
         """
-        if scenario is not None:
-            raise _not_ported("scenario", "next slices, obs/ and control/")
-        if controller is not None:
-            raise _not_ported("controller", "next slices, obs/ and control/")
-        if telemetry is not None:
-            raise _not_ported("telemetry", "next slices, obs/ and control/")
-        if tracer is not None or metrics is not None:
-            raise _not_ported("tracer/metrics", "next slices, obs/ and control/")
         if batch_size < 1:
             raise ValueError("batch_size must be >= 1")
         if gen_len < 1:
@@ -373,39 +435,88 @@ class CollaborativeEngine:
             raise ValueError("prompts must be non-empty")
         if batch_policy not in ("fifo", "threshold"):
             raise ValueError("batch_policy must be 'fifo' or 'threshold'")
+        if controller is not None and telemetry is None:
+            telemetry = controller.telemetry
+        if scenario is not None and any(ev.kind == "fail" for ev in scenario.events) and (
+            cached or gen_len > 1
+        ):
+            raise ValueError(
+                "failure scenarios re-execute tasks from their source ED and need the stateless "
+                "single-shot plane (gen_len=1, decode_mode='stateless'); cache migration is a "
+                "follow-on"
+            )
         profile = self.profile
-        topo = self.topo
+        if scenario is not None:
+            # physics run on a PRIVATE copy of the serve-time topology: the
+            # scenario mutates physical truth, while self.topo stays the
+            # optimizer's view and learns of the drift only through
+            # telemetry and reconfiguration
+            topo = dataclasses.replace(
+                self.topo, mu=self.topo.mu.copy(), phi_ext=self.topo.phi_ext.copy(),
+                edge_rate=self.topo.edge_rate.copy(),
+            )
+        else:
+            topo = self.topo
         programs = self.programs
         H = profile.num_stages
         eds = topo.nodes_at_stage(0)
         rate = float(arrival_rate) if arrival_rate is not None else float(topo.phi_ext.sum())
         n = len(prompts)
         if rate > 0 and np.isfinite(rate):
-            arrivals = np.cumsum(self.rng.exponential(1.0 / rate, size=n))
+            if scenario is not None and scenario.modulates_arrivals:
+                arrivals = _thinned_arrivals(self.rng, rate, scenario.arrival_factor,
+                                             scenario.max_arrival_factor, n)
+            else:
+                arrivals = np.cumsum(self.rng.exponential(1.0 / rate, size=n))
         else:
             arrivals = np.sort(self.rng.uniform(0.0, duration, size=n))
         # arrival nodes follow the optimizer's traffic model: each request
         # lands on an ED with probability proportional to its phi_ext
         ed_w = topo.phi_ext[eds]
         if n and ed_w.sum() > 0:
-            ed_idx = self.rng.choice(len(eds), size=n, p=ed_w / ed_w.sum())
+            if scenario is not None and scenario.modulates_eds:
+                # the scenario skews WHICH devices produce during its windows
+                ed_idx = np.empty(n, np.int64)
+                for i, t in enumerate(arrivals):
+                    w = scenario.ed_weights(float(t), eds, ed_w)
+                    ed_idx[i] = self.rng.choice(len(eds), p=w / w.sum())
+            else:
+                ed_idx = self.rng.choice(len(eds), size=n, p=ed_w / ed_w.sum())
         else:
             ed_idx = np.arange(n) % max(len(eds), 1)
         packer = None
         if batch_policy == "threshold":
+            # reads self.thresholds lazily, so mid-serve reconfigurations
+            # re-aim the exit predictions at once
             packer = ExitPredictor(lambda: self.thresholds, gen_len)
-        # the emission sites of the reference engine; no observer is ported
-        # yet, so the stream is None and every emission is skipped
+        # one capacity EWMA, not two: the telemetry adopts the engine's
+        # monitor, so the capacity_estimates reported in ServeStats are the
+        # numbers the controller planned from
+        shared_monitor = telemetry is not None and hasattr(telemetry, "attach_monitor")
+        if shared_monitor:
+            telemetry.attach_monitor(self.straggler)
+        # every observer subscribes to one instrumentation stream; None when
+        # nothing is attached, so the disabled path skips every emission
         stream = build_stream(telemetry, tracer, metrics)
         wants_wall = stream is not None and stream.wants_wall
 
         stats = ServeStats()
+        stats.trace = tracer
+        stats.metrics = metrics
+        # one precomputed CDF serves every routing sample; the controller's
+        # installs and node failures rebuild it
         route = RoutingCdf(topo, self.p)
         # event heap: (time, seq, kind, payload)
         #   kind 0: transfer done, request joins ``node``   payload (req, node)
         #   kind 1: batch service done at ``node``          payload (node, reqs,
         #           conf [B] | None, tok [B] | None, is_decode_pass)
+        #   kind 2: control plane                           payload ("scenario",
+        #           event idx) | ("reconfig",) | ("install", plan)
+        #   kind 3: deferred ED arrival (scenario runs only: the first hop's
+        #           transfer time must see the environment AT arrival time)
+        #           payload: req
         heap: list = []
+        dead_nodes: set[int] = set()
         seq = itertools.count()
         wait_seq = itertools.count()  # FIFO order shared across queue kinds
         es_nodes = [int(v) for v in range(topo.num_nodes) if topo.node_stage[v] > 0]
@@ -567,6 +678,14 @@ class CollaborativeEngine:
             if conf is not None:
                 conf = conf.cpu().numpy()[: len(reqs)]
                 tok = tok.cpu().numpy()[: len(reqs)]
+            if wants_wall and x.device.type == "cuda":
+                # the hidden states stay on the card and only a head batch
+                # pulls anything to the host: without this sync a batch with
+                # no head would time its launches alone, and the next head
+                # batch would absorb its device work.  Synced, the wall time
+                # below is honest device + dispatch time, as the reference's
+                # host pull of every stage output makes it.
+                torch.cuda.synchronize(x.device)
             stats.num_batches += 1
             stats.num_forward_rows += int(x.shape[0])
             stats.num_real_rows += len(reqs)
@@ -580,7 +699,12 @@ class CollaborativeEngine:
             start = max(now, busy_until[node])
             done = start + service
             busy_until[node] = done
-            self.straggler.observe(node, gflops, service)
+            # every batch is a capacity measurement: the EWMA follows the
+            # replica's TRUE (possibly scenario-perturbed) rate.  A telemetry
+            # sharing the monitor folds it in through on_batch; observe
+            # directly only when none does
+            if not shared_monitor:
+                self.straggler.observe(node, gflops, service)
             if stream is not None:
                 stream.on_batch(
                     done, node, gflops, service,
@@ -734,21 +858,117 @@ class CollaborativeEngine:
                 stream.on_transfer(t, t + t_cm, t_cm, req.ed, nxt, req.rid, profile.beta[0])
             heapq.heappush(heap, (t + t_cm, next(seq), 0, (req, nxt)))
 
+        def resubmit(req: Request, now: float) -> None:
+            """Fail-stop re-execution: a task resident on (or in flight to) a
+            failed replica restarts from scratch at its source ED."""
+            stats.resubmitted += 1
+            req.attempts += 1
+            req.phase = "prefill"
+            req.hidden = None
+            req.generated.clear()
+            req.path.clear()
+            req.last_conf.clear()
+            if stream is not None:
+                stream.on_resubmit(now, req.rid)
+            submit(req, now)
+
+        def fail_node(dead: int, now: float) -> None:
+            """Fail-stop of replica ``dead``, detected at once: the view and
+            the environment drop its edges in lockstep (same predicate, so
+            their edge arrays stay aligned), the surviving strategy is
+            renormalized and the optimizer warm-starts from it; its queued
+            tasks re-execute from their source EDs (tasks in service or in
+            flight to it are caught at their event pops via ``dead_nodes``)."""
+            nonlocal topo, route
+            new_view, p_new = elastic.handle_failure(self.topo, self.p, dead)
+            env_new = new_view if topo is self.topo else topo_lib.with_node_failure(topo, dead)
+            self.topo = new_view
+            self.state = dataclasses.replace(
+                self.state,
+                carry=self.state.carry._replace(p=torch.as_tensor(p_new, dtype=torch.float32)),
+            )
+            self._round_step = dto_ee.make_round_step(new_view, profile, self.hyper)
+            topo = env_new
+            route = RoutingCdf(topo, self.p)
+            dead_nodes.add(dead)
+            self.straggler.mu_hat[dead] = 1e-9
+            if stream is not None:
+                stream.on_failure(now, dead)
+            while True:
+                popped = pending[dead].pop_batch()
+                if popped is None:
+                    break
+                for r in popped[1]:
+                    resubmit(r, now)
+
         for i, (t, prompt) in enumerate(zip(arrivals, prompts)):
             req = Request(rid=i, tokens=np.asarray(prompt, np.int32), arrival=t,
                           ed=int(eds[ed_idx[i]]))
-            submit(req, t)
+            if scenario is not None:
+                # defer the first hop to arrival time so it sees the
+                # environment (link rates, routing strategy) AS OF ``t``
+                heapq.heappush(heap, (float(t), next(seq), 3, req))
+            else:
+                submit(req, t)
+        if scenario is not None:
+            for i, ev in enumerate(scenario.events):
+                heapq.heappush(heap, (float(ev.time), next(seq), 2, ("scenario", i)))
+        if controller is not None:
+            heapq.heappush(heap, (float(controller.interval), next(seq), 2, ("reconfig",)))
 
         while heap:
+            if len(stats.delays) == n:
+                break  # every request measured; only control events remain
             now, _, kind, payload = heapq.heappop(heap)
+            if kind == 3:  # deferred ED arrival
+                submit(payload, now)
+                continue
+            if kind == 2:  # control plane
+                tag = payload[0]
+                if tag == "scenario":
+                    ev = scenario.events[payload[1]]
+                    if ev.kind == "fail":
+                        # (cached failure was refused up front: no request
+                        # can hold cache residency at the dead replica)
+                        fail_node(int(ev.node), now)
+                    else:
+                        scenario.apply_env(ev, topo)
+                elif tag == "reconfig":
+                    plan = controller.plan(self, now)
+                    if plan is not None:
+                        # routing stays on the stale strategy until the
+                        # decision time has passed: slow reconfigurations pay
+                        # for their latency as in the paper
+                        heapq.heappush(heap, (now + plan.decision_time, next(seq), 2,
+                                              ("install", plan)))
+                    # reschedule only while data-plane events remain: a
+                    # starved serve must drain to the stall check below
+                    # instead of ticking forever
+                    if any(ev[2] != 2 for ev in heap):
+                        heapq.heappush(heap, (now + controller.interval, next(seq), 2,
+                                              ("reconfig",)))
+                elif controller.install(self, payload[1]):
+                    route = RoutingCdf(topo, self.p)
+                    stats.num_reconfigs += 1
+                    stats.reconfig_times.append(now)
+                continue
             if kind == 0:
                 req, node = payload
+                if node in dead_nodes:
+                    resubmit(req, now)
+                    continue
                 if stream is not None and req.stage == 0:
                     stream.on_arrival(req.arrival, req.ed, req.rid)
                 enqueue(req, node, now)
                 continue
             # kind 1: batch done — the batched exit decision is on the host
             node, reqs, conf, tok, is_decode_pass = payload
+            if node in dead_nodes:
+                # the replica died mid-service: its output is lost, the whole
+                # batch re-executes from the source EDs
+                for req in reqs:
+                    resubmit(req, now)
+                continue
             h = int(topo.node_stage[node])
             b = self.stage_to_branch.get(h)
             for i, req in enumerate(reqs):

@@ -44,6 +44,8 @@ DECODE_CASES = [
     (1, 512, 4, 4, 128),
     (3, 1000, 16, 4, 64),  # ragged lengths below
     (2, 300, 4, 4, 32),
+    (2, 300, 10, 2, 128),  # G 5: qwen2.5-32b's 40 query heads over 8
+    (2, 300, 12, 2, 128),  # G 6: internlm2-20b's 48 over 8
 ]
 
 
@@ -61,7 +63,8 @@ def test_decode_attention_matches_jax(dtype, B, S, Hq, KVH, hd):
     np.testing.assert_allclose(_np(got), _np(want), atol=TOL[dtype])
 
 
-@pytest.mark.parametrize("B,S,Hq,KVH,hd,block", [(2, 300, 8, 2, 64, 64), (1, 256, 4, 4, 32, 128)])
+@pytest.mark.parametrize("B,S,Hq,KVH,hd,block", [(2, 300, 8, 2, 64, 64), (1, 256, 4, 4, 32, 128),
+                                                (2, 300, 10, 2, 128, 64), (1, 256, 12, 2, 128, 128)])
 def test_decode_attention_matches_pallas_body(B, S, Hq, KVH, hd, block):
     """The plain version against the Pallas kernel body (interpret mode)."""
     rng = np.random.default_rng(1)
@@ -221,8 +224,22 @@ def test_split_size_is_a_multiple_of_the_walks_warp_tile():
 
 def test_every_group_fits_the_walks_tensor_core_rows():
     """The CUDA walk refuses a G above the M rows of its tensor-core tiles
-    (``MMA_G``): every G the wrappers take fits them."""
-    assert 1 <= min(tdec.GROUPS) and max(tdec.GROUPS) <= _walk_constant("MMA_G")
+    (``MMA_G``): the wrappers take every G that fits them, those without a
+    power of two (3, 5, 6, 12) included, and no other."""
+    assert tdec.GROUPS == tuple(range(1, _walk_constant("MMA_G") + 1))
+    assert {3, 5, 6, 12} <= set(tdec.GROUPS)
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-32b", "internlm2-20b", "glm4-9b", "stablelm-1.6b"])
+def test_registry_attention_fits_the_decode_wrappers(arch):
+    """The GQA configs of the JAX registry (G 5, 6, 16 and 1, all hd 128 or
+    64) are shapes both decode wrappers take."""
+    from repro.configs import get_config
+
+    cfg = get_config(arch)
+    assert cfg.num_heads % cfg.num_kv_heads == 0
+    assert cfg.num_heads // cfg.num_kv_heads in tdec.GROUPS
+    assert cfg.head_dim in tdec.HEAD_DIMS
 
 
 def test_every_probe_variant_finds_its_marked_lines():

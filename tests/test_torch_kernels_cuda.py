@@ -111,11 +111,12 @@ def test_decode_attention_length_zero_and_past_cache(cuda):
 def test_decode_attention_rejects_what_it_cannot_take(cuda):
     q = torch.zeros((1, 6, 64), dtype=torch.bfloat16, device=cuda)
     k = torch.zeros((1, 8, 2, 64), dtype=torch.bfloat16, device=cuda)
-    with pytest.raises(ValueError):  # G = 3
-        tdec.decode_attention(q, k, k, torch.ones(1, dtype=torch.int32, device=cuda))
-    with pytest.raises(ValueError):  # G = 32
-        tdec.decode_attention(torch.zeros((1, 64, 64), dtype=torch.bfloat16, device=cuda), k, k,
-                              torch.ones(1, dtype=torch.int32, device=cuda))
+    one = torch.ones(1, dtype=torch.int32, device=cuda)
+    assert tdec.decode_attention(q, k, k, one).shape == q.shape  # G = 3 is taken
+    for heads in (34, 64):  # G = 17, 32: past the walk's 16 rows
+        with pytest.raises(ValueError, match="G <= 16"):
+            tdec.decode_attention(torch.zeros((1, heads, 64), dtype=torch.bfloat16, device=cuda),
+                                  k, k, one)
     with pytest.raises(TypeError):
         tdec.decode_attention(q.float(), k.float(), k.float(),
                               torch.ones(1, dtype=torch.int32, device=cuda))
@@ -221,8 +222,10 @@ def test_paged_decode_attention_rejects_what_it_cannot_take(cuda):
     pool = torch.zeros((3, 4, 2, 64), dtype=torch.bfloat16, device=cuda)
     table = torch.zeros((1, 2), dtype=torch.int32, device=cuda)
     one = torch.ones(1, dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError):  # G = 3
-        tpaged.paged_decode_attention(q, pool, pool, table, one)
+    assert tpaged.paged_decode_attention(q, pool, pool, table, one).shape == q.shape  # G = 3
+    with pytest.raises(ValueError, match="G <= 16"):  # G = 17
+        tpaged.paged_decode_attention(torch.zeros((1, 34, 64), dtype=torch.bfloat16, device=cuda),
+                                      pool, pool, table, one)
     with pytest.raises(TypeError):
         tpaged.paged_decode_attention(q[:, :4], pool, pool, table.long(), one)
 
@@ -268,7 +271,7 @@ def test_decode_attention_g16_split_edges_match_plain(cuda, hd, G):
     _assert_split_gates(got, q, k, v, ln)
 
 
-@pytest.mark.parametrize("G", [1, 8, 16])
+@pytest.mark.parametrize("G", [1, 5, 6, 8, 16])
 @pytest.mark.parametrize("bs", [16, 3, 1])
 def test_paged_decode_attention_g16_bitwise_equal_to_dense(cuda, bs, G):
     gen = torch.Generator(device=cuda).manual_seed(21)
@@ -525,3 +528,49 @@ def test_flash_attention_rejects_what_it_cannot_take(cuda):
         tflash.flash_attention(q, kv, kv, window=0)
     with pytest.raises(ValueError):  # 3 query heads over 2 KV heads
         tflash.flash_attention(q[:, :, :3].contiguous(), kv, kv)
+
+
+# ---------------------------------------------------------------------------
+# the serve's wall time on the card
+# ---------------------------------------------------------------------------
+
+
+def test_traced_serve_syncs_before_each_wall_reading(cuda, monkeypatch):
+    """A tracer makes the engine synchronize the card once per stage batch
+    before it reads the batch's wall time; a serve with no observer adds no
+    sync, and both give the same tokens, exits and simulated delays."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.profiles import profile_from_arch
+    from repro_torch.core.thresholds import synthetic_validation
+    from repro_torch.core.topology import NetworkSpec, build_edge_network
+    from repro_torch.models import model as model_lib
+    from repro_torch.obs import SpanTracer, roofline_utilization
+    from repro_torch.serving import CollaborativeEngine
+
+    cfg = get_config("stablelm-1.6b").reduced()
+    profile = profile_from_arch(cfg)
+    engine = CollaborativeEngine(
+        model_lib.init_params(cfg, torch.Generator(device=cuda).manual_seed(0), cuda), cfg,
+        build_edge_network(seed=0, profile=profile, spec=NetworkSpec(num_eds=4, es_per_stage=(2, 2))),
+        profile, synthetic_validation(seed=1, profile=profile), seed=0, device=cuda,
+    )
+    prompts = [np.random.default_rng(i).integers(0, cfg.vocab_size, 10 + i).astype(np.int32)
+               for i in range(6)]
+    syncs = []
+    real = torch.cuda.synchronize
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: (syncs.append(a), real(*a, **k)))
+
+    def serve(**kw):
+        engine.rng = np.random.default_rng(3)
+        return engine.serve(prompts, arrival_rate=1e3, batch_size=4, gen_len=3, **kw)
+
+    plain = serve()
+    n_plain = len(syncs)
+    tracer = SpanTracer()
+    traced = serve(tracer=tracer)
+    assert n_plain == 0 and len(syncs) == traced.num_batches > 0
+    assert traced.sequences_by_rid() == plain.sequences_by_rid() and traced.delays == plain.delays
+    rows = roofline_utilization(tracer, cfg)
+    assert rows and all(r["measured_wall_s"] > 0 for r in rows.values())

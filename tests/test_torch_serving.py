@@ -167,19 +167,47 @@ def test_select_exit_matches_jax():
 
 
 # ---------------------------------------------------------------------------
-# entry points and what is not ported yet
+# entry points
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize(
-    "kw",
-    [{"scenario": object()}, {"controller": object()},
-     {"telemetry": object()}, {"tracer": object()}, {"metrics": object()}],
-)
-def test_unported_serve_options_raise(engines, prompts, kw):
+def _observer(kw: str, teng):
+    """A real object for each observer / control keyword of ``serve``: the
+    controller installs zero-round phases (p and thresholds unchanged) and
+    the scenario throttles a replica's physical capacity, so none of them
+    can move routing or the exit decisions."""
+    from repro_torch.control import (ControllerConfig, ReconfigController, Telemetry,
+                                     TelemetryConfig, node_slowdown)
+    from repro_torch.obs import MetricsCollector, SpanTracer
+
+    if kw == "scenario":
+        return node_slowdown(teng.topo, 0.0, 1e9, factor=0.2, p=teng.p)
+    if kw == "controller":
+        return ReconfigController(
+            Telemetry(teng.topo, TelemetryConfig(window_s=1e-3)),
+            ControllerConfig(interval=1e-3, rounds=0, drift_deadband=-1.0, p_deadband=-1.0),
+        )
+    if kw == "telemetry":
+        return Telemetry(teng.topo)
+    return {"tracer": SpanTracer, "metrics": MetricsCollector}[kw]()
+
+
+@pytest.mark.parametrize("kw", ["scenario", "controller", "telemetry", "tracer", "metrics"])
+def test_observer_and_control_options_keep_tokens(engines, prompts, reference, kw):
+    """Each observer / control option serves every request with the plain
+    serve's tokens and exits; all but the scenario (which slows a replica's
+    simulated service) also keep its simulated delays bit for bit."""
     _, teng = engines
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        teng.serve(prompts[:1], **kw)
+    plain = _serve(teng, prompts, decode_mode="cached")
+    obj = _observer(kw, teng)
+    stats = _serve(teng, prompts, decode_mode="cached", **{kw: obj})
+    assert stats.sequences_by_rid() == plain.sequences_by_rid() == reference
+    if kw != "scenario":
+        assert stats.delays == plain.delays
+    if kw == "controller":
+        assert stats.num_reconfigs > 0  # the install path ran
+    if kw in ("tracer", "metrics"):
+        assert getattr(stats, "trace" if kw == "tracer" else "metrics") is obj
 
 
 def test_cuda_without_a_card_raises(engines, monkeypatch):
@@ -191,12 +219,25 @@ def test_cuda_without_a_card_raises(engines, monkeypatch):
         StagePrograms(teng.programs.params, teng.cfg)
 
 
-def test_launch_serve_on_cpu(capsys):
-    from repro_torch.launch.serve import main
+def test_launch_serve_on_cpu(capsys, tmp_path):
+    import json
+    import re
 
+    from repro_torch.launch.serve import main
+    from repro_torch.obs import validate_chrome_trace
+
+    trace, report = tmp_path / "trace.json", tmp_path / "report.json"
     main(["--device", "cpu", "--slots", "2", "--requests-per-slot", "4", "--gen-len", "3",
-          "--batch-size", "2"])
+          "--batch-size", "2", "--trace-out", str(trace), "--stats-report", str(report)])
     out = capsys.readouterr().out
     assert out.count("slot ") == 2 and out.rstrip().endswith("done")
-    with pytest.raises(NotImplementedError):
-        main(["--device", "cpu", "--scenario", "burst"])
+    assert validate_chrome_trace(json.loads(trace.read_text())) == []
+    rep = json.loads(report.read_text())
+    assert rep["decomposition"]["reconciles"] and rep["decomposition"]["num_requests"] == 4
+    assert rep["metrics"]["metrics"]["delay_s"]["n"] == 4
+    main(["--device", "cpu", "--slots", "2", "--slot-seconds", "1", "--requests-per-slot", "4",
+          "--num-eds", "4", "--scenario", "slowdown", "--reconfig-interval", "0.25",
+          "--batch-policy", "threshold"])
+    out = capsys.readouterr().out
+    done, reconfigs = map(int, re.search(r"online: (\d+) done .* reconfigs (\d+)", out).groups())
+    assert done > 0 and reconfigs >= 1 and out.rstrip().endswith("done")

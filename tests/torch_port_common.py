@@ -52,11 +52,11 @@ def assert_bf16_close(got, want):
     np.testing.assert_allclose(as_np(got), as_np(want), rtol=BF16_RTOL, atol=BF16_ATOL)
 
 
-def engine_pair(threshold: float, arch: str = "stablelm-1.6b"):
+def engine_pair(threshold: float, arch: str = "stablelm-1.6b", capacity_scale: float = 1.0):
     """(JAX engine, port engine on the CPU) over the same bridged weights and
-    edge network.  The port takes the JAX engine's strategy ``p`` and both
-    take ``threshold`` at every exit branch, so control-plane float drift
-    cannot move routing."""
+    edge network (replica capacities scaled by ``capacity_scale``).  The
+    port takes the JAX engine's strategy ``p`` and both take ``threshold``
+    at every exit branch, so control-plane float drift cannot move routing."""
     from repro.core.profiles import profile_from_arch as jprofile
     from repro.core.thresholds import synthetic_validation as jvalidation
     from repro.core.topology import NetworkSpec as JSpec
@@ -73,13 +73,15 @@ def engine_pair(threshold: float, arch: str = "stablelm-1.6b"):
     jparams, tparams, jcfg, tcfg = bridged_params(0, arch)
     jp, tp = jprofile(jcfg), tprofile(tcfg)
     jeng = JEngine(
-        jparams, jcfg, jnetwork(seed=0, profile=jp, spec=JSpec(num_eds=4, es_per_stage=(2, 2))),
+        jparams, jcfg, jnetwork(seed=0, profile=jp, spec=JSpec(num_eds=4, es_per_stage=(2, 2)),
+                                capacity_scale=capacity_scale),
         jp, jvalidation(seed=1, profile=jp), JHyper(rounds=20), seed=0,
     )
     jeng.configuration_phase()
     jeng.state.thresholds = np.full_like(jeng.state.thresholds, threshold)
     teng = TEngine(
-        tparams, tcfg, tnetwork(seed=0, profile=tp, spec=TSpec(num_eds=4, es_per_stage=(2, 2))),
+        tparams, tcfg, tnetwork(seed=0, profile=tp, spec=TSpec(num_eds=4, es_per_stage=(2, 2)),
+                                capacity_scale=capacity_scale),
         tp, tvalidation(seed=1, profile=tp), THyper(rounds=20), seed=0, device="cpu",
     )
     teng.configuration_phase()

@@ -204,7 +204,7 @@ def main() -> None:
         sys.exit("ab_attention: needs a CUDA device")
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
+    flush = chip_smoke.L2Flush(dev)
 
     def rn(*shape):
         return torch.randn(shape, generator=gen, device=dev).bfloat16()

@@ -133,7 +133,7 @@ def main() -> None:
         sys.exit("probe_decode_walk: needs a CUDA device")
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
+    flush = chip_smoke.L2Flush(dev)
     print(f"nvidia-smi: {chip_smoke.nvidia_smi()}", flush=True)
     with tempfile.TemporaryDirectory() as tmp:
         libs = build_variants(Path(tmp))
@@ -166,7 +166,7 @@ def main() -> None:
             for _ in range(3):
                 if lib.clear_stamps():
                     raise RuntimeError("clear_stamps failed")
-                flush.zero_()
+                flush()
                 call(lib)
                 torch.cuda.synchronize()
             n_cta = kvh * B * len(kdec.split_bounds(S))

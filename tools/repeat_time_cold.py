@@ -33,7 +33,7 @@ def main() -> None:
         sys.exit("repeat_time_cold: needs a CUDA device")
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
+    flush = chip_smoke.L2Flush(dev)
     print(f"nvidia-smi: {chip_smoke.nvidia_smi()}", flush=True)
     for label, B, S, hq, kvh, hd in chip_smoke.FLASH_SHAPES[:2]:
         q, k, v = (torch.randn((B, S, h, hd), generator=gen, device=dev).bfloat16()
