@@ -14,8 +14,11 @@ exits non-zero without the final result line:
      glm4-9b's G 16, hd 128, at the serve's lengths, and at either's heads
      on a 4096-key cache split over the sequence; both also at qwen2.5-32b's
      G 5 and internlm2-20b's G 6, hd 128, dense and paged at block sizes 16,
-     3 and 1, at the serve's lengths and on the 4096-key cache) plus edge
-     cases; each gate must also reject faults planted on the same inputs;
+     3 and 1, at the serve's lengths and on the 4096-key cache; both also at
+     G 32 and G 24 (64 and 48 query heads over 2 KV heads of 128), launched
+     in chunks of at most 16 query heads per KV head, dense and paged at
+     block sizes 16, 3 and 1) plus edge cases; each gate must also reject
+     faults planted on the same inputs;
      the paged kernel is also held bit for bit to the dense kernel on the
      gathered cache;
   4. serve  — ``CollaborativeEngine.serve`` of 32 Poisson requests through
@@ -45,16 +48,30 @@ exits non-zero without the final result line:
      estimate at least halfway to its slowed rate; then the ``failure``
      scenario (stateless, one token each, traced): every request done and
      every span tree closed;
-  7. glm4-9b — stablelm's weights freed, full-width glm4-9b (40 layers, d
-     4096, 32 query heads over 2 KV heads of 128, random weights from a seed)
-     serves 16 Poisson requests, 8 tokens each, dense and then paged (block
-     16): every request completes, each serve launches its kernels, and the
-     paged serve's tokens and exits equal the dense serve's;
+  7. larger configs, one at a time, each after the previous model's
+     weights are freed (the process's peak printed): full-width glm4-9b (40
+     layers, d 4096, 32 query heads over 2 KV heads of 128) serves 16 Poisson
+     requests, 8 tokens each; full-width deepseek-v2-lite-16b (27 layers, d
+     2048, MLA of 16 heads with kv_lora 512 and rope 64, 64 experts top-6 + 2
+     shared; ~16.2 B parameters) 16 requests of 8 tokens; full-width
+     internlm2-20b (48 layers, d 6144, G 6) and qwen2.5-32b (64 layers, d
+     5120, G 5, QKV bias; ~65.5 GB of bf16 weights) 8 requests of 8 tokens
+     each.  Every model serves dense and then paged (block 16): every
+     request completes, each serve launches the kernels of its path (deepseek:
+     the exit head only, and neither decode kernel nor flash, since MLA has
+     none in the reference either), and the paged serve's tokens and exits
+     equal the dense serve's; a short deepseek serve runs under the
+     profiler (device busy share, device time by kernel); one full-width
+     deepseek ``moe_attn`` layer
+     (prefill B 2, S 16, then one ragged decode token) runs on the card and on
+     the CPU with the same weights, norm-wise within 2^-7 and with the
+     routers' top-6 choices agreeing on >= 99% of (token, choice) pairs;
   8. times  — each kernel at the serve's shapes (device time from the
      profiler, cold L2) beside its bound, its plain version and one library
      yardstick (none computes the paged function in one call; the exit head
-     and its yardstick timed in turns, medians of 4); the flash kernel also
-     at glm4-9b's heads and at 2048-token prompts (at B 8 in turns with
+     and its yardstick timed in turns, medians of 4, also at the LM heads of
+     deepseek-v2-lite-16b, internlm2-20b and qwen2.5-32b); the flash kernel
+     also at glm4-9b's heads and at 2048-token prompts (at B 8 in turns with
      SDPA, medians of 4, each reading with its launches' spread), both
      decode kernels also at glm4-9b's shapes, on the 4096-key cache at
      either's heads, and at G 5 and G 6 at the serve's lengths and on the
@@ -84,6 +101,8 @@ BLOCK = 16  # the paged serve's block size
 SEED = 0
 KERNELS = ("exit_confidence", "decode_attention", "paged_decode_attention", "flash_attention")
 GLM_REQUESTS, GLM_GEN = 16, 8  # the glm4-9b serves
+DEEPSEEK_REQUESTS, DEEPSEEK_GEN = 16, 8  # the deepseek-v2-lite-16b serves
+LARGE_REQUESTS, LARGE_GEN = 8, 8  # the internlm2-20b and qwen2.5-32b serves
 # flash_attention's timed shapes: (label, B, S, Hq, KVH, hd)
 FLASH_SHAPES = (
     ("stablelm-1.6b's first prefill batch", 8, 104, 32, 32, 64),
@@ -95,9 +114,11 @@ GLM_LENGTHS = [112, 105, 120, 97, 116, 110, 101, 114]  # glm4-9b decode rows
 # a long cache: several splits of the decode walk per row
 LONG_S = 4096
 LONG_LENGTHS = [4096, 3000, 3581, 3317, 4010, 3122, 3808, 3456]
-# (query heads, KV heads, head dim) of the JAX package's qwen2.5-32b (G 5)
-# and internlm2-20b (G 6); the port's registry does not hold them yet
+# (query heads, KV heads, head dim) of qwen2.5-32b (G 5) and internlm2-20b (G 6)
 GQA_HEADS = {"qwen2.5-32b": (40, 8, 128), "internlm2-20b": (48, 8, 128)}
+# G above the walk's 16 rows: the wrappers launch chunks of at most 16 query
+# heads per KV head
+WIDE_HEADS = {"G 32": (64, 2, 128), "G 24": (48, 2, 128)}
 CTRL_REQUESTS, CTRL_GEN = 16, 8  # the control-loop serves
 
 
@@ -274,6 +295,34 @@ def paged_prefix_prompts(rng, vocab: int, n_groups: int, group: int, n_long: int
     return prompts
 
 
+def profiled_serve(engine, prompts, label: str, gen_len: int = 4):
+    """A short serve of ``prompts`` under ``torch.profiler`` (the profiler's
+    own overhead is inside its wall time, so the busy share is a lower
+    bound): prints its wall, the device's busy share and the eight kernels
+    with the most device time; returns ([(kernel, device us)], busy us)."""
+    engine.rng = np.random.default_rng(SEED)
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        engine.serve(prompts, batch_size=BATCH, gen_len=gen_len, decode_mode="cached")
+        torch.cuda.synchronize()
+        wall_prof = time.perf_counter() - t0
+    # device-side rows only, as in device_launches
+    by_kernel = [(e.key, e.self_device_time_total) for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    busy_us = sum(t for _, t in by_kernel)
+    if busy_us == 0:
+        print(f"{label} profiled serve: device time not measured (the profiler recorded no device "
+              f"events)")
+    else:
+        print(f"{label} profiled serve ({len(prompts)} requests, {gen_len} tokens): wall {wall_prof:.3f} "
+              f"s, device busy {busy_us / 1e6:.4f} s = {busy_us / 1e6 / wall_prof:.1%} of wall")
+        for key, t in sorted(by_kernel, key=lambda kv: -kv[1])[:8]:
+            print(f"  {t / busy_us:6.1%}  {t / 1e3:9.3f} ms  {key[:90]}")
+    sys.stdout.flush()
+    return by_kernel, busy_us
+
+
 def check(name: str, ok: bool, detail: str) -> None:
     print(f"  {'ok  ' if ok else 'FAIL'} {name}: {detail}", flush=True)
     if not ok:
@@ -344,12 +393,12 @@ def main() -> None:
     phase("kernels vs plain versions")
     max_err = {}
 
-    def head_inputs(B, d_, V_):
+    def head_inputs(B, d_, V_, g=gen):
         """Logits ~ N(0, 1) with row b's target column raised by 8: a clear
         top-1 margin, and a confidence well below 1 at V = 100352."""
-        h = torch.randn((B, d_), generator=gen, device=dev)
-        w = torch.randn((d_, V_), generator=gen, device=dev) / math.sqrt(d_)
-        tgt = torch.randperm(V_, generator=gen, device=dev)[:B]
+        h = torch.randn((B, d_), generator=g, device=dev)
+        w = torch.randn((d_, V_), generator=g, device=dev) / math.sqrt(d_)
+        tgt = torch.randperm(V_, generator=g, device=dev)[:B]
         w[:, tgt] += 8.0 * (h / h.norm(dim=1, keepdim=True) ** 2).T
         h, w = h.bfloat16(), w.bfloat16()
         top2 = (h.double() @ w.double()).topk(2, dim=1).values
@@ -373,6 +422,29 @@ def main() -> None:
     check("exit_confidence gate rejects a dropped vocab tile", not ok,
           f"conf max|err| {err:.3g} (atol 1e-3 alone would {'pass' if err <= 1e-3 else 'reject'} "
           f"it), max rel err {rel:.3g} (rtol 1e-4)")
+    # the LM-head shapes of the three configs served after glm4-9b (at d
+    # 6144 a CTA stages 96 KiB of h): each held to the plain version at B 1
+    # and at a full batch, and each gate shown to reject the dropped tile.
+    # Drawn from a generator of their own, so every later phase's inputs
+    # stay what they were before these gates came.
+    head_gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    for arch in ("deepseek-v2-lite-16b", "internlm2-20b", "qwen2.5-32b"):
+        acfg = get_config(arch)
+        d_, V_ = acfg.d_model, acfg.vocab_size
+        for B in (1, BATCH):
+            h, w = head_inputs(B, d_, V_, head_gen)
+            c, i = kexit.exit_confidence(h, w)
+            cr, ir = ref.exit_confidence_ref(h, w)
+            ok, err, rel = conf_close(c, cr)
+            check(f"exit_confidence {arch}'s head B={B} d={d_} V={V_}", ok and torch.equal(i, ir),
+                  f"conf max|err| {err:.3g} (atol 1e-3), max rel err {rel:.3g} (rtol 1e-4), argmax "
+                  f"equal {torch.equal(i, ir)}")
+            max_err["exit_confidence"] = max(max_err["exit_confidence"], err)
+        c_f, _ = kexit.exit_confidence(h, w[:, : V_ - 256].contiguous())
+        ok, err, rel = conf_close(c_f, cr)
+        check(f"exit_confidence gate rejects a dropped vocab tile at d={d_} V={V_}", not ok,
+              f"conf max|err| {err:.3g}, max rel err {rel:.3g}")
+        del h, w, c_f
     h, w = head_inputs(13, 128, 2056)  # vocab not a multiple of the 256-column tile, two row blocks
     c, i = kexit.exit_confidence(h, w)
     cr, ir = ref.exit_confidence_ref(h, w)
@@ -600,6 +672,60 @@ def main() -> None:
                       f"{err32:.3g}; bitwise equal to the dense kernel {bitwise}")
                 del args
 
+    # both decode kernels above 16 query heads per KV head (G 32 and 24, hd
+    # 128): one launch per chunk of at most 16 heads.  Dense against the
+    # plain version (atol 2e-2) and the f32-score plain version
+    # (element-wise, bf16 tolerance); paged at bs 16, 3 and 1 the same on the
+    # gathered cache and bit for bit the dense kernel on it.  A planted fault
+    # on the same inputs, dense and paged: every chunk answered with the
+    # first chunk's query heads (a wrong head offset per chunk).
+    for name, (hq, kvh, hd_) in WIDE_HEADS.items():
+        G = hq // kvh
+        for label, S, lengths in (("serve lengths", max_len, dec_lengths),
+                                  ("long cache", LONG_S, LONG_LENGTHS)):
+            q, k, v, ln = dec_inputs(BATCH, S, hq, kvh, hd_, lengths)
+            n0 = kdec.decode_attention.launches
+            o = kdec.decode_attention(q, k, v, ln)
+            chunks = kdec.decode_attention.launches - n0
+            want32 = ref.decode_attention_f32_scores_ref(q, k, v, ln)
+            err = float((o.float() - ref.decode_attention_ref(q, k, v, ln).float()).abs().max())
+            ok32, err32, _ = bf16_close(o, want32)
+            check(f"decode_attention {name} {label} B={BATCH} S={S} Hq={hq} KVH={kvh} hd={hd_}",
+                  err <= 2e-2 and ok32 and chunks == -(-G // kdec.MMA_G),
+                  f"{chunks} launches; max|err| {err:.3g} (tol 2e-2); against the f32-score plain "
+                  f"version max|diff| {err32:.3g} (rtol 1.6e-2, atol 1e-2)")
+
+            def first_chunk(q_all, qc, run):
+                g = qc.shape[1] // kvh
+                q0 = q_all.view(BATCH, kvh, G, hd_)[:, :, :g].reshape(BATCH, kvh * g, hd_)
+                return run(q0.contiguous())
+
+            o_f = kdec.split_groups(q, kvh, lambda qc: first_chunk(
+                q, qc, lambda q0: kdec.decode_attention(q0, k, v, ln)))
+            ok_f, err_f, out_f = bf16_close(o_f, want32)
+            check(f"decode_attention {name} {label} gate rejects a planted fault: every chunk "
+                  f"answered with the first chunk's heads", not ok_f,
+                  f"max|diff| {err_f:.3g}, {out_f:.2%} of elements outside")
+            del k, v
+            for bs in (BLOCK, 3, 1):
+                args = paged_inputs(BATCH, hq, kvh, hd_, bs, lengths, -(-S // bs))
+                o = kpaged.paged_decode_attention(*args, seq_len=S)
+                ok, err32, bitwise = paged_gate(o, *args, S)
+                check(f"paged_decode_attention {name} {label} bs={bs}", ok,
+                      f"against the f32-score plain version on the gathered cache max|diff| "
+                      f"{err32:.3g}; bitwise equal to the dense kernel {bitwise}")
+                if bs == BLOCK:
+                    qp, kp, vp, table, lnp = args
+                    o_f = kdec.split_groups(qp, kvh, lambda qc: first_chunk(
+                        qp, qc, lambda q0: kpaged.paged_decode_attention(q0, kp, vp, table, lnp,
+                                                                     seq_len=S)))
+                    ok_f, err_f, out_f = bf16_close(o_f, ref.decode_attention_f32_scores_ref(
+                        qp, gathered(kp, table, S), gathered(vp, table, S), lnp))
+                    check(f"paged_decode_attention {name} {label} gate rejects a planted fault: every "
+                          f"chunk answered with the first chunk's heads", not ok_f,
+                          f"max|diff| {err_f:.3g}, {out_f:.2%} of elements outside")
+                del args
+
     # prefill flash attention: element-wise at tests/test_kernels.py's bf16
     # tolerance (atol 2e-2) against the plain version on the same inputs
     def flash_inputs(B, Sq, Sk, hq, kvh, hd_):
@@ -611,6 +737,21 @@ def main() -> None:
         """(within atol 2e-2, max|err|, share of elements outside)."""
         diff = (out.float() - want.float()).abs()
         return bool(diff.max() <= 2e-2), float(diff.max()), float((diff > 2e-2).float().mean())
+
+    def flash_f64(q, k, v, causal, window):
+        """The plain version's masks and positions, every step in f64."""
+        B, Sq, Hq, hd_ = q.shape
+        Sk, kvh = k.shape[1], k.shape[2]
+        s = torch.einsum("bqkgd,bskd->bkgqs", q.double().reshape(B, Sq, kvh, Hq // kvh, hd_),
+                         k.double()) / math.sqrt(hd_)
+        q_pos, k_pos = torch.arange(Sq, device=dev)[:, None], torch.arange(Sk, device=dev)[None, :]
+        keep = torch.ones((Sq, Sk), dtype=torch.bool, device=dev)
+        if causal:
+            keep &= q_pos >= k_pos
+        if window is not None:
+            keep &= k_pos > q_pos - window
+        p = torch.softmax(s.masked_fill(~keep, -math.inf), dim=-1)
+        return torch.einsum("bkgqs,bskd->bqkgd", p, v.double()).reshape(B, Sq, Hq, hd_)
 
     flash_cases = [(label, (B, S, S, hq, kvh, hd_), True, None)
                    for label, B, S, hq, kvh, hd_ in FLASH_SHAPES]
@@ -629,6 +770,14 @@ def main() -> None:
         B, Sq, Sk, hq, kvh, hd_ = shape
         check(f"flash_attention {label} B={B} Sq={Sq} Sk={Sk} Hq={hq} KVH={kvh} hd={hd_}", ok,
               f"max|err| {err:.3g} (atol 2e-2), {out_share:.2%} of elements outside")
+        # the plain version rounds the scores to bf16, as the reference
+        # does; the kernel keeps them in f32.  Both against the f64 answer:
+        # the kernel may be no farther from it than the plain version.
+        exact = flash_f64(q, k, v, causal, window)
+        err_k, err_p = (float((x.double() - exact).abs().max()) for x in (o, want))
+        check(f"flash_attention {label}: no farther from the f64 answer than the plain version",
+              err_k <= err_p, f"max|kernel - f64| {err_k:.3g}, max|plain - f64| {err_p:.3g}")
+        del exact
         if label == FLASH_SHAPES[0][0]:
             max_err["flash_attention"] = err
         if label == FLASH_SHAPES[1][0]:
@@ -944,30 +1093,12 @@ def main() -> None:
           f"{s_full['generated_tokens'] / wall_full:.1f} tokens/s; batches {s_full['num_batches']}; "
           f"padded rows {s_full['padded_row_frac']:.1%}", flush=True)
 
-    # where a serve's time goes: a short profiled serve (the profiler's own
-    # overhead is inside its wall time, so the busy share is a lower bound)
-    engine.rng = np.random.default_rng(SEED)
-    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
-        t0 = time.perf_counter()
-        engine.serve(prompts[:BATCH], batch_size=BATCH, gen_len=4, decode_mode="cached")
-        torch.cuda.synchronize()
-        wall_prof = time.perf_counter() - t0
-    # device-side rows only, as in device_launches
-    by_kernel = [(e.key, e.self_device_time_total) for e in prof.key_averages()
-                 if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
-    busy_us = sum(t for _, t in by_kernel)
-    if busy_us == 0:
-        print("profiled serve: device time not measured (the profiler recorded no device events)")
-    else:
-        print(f"profiled serve ({BATCH} requests, 4 tokens): wall {wall_prof:.3f} s, device busy "
-              f"{busy_us / 1e6:.4f} s = {busy_us / 1e6 / wall_prof:.1%} of wall")
-        for key, t in sorted(by_kernel, key=lambda kv: -kv[1])[:8]:
-            print(f"  {t / busy_us:6.1%}  {t / 1e3:9.3f} ms  {key[:90]}")
+    # where a serve's time goes: a short profiled serve
+    by_kernel, busy_us = profiled_serve(engine, prompts[:BATCH], "stablelm-1.6b")
+    if busy_us:
         flash_us = sum(t for key, t in by_kernel if "flash_wgmma_kernel" in key)
         print(f"  flash_attention kernel: {flash_us / 1e3:.3f} ms = {flash_us / busy_us:.2%} of device "
-              f"time")
-    sys.stdout.flush()
+              f"time", flush=True)
 
     # -- 5. paged serve --------------------------------------------------------
     phase("paged serve")
@@ -1209,104 +1340,231 @@ def main() -> None:
         check(f"{name} launched in the failure serve", f_counts[name] > 0, f"{f_counts[name]} launches")
     del f_tracer
 
-    # -- 7. glm4-9b --------------------------------------------------------------
-    phase("glm4-9b serve")
-    w_lm = params["lm_head"]  # phase 8 times the exit head on stablelm's LM head
+    # -- 7. the larger configs, one at a time -----------------------------------
+    # Each model at full width with random weights from the seed, after the
+    # previous model's weights are freed; served dense and then paged (block
+    # 16, no prefix sharing), the kernels' launches counted over each serve
+    # (the counts set to 0 just before it, read just after).  Each model's LM
+    # head is kept for phase 8's exit-head times.
+    heads = {"stablelm-1.6b": params["lm_head"]}
     del engine, programs, params, store, caches, outs, x1, x_dec, y_t, y_c, y_f, yp_t, yp_c
-    gc.collect()
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    g_params = model_lib.init_params(glm, torch.Generator(device=dev).manual_seed(SEED), dev)
-    g_profile = profile_from_arch(glm)
-    g_engine = CollaborativeEngine(
-        g_params, glm,
-        build_edge_network(seed=0, profile=g_profile, spec=NetworkSpec(num_eds=4, es_per_stage=(2, 2))),
-        g_profile, synthetic_validation(seed=1, profile=g_profile), DtoHyperParams(), seed=SEED,
-        device=dev,
-    )
-    g_engine.configuration_phase()
-    torch.cuda.synchronize()
-    g_n = sum(t.numel() for t in torch.utils._pytree.tree_leaves(g_params))
-    g_prompts = [tok for _, tok in poisson_requests(glm, rcfg, duration=60.0)][:GLM_REQUESTS]
-    if len(g_prompts) != GLM_REQUESTS:
-        raise RuntimeError(f"request stream gave {len(g_prompts)} prompts")
-    print(f"glm4-9b full width: {glm.num_layers} layers, d {glm.d_model}, {g_hq} query heads over "
-          f"{g_kvh} KV heads of {g_hd}, d_ff {glm.d_ff}, vocab {glm.vocab_size}; {g_n / 1e9:.3f} B "
-          f"params; set-up {time.perf_counter() - t0:.1f} s; prompts {GLM_REQUESTS}, lengths "
-          f"{min(map(len, g_prompts))}..{max(map(len, g_prompts))}", flush=True)
-    g_runs = {}
-    for layout, kw in (("dense", {}),
-                       ("paged", {"cache_layout": "paged", "block_size": BLOCK, "prefix_sharing": False})):
+
+    def free(label: str) -> None:
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"{label} freed: peak device memory of the process so far "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; still allocated "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
+
+    free("stablelm-1.6b")
+
+    def serve_model(mcfg, n_requests: int, gen_len: int, dense_names, paged_names, zero_names=()):
+        """Build ``mcfg`` at full width, serve ``n_requests`` Poisson prompts
+        of ``gen_len`` tokens dense and then paged at full batches: every
+        request completes, each of ``*_names`` launched in its serve, each
+        of ``zero_names`` in neither, and paged == dense in tokens and exits.
+        Returns (engine, params, prompts)."""
+        label = mcfg.name
         torch.cuda.reset_peak_memory_stats()
-        g_engine.rng = np.random.default_rng(SEED)
-        zero_counts()
         t0 = time.perf_counter()
-        g_stats = g_engine.serve(g_prompts, arrival_rate=1e4, batch_size=BATCH, gen_len=GLM_GEN,
-                                 decode_mode="cached", **kw)
+        m_params = model_lib.init_params(mcfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+        m_profile = profile_from_arch(mcfg)
+        m_engine = CollaborativeEngine(
+            m_params, mcfg,
+            build_edge_network(seed=0, profile=m_profile, spec=NetworkSpec(num_eds=4, es_per_stage=(2, 2))),
+            m_profile, synthetic_validation(seed=1, profile=m_profile), DtoHyperParams(), seed=SEED,
+            device=dev,
+        )
+        m_engine.configuration_phase()
         torch.cuda.synchronize()
-        g_wall = time.perf_counter() - t0
-        g_counts = read_counts()
-        g_sum = g_stats.summary()
-        g_runs[layout] = g_stats.sequences_by_rid()
-        print(f"glm4-9b {layout} serve: wall {g_wall:.3f} s; generated tokens {g_sum['generated_tokens']}; "
-              f"{g_sum['generated_tokens'] / g_wall:.1f} tokens/s; batches {g_sum['num_batches']}; exit "
-              f"histogram {g_sum['exit_histogram']}; peak device memory "
-              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; kernel launches {g_counts}", flush=True)
-        check(f"glm4-9b {layout} serve completed", g_sum["num_completed"] == GLM_REQUESTS,
-              f"{g_sum['num_completed']} of {GLM_REQUESTS}")
-        names = (("exit_confidence", "decode_attention", "flash_attention") if layout == "dense"
-                 else ("paged_decode_attention",))
-        for name in names:
-            check(f"glm4-9b {layout} serve launched {name}", g_counts[name] > 0,
-                  f"{g_counts[name]} launches")
-    diverged = [r for r, v in g_runs["paged"].items() if g_runs["dense"].get(r) != v]
-    check("glm4-9b paged serve tokens and exits equal the dense serve's",
-          not diverged and len(g_runs["dense"]) == GLM_REQUESTS,
-          f"{len(diverged)} of {GLM_REQUESTS} requests differ")
+        n = sum(t.numel() for t in torch.utils._pytree.tree_leaves(m_params))
+        m_prompts = [tok for _, tok in poisson_requests(mcfg, rcfg, duration=60.0)][:n_requests]
+        if len(m_prompts) != n_requests:
+            raise RuntimeError(f"request stream gave {len(m_prompts)} prompts")
+        attn = (f"MLA {mcfg.mla.num_heads} heads (kv_lora {mcfg.mla.kv_lora_rank}, rope "
+                f"{mcfg.mla.qk_rope_head_dim})" if mcfg.mla is not None else
+                f"{mcfg.num_heads} query heads over {mcfg.num_kv_heads} KV heads of {mcfg.head_dim}")
+        ffn = (f"MoE {mcfg.moe.num_experts} experts top-{mcfg.moe.top_k} + {mcfg.moe.num_shared} "
+               f"shared, expert d_ff {mcfg.moe.d_ff_expert}" if mcfg.moe is not None else f"d_ff {mcfg.d_ff}")
+        print(f"{label} full width: {mcfg.num_layers} layers, d {mcfg.d_model}, {attn}, {ffn}, vocab "
+              f"{mcfg.vocab_size}; {n / 1e9:.3f} B params ({n * 2 / 1e9:.1f} GB in bf16); set-up "
+              f"{time.perf_counter() - t0:.1f} s, peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; prompts {n_requests}, lengths "
+              f"{min(map(len, m_prompts))}..{max(map(len, m_prompts))}", flush=True)
+        runs = {}
+        for layout, kw in (("dense", {}),
+                           ("paged", {"cache_layout": "paged", "block_size": BLOCK, "prefix_sharing": False})):
+            torch.cuda.reset_peak_memory_stats()
+            m_engine.rng = np.random.default_rng(SEED)
+            zero_counts()
+            t0 = time.perf_counter()
+            m_stats = m_engine.serve(m_prompts, arrival_rate=1e4, batch_size=BATCH, gen_len=gen_len,
+                                     decode_mode="cached", **kw)
+            torch.cuda.synchronize()
+            m_wall = time.perf_counter() - t0
+            m_counts = read_counts()
+            m_sum = m_stats.summary()
+            runs[layout] = m_stats.sequences_by_rid()
+            print(f"{label} {layout} serve: wall {m_wall:.3f} s; generated tokens "
+                  f"{m_sum['generated_tokens']}; {m_sum['generated_tokens'] / m_wall:.1f} tokens/s; batches "
+                  f"{m_sum['num_batches']}; exit histogram {m_sum['exit_histogram']}; peak device memory "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; kernel launches {m_counts}",
+                  flush=True)
+            check(f"{label} {layout} serve completed", m_sum["num_completed"] == n_requests,
+                  f"{m_sum['num_completed']} of {n_requests}")
+            for name in dense_names if layout == "dense" else paged_names:
+                check(f"{label} {layout} serve launched {name}", m_counts[name] > 0,
+                      f"{m_counts[name]} launches")
+            for name in zero_names:
+                check(f"{label} {layout} serve launched no {name}", m_counts[name] == 0,
+                      f"{m_counts[name]} launches")
+        diverged = [r for r, v in runs["paged"].items() if runs["dense"].get(r) != v]
+        check(f"{label} paged serve tokens and exits equal the dense serve's",
+              not diverged and len(runs["dense"]) == n_requests,
+              f"{len(diverged)} of {n_requests} requests differ")
+        return m_engine, m_params, m_prompts
+
+    phase("glm4-9b serve")
+    g_engine, g_params, _ = serve_model(glm, GLM_REQUESTS, GLM_GEN,
+                                     ("exit_confidence", "decode_attention", "flash_attention"),
+                                     ("paged_decode_attention",))
     del g_engine, g_params
-    gc.collect()
-    torch.cuda.empty_cache()
+    free("glm4-9b")
+
+    # deepseek-v2-lite-16b: MLA attention and an MoE FFN in every layer.  The
+    # reference has no kernel for MLA (its prefill is the plain
+    # chunked_attention, its decode the absorbed-latent einsums), so only
+    # the exit head's kernel runs; the decode and flash kernels must not.
+    phase("deepseek-v2-lite-16b serve")
+    dcfg = get_config("deepseek-v2-lite-16b")
+    gqa = ("decode_attention", "paged_decode_attention", "flash_attention")
+    d_engine, d_params, d_prompts = serve_model(dcfg, DEEPSEEK_REQUESTS, DEEPSEEK_GEN,
+                                                ("exit_confidence",), ("exit_confidence",),
+                                                zero_names=gqa)
+    profiled_serve(d_engine, d_prompts[:BATCH], "deepseek-v2-lite-16b")
+    heads["deepseek-v2-lite-16b"] = d_params["lm_head"]
+
+    # one full-width moe_attn layer (stage 1, period 0) on the card and on
+    # the CPU with the same weights: a prefill of B 2, S 16, then one ragged
+    # decode token.  Norm-wise at 2^-7 (two bf16 ulps; the two devices sum
+    # the bf16 products in other orders), and the routers' top-k choices
+    # compared token by token, recorded at the router.
+    from repro_torch.models import moe as moe_lib
+
+    blk = model_lib._period(d_params["stages"][0]["blocks"][0], 0)
+    xs = (torch.randn((2, 16, dcfg.d_model), generator=gen, device=dev).bfloat16(),
+          torch.randn((2, 1, dcfg.d_model), generator=gen, device=dev).bfloat16())
+    real_router = moe_lib.router_probs
+
+    def moe_layer(where: str):
+        p_ = blk if where == "card" else model_lib.params_to(blk, "cpu")
+        x_, xd_ = (t.to(p_["norm1"]["scale"].device) for t in xs)
+        picked = []
+
+        def recording(logits, dims):
+            out = real_router(logits, dims)
+            picked.append(out[1].cpu())
+            return out
+
+        moe_lib.router_probs = recording
+        try:
+            pos = torch.arange(16, dtype=torch.int32, device=x_.device)
+            y, cache = model_lib._block_apply("moe_attn", p_, x_, dcfg, pos, "prefill", 17)
+            cache = dict(cache, pos=torch.full((2,), 16, dtype=torch.int32, device=x_.device))
+            yd, _ = model_lib._block_decode("moe_attn", p_, xd_, cache, dcfg, ragged=True)
+        finally:
+            moe_lib.router_probs = real_router
+        return y.cpu(), yd.cpu(), torch.cat(picked)
+
+    t0 = time.perf_counter()
+    y_card, yd_card, idx_card = moe_layer("card")
+    y_cpu, yd_cpu, idx_cpu = moe_layer("cpu")
+    same_sets = [set(a.tolist()) == set(b.tolist()) for a, b in zip(idx_card, idx_cpu)]
+    shared = sum(len(set(a.tolist()) & set(b.tolist())) for a, b in zip(idx_card, idx_cpu))
+    agree = shared / idx_card.numel()
+    rel_p, rel_d = rel_norm(y_card, y_cpu), rel_norm(yd_card, yd_cpu)
+    check(f"deepseek-v2-lite-16b one moe_attn layer, card vs CPU (prefill B 2 S 16, one ragged "
+          f"decode token; {time.perf_counter() - t0:.1f} s)",
+          rel_p <= 2**-7 and rel_d <= 2**-7 and agree >= 0.99,
+          f"norm-wise rel prefill {rel_p:.3g}, decode {rel_d:.3g} (tol 2^-7 = {2**-7:.3g}); top-"
+          f"{dcfg.moe.top_k} expert choices agree on {agree:.2%} of {idx_card.numel()} (token, choice) "
+          f"pairs (want >= 99%), {sum(same_sets)} of {len(same_sets)} tokens with the same set; "
+          f"element-wise max|diff| prefill {float((y_card.float() - y_cpu.float()).abs().max()):.3g} at "
+          f"max|y| {float(y_cpu.float().abs().max()):.3g}")
+    # the same ratios over the block's own contribution y - x, without the
+    # residual stream both sides share: printed, not gated
+    own_p = rel_norm(y_card.float() - xs[0].cpu().float(), y_cpu.float() - xs[0].cpu().float())
+    own_d = rel_norm(yd_card.float() - xs[1].cpu().float(), yd_cpu.float() - xs[1].cpu().float())
+    print(f"  over y - x (attention + MoE alone): norm-wise rel prefill {own_p:.3g}, decode {own_d:.3g}",
+          flush=True)
+    del d_engine, d_params, blk, xs
+    free("deepseek-v2-lite-16b")
+
+    # internlm2-20b (G 6) and qwen2.5-32b (G 5, QKV bias): GQA at hd 128,
+    # every kernel on the path
+    for arch in ("internlm2-20b", "qwen2.5-32b"):
+        phase(f"{arch} serve")
+        mcfg = get_config(arch)
+        m_engine, m_params, _ = serve_model(mcfg, LARGE_REQUESTS, LARGE_GEN,
+                                            ("exit_confidence", "decode_attention", "flash_attention"),
+                                            ("paged_decode_attention", "flash_attention"))
+        heads[arch] = m_params["lm_head"]
+        del m_engine, m_params
+        free(arch)
 
     # -- 8. times -------------------------------------------------------------
     phase("times (device time from the profiler, cold L2, mean over launches)")
     flush = L2Flush(dev)
     kernels_out = []
 
-    h = torch.randn((BATCH, d), generator=gen, device=dev).bfloat16()
+    def time_head(w_lm):
+        """The exit head at B 8 on one model's LM head: the kernel and its
+        library yardstick in turns (kernel, library, library, kernel, twice;
+        the medians of 4 readings each), the plain version, the bound."""
+        d_, V_ = w_lm.shape
+        h = torch.randn((BATCH, d_), generator=gen, device=dev).bfloat16()
 
-    def library_head():
-        logits = torch.matmul(h, w_lm).float()
-        return logits.max(-1).values, torch.logsumexp(logits, -1), logits.argmax(-1)
+        def library_head():
+            logits = torch.matmul(h, w_lm).float()
+            return logits.max(-1).values, torch.logsumexp(logits, -1), logits.argmax(-1)
 
-    # the kernel and its library yardstick in turns (kernel, library,
-    # library, kernel, twice): the medians of 4 readings each
-    head_ms = {"kernel": [], "library": []}
-    for _ in range(2):
-        for tag, fn in (("kernel", lambda: kexit.exit_confidence(h, w_lm)), ("library", library_head),
-                        ("library", library_head), ("kernel", lambda: kexit.exit_confidence(h, w_lm))):
-            head_ms[tag].append(time_cold(fn, 50, flush))
-    t_k, t_l = (float(np.median(head_ms[tag])) for tag in ("kernel", "library"))
-    t_p = time_cold(lambda: ref.exit_confidence_ref(h, w_lm), 10, flush)
-    bytes_ = d * V * 2 + BATCH * d * 2 + BATCH * 8
-    flops = 2 * BATCH * d * V
-    b_bytes, b_ops = bytes_ / HBM_BW * 1e3, flops / PEAK_FLOPS_BF16 * 1e3
-    print(f"exit_confidence B={BATCH} d={d} V={V}: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
-          f"library (bf16 matmul + max/logsumexp/argmax) {t_l:.4f} ms, bound {max(b_bytes, b_ops):.4f} ms "
-          f"({'bytes' if b_bytes >= b_ops else 'operations'}: {bytes_ / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
-    print("  in turns, ms: " + "; ".join(
-        f"{tag} {' '.join(f'{t:.5f}' for t in ts)} (median {np.median(ts):.5f}, spread "
-        f"{max(ts) - min(ts):.5f})" for tag, ts in head_ms.items()))
+        def kernel_head():
+            return kexit.exit_confidence(h, w_lm)
+
+        head_ms = {"kernel": [], "library": []}
+        for _ in range(2):
+            for tag, fn in (("kernel", kernel_head), ("library", library_head),
+                            ("library", library_head), ("kernel", kernel_head)):
+                head_ms[tag].append(time_cold(fn, 50, flush))
+        t_k, t_l = (float(np.median(head_ms[tag])) for tag in ("kernel", "library"))
+        t_p = time_cold(lambda: ref.exit_confidence_ref(h, w_lm), 10, flush)
+        bytes_ = d_ * V_ * 2 + BATCH * d_ * 2 + BATCH * 8
+        flops = 2 * BATCH * d_ * V_
+        b_bytes, b_ops = bytes_ / HBM_BW * 1e3, flops / PEAK_FLOPS_BF16 * 1e3
+        print(f"exit_confidence B={BATCH} d={d_} V={V_}: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
+              f"library (bf16 matmul + max/logsumexp/argmax) {t_l:.4f} ms, bound {max(b_bytes, b_ops):.4f} "
+              f"ms ({'bytes' if b_bytes >= b_ops else 'operations'}: {bytes_ / 1e6:.1f} MB, "
+              f"{flops / 1e9:.2f} GFLOP); kernel at {max(b_bytes, b_ops) / t_k:.0%} of the bound")
+        print("  in turns, ms: " + "; ".join(
+            f"{tag} {' '.join(f'{t:.5f}' for t in ts)} (median {np.median(ts):.5f}, spread "
+            f"{max(ts) - min(ts):.5f})" for tag, ts in head_ms.items()), flush=True)
+        return t_k, t_p, t_l, max(b_bytes, b_ops), "bytes" if b_bytes >= b_ops else "operations", h
+
+    t_k, t_p, t_l, bound, bound_by, h = time_head(heads["stablelm-1.6b"])
     h1 = h[:1].contiguous()
-    t_k1 = time_cold(lambda: kexit.exit_confidence(h1, w_lm), 50, flush)
+    t_k1 = time_cold(lambda: kexit.exit_confidence(h1, heads["stablelm-1.6b"]), 50, flush)
     print(f"exit_confidence B=1: kernel {t_k1:.4f} ms")
     kernels_out.append({
         "name": "exit_confidence", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/exit_confidence.cu",
         "replaces": "src/repro/kernels/exit_confidence.py:111",
         "launches": launches["exit_confidence"], "max_abs_err": max_err["exit_confidence"],
-        "ms": t_k, "plain_ms": t_p, "bound_ms": max(b_bytes, b_ops),
-        "bound_by": "bytes" if b_bytes >= b_ops else "operations", "library_ms": t_l,
+        "ms": t_k, "plain_ms": t_p, "bound_ms": bound, "bound_by": bound_by, "library_ms": t_l,
     })
+    # the exit head at the LM heads of the three configs this slice added
+    for arch in ("deepseek-v2-lite-16b", "internlm2-20b", "qwen2.5-32b"):
+        print(f"{arch}'s LM head:")
+        time_head(heads.pop(arch))
 
     q, k, v, ln = dec_inputs(BATCH, max_len, Hq, KVH, hd, dec_lengths)
     kt, vt = k.transpose(1, 2), v.transpose(1, 2)  # [B, KVH, S, hd] views

@@ -5,9 +5,12 @@ block kinds, partitioned into ``num_stages`` pipeline stages at period
 granularity, with early-exit heads after the stages named in
 ``exit_stages`` (1-indexed).
 
-The port runs dense GQA attention blocks (``"attn"``) only so far; the MLA,
-MoE, SSM and sliding-window variants arrive with their blocks (ROADMAP
-queue 1, item 12), and this class rejects them until then.
+The port runs attention blocks with a GLU FFN (``"attn"``) or a
+mixture-of-experts FFN (``"moe_attn"``), each with GQA or, where ``mla`` is
+set, DeepSeek's multi-head latent attention.  The other kinds (``mamba``,
+``mlstm``, ``slstm``, ``dense_attn``), sliding-window caches, the two-matmul
+MLP FFN and the embeds frontend arrive with their modules (ROADMAP queue 1,
+item 7), and this class rejects them until then.
 """
 from __future__ import annotations
 
@@ -17,9 +20,12 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.models.attention import AttnDims
+from repro_torch.models.attention import AttnDims, MlaDims
+from repro_torch.models.moe import MoeDims
 
-BLOCK_KINDS = ("attn",)
+BLOCK_KINDS = ("attn", "moe_attn")
+# kinds of the reference's ``BLOCK_KINDS`` the port does not run yet
+UNPORTED_KINDS = ("mamba", "dense_attn", "mlstm", "slstm")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,6 +46,8 @@ class ArchConfig:
     rope_theta: float = 1e4
     sliding_window: int | None = None
     period: tuple[str, ...] = ("attn",)
+    moe: MoeDims | None = None
+    mla: MlaDims | None = None
     frontend: str = "tokens"
     num_stages: int = 4
     exit_stages: tuple[int, ...] = (2, 3)
@@ -53,21 +61,29 @@ class ArchConfig:
         if self.head_dim == 0:
             object.__setattr__(self, "head_dim", self.d_model // max(self.num_heads, 1))
         for kind in self.period:
-            if kind not in BLOCK_KINDS:
+            if kind in UNPORTED_KINDS:
                 raise NotImplementedError(
-                    f"block kind {kind!r} is not ported yet (ROADMAP queue 1, item 12)"
+                    f"block kind {kind!r} is not ported yet: the port runs {BLOCK_KINDS}; "
+                    "Mamba and xLSTM (ROADMAP queue 1, item 7) come after the benchmark ports"
                 )
+            if kind not in BLOCK_KINDS:
+                raise ValueError(f"unknown block kind {kind!r}")
+        if "moe_attn" in self.period and self.moe is None:
+            raise ValueError(f"{self.name}: a 'moe_attn' period needs moe dims")
         if self.sliding_window is not None:
             raise NotImplementedError(
-                "sliding-window caches are not ported yet (ROADMAP queue 1, item 12)"
+                "sliding-window ring caches are not ported yet (ROADMAP queue 1, item 7); "
+                "the port serves full-attention caches only"
             )
         if self.ffn != "glu":
             raise NotImplementedError(
-                "the two-matmul MLP FFN is not ported yet (ROADMAP queue 1, item 12)"
+                "the two-matmul MLP FFN with the tanh gelu is not ported yet (ROADMAP queue 1, "
+                "item 7); the port runs the GLU FFN"
             )
         if self.frontend != "tokens":
             raise NotImplementedError(
-                "the embeds frontend is not ported yet (ROADMAP queue 1, item 12)"
+                "the embeds frontend is not ported yet (ROADMAP queue 1, item 7); the port "
+                "embeds tokens"
             )
         if self.num_layers % len(self.period) != 0:
             raise ValueError(
@@ -97,9 +113,21 @@ class ArchConfig:
             sliding_window=self.sliding_window,
         )
 
+    @property
+    def uses_attention(self) -> bool:
+        return any(k in ("attn", "moe_attn", "dense_attn") for k in self.period)
+
+    def param_count(self, active_only: bool = False) -> int:
+        """Parameters of the model; ``active_only`` counts the top-k routed
+        experts of each MoE block instead of all of them."""
+        from repro_torch.models import model as model_lib
+
+        return model_lib.count_params(self, active_only=active_only)
+
     def reduced(self, **overrides) -> "ArchConfig":
         """A smoke-test-sized sibling: same family/period structure, tiny dims
-        (the dense-attention branch of ``repro.configs.base.ArchConfig.reduced``)."""
+        (the attention, MoE and MLA branches of
+        ``repro.configs.base.ArchConfig.reduced``)."""
         n_periods = max(self.num_stages, 4)
         small: dict[str, Any] = dict(
             num_layers=n_periods * len(self.period),
@@ -111,5 +139,24 @@ class ArchConfig:
             head_dim=32,
             q_chunk=64,
         )
+        if self.moe is not None:
+            small["moe"] = dataclasses.replace(
+                self.moe,
+                d_model=128,
+                d_ff_expert=64,
+                num_experts=min(self.moe.num_experts, 8),
+                d_ff_shared=64 if self.moe.num_shared else 0,
+                top_k=min(self.moe.top_k, 2),
+            )
+        if self.mla is not None:
+            small["mla"] = MlaDims(
+                d_model=128,
+                num_heads=4,
+                kv_lora_rank=32,
+                qk_nope_head_dim=32,
+                qk_rope_head_dim=16,
+                v_head_dim=32,
+            )
+            small["head_dim"] = 32
         small.update(overrides)
         return dataclasses.replace(self, name=f"{self.name}-smoke", **small)

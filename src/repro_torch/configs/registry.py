@@ -1,7 +1,9 @@
 """Architecture registry of the port: ``--arch <id>`` -> ArchConfig.
 
-It holds only the architectures the port can run; the others arrive with
-their blocks (ROADMAP queue 1, item 12).
+It holds only the architectures the port can run.  The JAX package's others
+(zamba2-2.7b and xlstm-350m: Mamba and xLSTM blocks; mixtral-8x7b: sliding
+window rings; musicgen-medium: the tanh-gelu MLP and the embeds frontend; phi-3-vision-4.2b: the
+embeds frontend) arrive with their modules (ROADMAP queue 1, item 7).
 """
 from __future__ import annotations
 
@@ -13,6 +15,9 @@ from repro_torch.configs.base import ArchConfig
 _MODULES: dict[str, str] = {
     "stablelm-1.6b": "repro_torch.configs.stablelm_1_6b",
     "glm4-9b": "repro_torch.configs.glm4_9b",
+    "internlm2-20b": "repro_torch.configs.internlm2_20b",
+    "qwen2.5-32b": "repro_torch.configs.qwen2_5_32b",
+    "deepseek-v2-lite-16b": "repro_torch.configs.deepseek_v2_lite_16b",
 }
 
 

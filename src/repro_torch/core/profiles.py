@@ -17,20 +17,30 @@ import numpy as np
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.types import ModelProfile
+from repro_torch.models import moe as moe_lib
 
 
 def stage_param_counts(cfg: ArchConfig) -> list[int]:
-    """Approximate parameters per stage.
-
-    The port's configs hold GQA attention blocks only (``ArchConfig``
-    rejects other kinds), so this is the ``"attn"`` branch of
-    ``repro.core.profiles.stage_param_counts``.
-    """
+    """Approximate active parameters per stage (MoE counts top-k experts):
+    the attention kinds' branches of ``repro.core.profiles.stage_param_counts``
+    (the port's configs hold no other kind)."""
     d = cfg.d_model
-    a = cfg.attn_dims()
-    attn = d * a.q_dim + 2 * d * a.kv_dim + a.q_dim * d
-    per_block = attn + 3 * d * cfg.d_ff  # GLU FFN
-    return [n_periods * len(cfg.period) * per_block for n_periods in cfg.stage_periods()]
+    per_block: dict[str, int] = {}
+    for kind in set(cfg.period):
+        if cfg.mla is not None:
+            m = cfg.mla
+            attn = d * m.num_heads * m.qk_head_dim + d * (m.kv_lora_rank + m.qk_rope_head_dim)
+            attn += m.kv_lora_rank * m.num_heads * (m.qk_nope_head_dim + m.v_head_dim)
+            attn += m.num_heads * m.v_head_dim * d
+        else:
+            a = cfg.attn_dims()
+            attn = d * a.q_dim + 2 * d * a.kv_dim + a.q_dim * d
+        if kind == "moe_attn":
+            ffn = moe_lib.moe_active_params(cfg.moe)
+        else:
+            ffn = 3 * d * cfg.d_ff  # GLU FFN
+        per_block[kind] = attn + ffn
+    return [n_periods * sum(per_block[k] for k in cfg.period) for n_periods in cfg.stage_periods()]
 
 
 def profile_from_arch(

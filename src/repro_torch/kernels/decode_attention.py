@@ -2,11 +2,12 @@
 
 The counterpart of ``repro.kernels.decode_attention``.  On a CUDA tensor the
 wrapper launches the hand-written kernel in ``csrc/decode_attention.cu``
-(one walk for every G: one CTA per (row, KV head, split of ``SPLIT_KEYS``
-keys) on the tensor cores, plus a combine over the splits), online softmax
-over the valid prefix; on a CPU tensor it runs the plain version in
-``ref``.  There is no other path: a CUDA tensor the kernel cannot take
-raises.
+(one walk for every G up to 16: one CTA per (row, KV head, split of
+``SPLIT_KEYS`` keys) on the tensor cores, plus a combine over the splits),
+online softmax over the valid prefix; on a CPU tensor it runs the plain
+version in ``ref``.  There is no other path: a CUDA tensor the kernel cannot
+take raises.  A G above 16 is launched in chunks of at most 16 query heads
+per KV head (``split_groups``), each chunk reading the same K/V.
 
 As in the Pallas kernel, a row whose length is 0 returns zeros.
 """
@@ -20,9 +21,11 @@ import torch
 from repro_torch.kernels import build, ref
 
 HEAD_DIMS = (32, 64, 128)
-# Query heads per KV head the kernel takes: the walk puts a KV head's G
-# query heads on the first G of its tensor-core tiles' 16 M rows
-GROUPS = tuple(range(1, 17))
+# Query heads per KV head one launch of the walk takes at most: the walk
+# puts a KV head's G query heads on the first G of its tensor-core tiles' 16
+# M rows.  The wrappers take any G, in chunks of at most ``MMA_G``
+# (``split_groups``).
+MMA_G = 16
 # Keys per split of the walk: a multiple of its 32-key warp tile.  Fixed, so
 # a row's splits, and so its output, depend on its own length only.
 SPLIT_KEYS = 512
@@ -46,6 +49,31 @@ def split_scratch(B: int, S: int, kvh: int, G: int, hd: int, device):
         return None, None
     return (torch.empty((B, kvh, n, G, hd), dtype=torch.float32, device=device),
             torch.empty((B, kvh, n, G), dtype=torch.float32, device=device))
+
+
+def split_groups(q: torch.Tensor, kvh: int, launch) -> torch.Tensor:
+    """``launch`` over chunks of at most ``MMA_G`` query heads per KV head.
+
+    ``q`` is [B, kvh * G, hd], query head ``h * G + g`` belonging to KV head
+    ``h``.  For G <= ``MMA_G`` this is ``launch(q)``.  Above, the G heads of
+    every KV head are cut into ``ceil(G / MMA_G)`` chunks of ``MMA_G`` heads
+    (the last one shorter); ``launch`` gets each chunk as a contiguous [B,
+    kvh * g, hd] query (g heads per KV head, the same K/V) and returns its
+    [B, kvh * g, hd] output, which lands in the chunk's heads of the result.
+    A query head's output depends on its own row of scores alone, so the
+    split changes no value.
+    """
+    B, Hq, hd = q.shape
+    G = Hq // kvh
+    if G <= MMA_G:
+        return launch(q)
+    qg = q.view(B, kvh, G, hd)
+    out = q.new_empty((B, kvh, G, hd))
+    for g0 in range(0, G, MMA_G):
+        g = min(MMA_G, G - g0)
+        chunk = launch(qg[:, :, g0:g0 + g].reshape(B, kvh * g, hd).contiguous())
+        out[:, :, g0:g0 + g] = chunk.view(B, kvh, g, hd)
+    return out.view(B, Hq, hd)
 
 
 def _lib():
@@ -84,20 +112,22 @@ def decode_attention(
     S, KVH = k.shape[1], k.shape[2]
     if Hq % KVH != 0:
         raise ValueError(f"q heads {Hq} not a multiple of kv heads {KVH}")
-    G = Hq // KVH
-    if hd not in HEAD_DIMS or G not in GROUPS:
-        raise ValueError(f"decode_attention kernel takes hd in {HEAD_DIMS} and 1 <= G <= "
-                         f"{GROUPS[-1]} query heads per KV head; got hd {hd}, G {G}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"decode_attention kernel takes hd in {HEAD_DIMS}; got hd {hd}")
     for t in (q, k, v, lengths):
         if not t.is_contiguous():
             raise ValueError("decode_attention: inputs must be contiguous")
     for t in (q, k, v):
         if t.data_ptr() % 16:
             raise ValueError("decode_attention: q, k, v must be 16-byte aligned")
-    out = torch.empty((B, Hq, hd), dtype=torch.bfloat16, device=dev)
-    _launch(q, k, v, lengths, out)
-    decode_attention.launches += 1
-    return out
+
+    def launch(qc: torch.Tensor) -> torch.Tensor:
+        out = torch.empty(qc.shape, dtype=torch.bfloat16, device=dev)
+        _launch(qc, k, v, lengths, out)
+        decode_attention.launches += 1
+        return out
+
+    return split_groups(q, KVH, launch)
 
 
 def _launch(q, k, v, lengths, out, combine: bool = True) -> None:

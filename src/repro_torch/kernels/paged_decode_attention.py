@@ -3,8 +3,9 @@
 The counterpart of ``repro.kernels.paged_decode_attention``.  On a CUDA
 tensor the wrapper launches the hand-written kernel in
 ``csrc/paged_decode_attention.cu`` (the dense kernel's walk, with each key
-row reached through ``table``, read once per 32-key tile); on a CPU tensor
-it runs the plain version in ``ref``.  There is no other path: a CUDA tensor
+row reached through ``table``, read once per 32-key tile, and its chunks of
+at most 16 query heads per KV head where G is larger); on a CPU tensor it
+runs the plain version in ``ref``.  There is no other path: a CUDA tensor
 the kernel cannot take raises.
 
 Key ``t`` of row ``b`` lives at pool row ``table[b, t // bs]``, offset
@@ -21,7 +22,8 @@ import math
 import torch
 
 from repro_torch.kernels import build, ref
-from repro_torch.kernels.decode_attention import GROUPS, HEAD_DIMS, SPLIT_KEYS, _ptr, split_scratch
+from repro_torch.kernels.decode_attention import (HEAD_DIMS, SPLIT_KEYS, _ptr, split_groups,
+                                                  split_scratch)
 
 
 def _lib():
@@ -67,20 +69,22 @@ def paged_decode_attention(
     bs, KVH = k_pool.shape[1], k_pool.shape[2]
     if Hq % KVH != 0:
         raise ValueError(f"q heads {Hq} not a multiple of kv heads {KVH}")
-    G = Hq // KVH
-    if hd not in HEAD_DIMS or G not in GROUPS:
-        raise ValueError(f"paged_decode_attention kernel takes hd in {HEAD_DIMS} and 1 <= G <= "
-                         f"{GROUPS[-1]} query heads per KV head; got hd {hd}, G {G}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"paged_decode_attention kernel takes hd in {HEAD_DIMS}; got hd {hd}")
     for t in (q, k_pool, v_pool, table, lengths):
         if not t.is_contiguous():
             raise ValueError("paged_decode_attention: inputs must be contiguous")
     for t in (q, k_pool, v_pool):
         if t.data_ptr() % 16:
             raise ValueError("paged_decode_attention: q, k_pool, v_pool must be 16-byte aligned")
-    out = torch.empty((B, Hq, hd), dtype=torch.bfloat16, device=dev)
-    _launch(q, k_pool, v_pool, table, lengths, out, seq_len)
-    paged_decode_attention.launches += 1
-    return out
+
+    def launch(qc: torch.Tensor) -> torch.Tensor:
+        out = torch.empty(qc.shape, dtype=torch.bfloat16, device=dev)
+        _launch(qc, k_pool, v_pool, table, lengths, out, seq_len)
+        paged_decode_attention.launches += 1
+        return out
+
+    return split_groups(q, KVH, launch)
 
 
 def _launch(q, k_pool, v_pool, table, lengths, out, seq_len: int | None = None,

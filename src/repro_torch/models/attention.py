@@ -1,5 +1,5 @@
-"""GQA attention (optional QKV bias) and its KV caches — the GQA half of
-``repro.models.attention``.
+"""Attention and its caches: GQA (optional QKV bias) and MLA (DeepSeek-style
+multi-head latent attention) — the counterpart of ``repro.models.attention``.
 
 Prefill attention (``gqa_forward``) goes through
 ``kernels.ops.flash_attention`` wherever the backend launches a kernel (a
@@ -12,15 +12,21 @@ goes through ``kernels.ops.decode_attention`` (dense slots) or
 ``kernels.ops.paged_decode_attention`` (paged blocks): the hand-written CUDA
 kernels on the card, their plain versions on the CPU.
 
+MLA has no kernel in the reference: its prefill is the plain
+``chunked_attention`` (q/k head dim 192, v head dim 128) and its decode the
+absorbed-latent ``einsum`` math, so both are plain torch on every device.
+
 Caches are plain dicts of tensors:
   full  : {"k": [B,S,kv,hd], "v": [B,S,kv,hd], "pos": int32 [] or [B]}
   paged : {"k": [NB,bs,kv,hd], "v": [NB,bs,kv,hd], "pos": int32 [B],
            "table": int32 [B, n_logical]}
+  mla   : {"c_kv": [B,S,lora], "k_pe": [B,S,rope_dim], "pos": int32 [] or [B]},
+          paged as {"c_kv": [NB,bs,lora], "k_pe": [NB,bs,rope_dim], ...}
 
 Unlike the JAX package, cache writes here are in place (``index_put_``):
 a decode step updates the cache tensors it is given and returns a dict
-holding the same tensors.  MLA and sliding-window caches are not ported yet
-(ROADMAP queue 1, item 12).
+holding the same tensors.  Sliding-window caches are not ported yet
+(ROADMAP queue 1, item 7).
 """
 from __future__ import annotations
 
@@ -30,7 +36,8 @@ import math
 import torch
 
 from repro_torch.kernels import ops as kernel_ops
-from repro_torch.models.layers import Params, apply_rope, matmul
+from repro_torch.models import layers
+from repro_torch.models.layers import Params, apply_rope, einsum, matmul
 
 NEG_INF = -1e30
 
@@ -304,4 +311,191 @@ def gqa_decode(
     k_positions = torch.where(arange <= pos, arange, -1)
     out = _attend_block(q, cache["k"], cache["v"], pos.reshape(1), k_positions, dims.groups)
     out = matmul(out.reshape(B, 1, dims.q_dim), params["w_o"])
+    return out, new_cache
+
+
+# ---------------------------------------------------------------------------
+# MLA — multi-head latent attention (DeepSeek-V2)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class MlaDims:
+    d_model: int
+    num_heads: int
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+    rope_theta: float = 1e4
+
+    @property
+    def qk_head_dim(self) -> int:
+        return self.qk_nope_head_dim + self.qk_rope_head_dim
+
+
+def mla_init(dims: MlaDims, dense, norm) -> Params:
+    """MLA's parameters; ``dense(shape)`` makes one bf16 weight and
+    ``norm(d)`` one RMSNorm's f32 scale, each stacked over the stage's
+    periods (``models.model``)."""
+    H = dims.num_heads
+    return {
+        # queries: full-rank projection to per-head (nope + rope) dims
+        "w_q": dense((dims.d_model, H * dims.qk_head_dim)),
+        # joint KV low-rank compression
+        "w_dkv": dense((dims.d_model, dims.kv_lora_rank)),
+        "w_kpe": dense((dims.d_model, dims.qk_rope_head_dim)),
+        # up-projections out of the latent
+        "w_uk": dense((dims.kv_lora_rank, H * dims.qk_nope_head_dim)),
+        "w_uv": dense((dims.kv_lora_rank, H * dims.v_head_dim)),
+        "w_o": dense((H * dims.v_head_dim, dims.d_model)),
+        "norm_ckv": norm(dims.kv_lora_rank),
+    }
+
+
+def _mla_q(params: Params, x: torch.Tensor, dims: MlaDims, positions: torch.Tensor):
+    B, S, _ = x.shape
+    q = matmul(x, params["w_q"]).reshape(B, S, dims.num_heads, dims.qk_head_dim)
+    q_nope = q[..., : dims.qk_nope_head_dim]
+    q_pe = apply_rope(q[..., dims.qk_nope_head_dim :], positions, dims.rope_theta)
+    return q_nope, q_pe
+
+
+def _mla_latent(params: Params, x: torch.Tensor, dims: MlaDims, positions: torch.Tensor):
+    c_kv = layers.rmsnorm(params["norm_ckv"], matmul(x, params["w_dkv"]))
+    k_pe = matmul(x, params["w_kpe"])[:, :, None, :]  # single shared rope head
+    k_pe = apply_rope(k_pe, positions, dims.rope_theta)[:, :, 0, :]
+    return c_kv, k_pe
+
+
+def mla_forward(
+    params: Params,
+    x: torch.Tensor,  # [B, S, d]
+    dims: MlaDims,
+    positions: torch.Tensor | None = None,  # [S]
+    q_chunk: int = 1024,
+    return_latent: bool = False,
+):
+    """Prefill MLA: expand k/v out of the latent and attend causally through
+    the plain ``chunked_attention`` (no kernel takes q/k head dim 192 with v
+    head dim 128; the reference's prefill is its XLA path too)."""
+    B, S, _ = x.shape
+    H = dims.num_heads
+    if positions is None:
+        positions = torch.arange(S, dtype=torch.int32, device=x.device)
+    pos2 = positions[None, :]
+    q_nope, q_pe = _mla_q(params, x, dims, pos2)
+    c_kv, k_pe = _mla_latent(params, x, dims, pos2)
+
+    k_nope = matmul(c_kv, params["w_uk"]).reshape(B, S, H, dims.qk_nope_head_dim)
+    v = matmul(c_kv, params["w_uv"]).reshape(B, S, H, dims.v_head_dim)
+    q = torch.cat([q_nope, q_pe], dim=-1)
+    k = torch.cat([k_nope, k_pe[:, :, None, :].expand(B, S, H, dims.qk_rope_head_dim)], dim=-1)
+    out = chunked_attention(q, k, v, positions, positions, 1, q_chunk)
+    out = matmul(out.reshape(B, S, H * dims.v_head_dim), params["w_o"])
+    if return_latent:
+        return out, (c_kv, k_pe)
+    return out
+
+
+def make_mla_cache(
+    batch: int, max_len: int, dims: MlaDims, dtype=torch.bfloat16, device=None
+) -> Params:
+    return {
+        "c_kv": torch.zeros((batch, max_len, dims.kv_lora_rank), dtype=dtype, device=device),
+        "k_pe": torch.zeros((batch, max_len, dims.qk_rope_head_dim), dtype=dtype, device=device),
+        "pos": torch.zeros((), dtype=torch.int32, device=device),
+    }
+
+
+def mla_prefill_into_cache(cache: Params, c_kv: torch.Tensor, k_pe: torch.Tensor) -> Params:
+    """Write a prefilled latent prefix into an MLA cache starting at 0."""
+    S = c_kv.shape[1]
+    cache["c_kv"][:, :S] = c_kv.to(cache["c_kv"].dtype)
+    cache["k_pe"][:, :S] = k_pe.to(cache["k_pe"].dtype)
+    cache["pos"] = torch.tensor(S, dtype=torch.int32, device=c_kv.device)
+    return cache
+
+
+def _mla_absorbed_attend(
+    params: Params,
+    q_nope: torch.Tensor,  # [B, 1, H, nope_dim]
+    q_pe: torch.Tensor,  # [B, 1, H, rope_dim]
+    c_kv: torch.Tensor,  # [B, S, lora]
+    k_pe: torch.Tensor,  # [B, S, rope_dim]
+    pos: torch.Tensor,  # int32 [B], per-row position of the new token
+    dims: MlaDims,
+) -> torch.Tensor:
+    """Absorbed-latent attention shared by the scalar, ragged and paged
+    decodes: the query absorbs ``W_uk``, scores and mixes in latent space
+    (O(S * (lora + rope_dim)) per head), and ``W_uv`` maps the mix out."""
+    B, S_cache = c_kv.shape[0], c_kv.shape[1]
+    H = dims.num_heads
+    bf16 = torch.bfloat16
+    w_uk = params["w_uk"].reshape(dims.kv_lora_rank, H, dims.qk_nope_head_dim)
+    q_lat = einsum("bhd,rhd->bhr", q_nope[:, 0].to(bf16), w_uk.to(bf16))
+    scores = einsum("bhr,bsr->bhs", q_lat, c_kv).float()
+    scores = scores + torch.einsum("bhd,bsd->bhs", q_pe[:, 0].float(), k_pe.float())
+    scores = scores / math.sqrt(dims.qk_head_dim)
+    valid = torch.arange(S_cache, device=c_kv.device)[None, :] <= pos[:, None]  # [B, S]
+    scores = torch.where(valid[:, None, :], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(c_kv.dtype)
+    out_lat = einsum("bhs,bsr->bhr", probs, c_kv)  # [B, H, lora]
+    w_uv = params["w_uv"].reshape(dims.kv_lora_rank, H, dims.v_head_dim)
+    out = einsum("bhr,rhd->bhd", out_lat, w_uv.to(out_lat.dtype))
+    return matmul(out.reshape(B, 1, H * dims.v_head_dim), params["w_o"])
+
+
+def mla_decode_ragged(params: Params, x: torch.Tensor, cache: Params, dims: MlaDims):
+    """Absorbed MLA decode with PER-ROW cache positions (``cache["pos"]``:
+    [B]): the serving engine's slot-cache path."""
+    pos = cache["pos"]  # int32 [B]
+    pos_b = pos[:, None]
+    q_nope, q_pe = _mla_q(params, x, dims, pos_b)
+    c_new, kpe_new = _mla_latent(params, x, dims, pos_b)
+    _cache_write_ragged(cache["c_kv"], c_new, pos)
+    _cache_write_ragged(cache["k_pe"], kpe_new, pos)
+    new_cache = dict(cache, pos=pos + 1)
+    out = _mla_absorbed_attend(params, q_nope, q_pe, cache["c_kv"], cache["k_pe"], pos, dims)
+    return out, new_cache
+
+
+def mla_decode_paged(params: Params, x: torch.Tensor, cache: Params, dims: MlaDims, seq_len: int):
+    """Absorbed MLA decode against a PAGED latent pool.
+
+    ``cache``: ``{"c_kv": [NB, bs, lora], "k_pe": [NB, bs, rope], "pos": [B],
+    "table": [B, nlog]}``.  The token is written through the table
+    (``_paged_token_write``, trash-block rule included); the latent rows
+    are gathered to a contiguous ``seq_len`` view, the dense slot path's
+    exact shape, so the absorbed math is bitwise ``mla_decode_ragged``'s.
+    """
+    B = x.shape[0]
+    pos = cache["pos"]  # int32 [B]
+    table = cache["table"]
+    pos_b = pos[:, None]
+    q_nope, q_pe = _mla_q(params, x, dims, pos_b)
+    c_new, kpe_new = _mla_latent(params, x, dims, pos_b)
+    _paged_token_write((cache["c_kv"], cache["k_pe"]), (c_new, kpe_new), table, pos)
+    new_cache = dict(cache, pos=pos + 1)
+    idx = table.long()
+    c_virt = cache["c_kv"][idx].reshape(B, -1, dims.kv_lora_rank)[:, :seq_len]
+    kpe_virt = cache["k_pe"][idx].reshape(B, -1, dims.qk_rope_head_dim)[:, :seq_len]
+    out = _mla_absorbed_attend(params, q_nope, q_pe, c_virt, kpe_virt, pos, dims)
+    return out, new_cache
+
+
+def mla_decode(params: Params, x: torch.Tensor, cache: Params, dims: MlaDims):
+    """Absorbed MLA decode against a shared-position cache (scalar ``pos``)."""
+    B = x.shape[0]
+    pos = cache["pos"]  # int32 []
+    pos_b = pos.expand(B, 1)
+    q_nope, q_pe = _mla_q(params, x, dims, pos_b)
+    c_new, kpe_new = _mla_latent(params, x, dims, pos_b)
+    # the reference's masked write: nothing lands once pos reaches the cache
+    _cache_write_ragged(cache["c_kv"], c_new, pos.expand(B))
+    _cache_write_ragged(cache["k_pe"], kpe_new, pos.expand(B))
+    new_cache = dict(cache, pos=pos + 1)
+    out = _mla_absorbed_attend(
+        params, q_nope, q_pe, cache["c_kv"], cache["k_pe"], pos.expand(B), dims
+    )
     return out, new_cache

@@ -5,7 +5,10 @@ the port the reference's exact weights, so the two packages can be held to
 each other without matching random generators.  The port never sees a JAX
 array: the caller converts on its side.  Weight matrices become bf16 (the
 reference casts them to bf16 at every matmul); norm scales, norm biases and
-QKV biases stay f32.
+QKV biases stay f32.  The tree is walked by leaf name, so the MoE
+``experts`` stacks and ``shared`` GLU, the router and MLA's projections
+become bf16 like every other name in ``BF16_LEAVES``, and MLA's
+``norm_ckv`` scale stays f32.
 """
 from __future__ import annotations
 

@@ -30,6 +30,15 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x.float(), w.float()).to(torch.bfloat16)
 
 
+def einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum`` of two bf16 operands with a bf16 result, rounded as
+    ``matmul`` rounds: one bf16 product on the card, the f32 product rounded
+    once on the CPU (the reference's ``jnp.einsum`` on bf16 operands)."""
+    if a.is_cuda:
+        return torch.einsum(eq, a, b)
+    return torch.einsum(eq, a.float(), b.float()).to(torch.bfloat16)
+
+
 # ---------------------------------------------------------------------------
 # Norms (f32 inside, result in the input dtype)
 # ---------------------------------------------------------------------------
@@ -111,6 +120,11 @@ def apply_rope(
 def embed(params: Params, tokens: torch.Tensor) -> torch.Tensor:
     """Row lookup in the bf16 table (the reference casts, then indexes)."""
     return params["embed"].to(torch.bfloat16)[tokens]
+
+
+def glu_ffn_init(dense, d: int, d_ff: int) -> Params:
+    """A GLU FFN's weights; ``dense(shape)`` makes one (``models.model``)."""
+    return {"w_gate": dense((d, d_ff)), "w_up": dense((d, d_ff)), "w_down": dense((d_ff, d))}
 
 
 def glu_ffn(params: Params, x: torch.Tensor, act: str = "silu") -> torch.Tensor:

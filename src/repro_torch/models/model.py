@@ -1,5 +1,5 @@
-"""Staged decoder with early-exit heads — the ``"attn"`` kind of
-``repro.models.model``.
+"""Staged decoder with early-exit heads — the ``"attn"`` and ``"moe_attn"``
+kinds of ``repro.models.model``, each with GQA or MLA attention.
 
 A model is ``num_stages`` pipeline stages; each stage runs its block
 periods in order.  Early-exit branches hang off the stages in
@@ -22,11 +22,16 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops as kernel_ops
-from repro_torch.models import attention, layers
+from repro_torch.models import attention, layers, moe
 from repro_torch.models.layers import Params
 
-# weight matrices kept in bf16 (cast once at load); everything else is f32
-BF16_LEAVES = ("embed", "lm_head", "w_q", "w_k", "w_v", "w_o", "w_gate", "w_up", "w_down")
+# weight matrices kept in bf16 (cast once at load; the reference casts each
+# to bf16 at every use); everything else (norm scales and biases, QKV
+# biases, MLA's ``norm_ckv``) is f32
+BF16_LEAVES = (
+    "embed", "lm_head", "w_q", "w_k", "w_v", "w_o", "w_gate", "w_up", "w_down",
+    "router", "w_dkv", "w_kpe", "w_uk", "w_uv",
+)
 
 
 # ---------------------------------------------------------------------------
@@ -34,15 +39,22 @@ BF16_LEAVES = ("embed", "lm_head", "w_q", "w_k", "w_v", "w_o", "w_gate", "w_up",
 # ---------------------------------------------------------------------------
 
 
-def _dense(shape, generator: torch.Generator, device, stacked: int | None = None) -> torch.Tensor:
-    """Truncated normal at +-3 std with std 1/sqrt(fan_in), made in f32 and
-    stored in bf16 (the reference keeps the f32 master)."""
-    fan_in = shape[0]
-    full = shape if stacked is None else (stacked, *shape)
-    std = 1.0 / math.sqrt(fan_in)
-    t = torch.empty(full, dtype=torch.float32, device=device)
-    torch.nn.init.trunc_normal_(t, mean=0.0, std=std, a=-3 * std, b=3 * std, generator=generator)
-    return t.to(torch.bfloat16)
+def _dense(shape, generator: torch.Generator | None, device, stacked: int | None = None) -> torch.Tensor:
+    """Truncated normal at +-3 std with std 1/sqrt(shape[0]) (the
+    reference's fan-in), made in f32 and stored in bf16 (the reference
+    keeps the f32 master).  A stacked leaf is filled one period at a time,
+    so no f32 temporary is larger than one period's matrix.  On the meta
+    device nothing is drawn (shapes only)."""
+    std = 1.0 / math.sqrt(shape[0])
+    out = torch.empty(shape if stacked is None else (stacked, *shape), dtype=torch.bfloat16,
+                      device=device)
+    if out.is_meta:
+        return out
+    for part in ([out] if stacked is None else out):
+        t = torch.empty(shape, dtype=torch.float32, device=device)
+        torch.nn.init.trunc_normal_(t, mean=0.0, std=std, a=-3 * std, b=3 * std, generator=generator)
+        part.copy_(t)
+    return out
 
 
 def _norm_init(kind: str, d: int, device, stacked: int | None = None) -> Params:
@@ -53,37 +65,47 @@ def _norm_init(kind: str, d: int, device, stacked: int | None = None) -> Params:
     return p
 
 
-def _block_init(cfg: ArchConfig, n: int, generator: torch.Generator, device) -> Params:
-    """One ``"attn"`` block, stacked over ``n`` periods."""
+def _block_init(kind: str, cfg: ArchConfig, n: int, generator: torch.Generator | None,
+                device) -> Params:
+    """One attention block of ``kind`` (GQA or MLA attention; a GLU FFN or,
+    for ``"moe_attn"``, a mixture of experts), stacked over ``n`` periods."""
     d = cfg.d_model
-    dims = cfg.attn_dims()
-    attn: Params = {
-        "w_q": _dense((d, dims.q_dim), generator, device, n),
-        "w_k": _dense((d, dims.kv_dim), generator, device, n),
-        "w_v": _dense((d, dims.kv_dim), generator, device, n),
-        "w_o": _dense((dims.q_dim, d), generator, device, n),
-    }
-    if dims.qkv_bias:
-        for name, width in (("b_q", dims.q_dim), ("b_k", dims.kv_dim), ("b_v", dims.kv_dim)):
-            attn[name] = torch.zeros((n, width), dtype=torch.float32, device=device)
-    return {
+
+    def dense(shape):
+        return _dense(shape, generator, device, n)
+
+    if cfg.mla is not None:
+        attn = attention.mla_init(cfg.mla, dense, lambda w: _norm_init("rmsnorm", w, device, n))
+    else:
+        dims = cfg.attn_dims()
+        attn = {
+            "w_q": dense((d, dims.q_dim)),
+            "w_k": dense((d, dims.kv_dim)),
+            "w_v": dense((d, dims.kv_dim)),
+            "w_o": dense((dims.q_dim, d)),
+        }
+        if dims.qkv_bias:
+            for name, width in (("b_q", dims.q_dim), ("b_k", dims.kv_dim), ("b_v", dims.kv_dim)):
+                attn[name] = torch.zeros((n, width), dtype=torch.float32, device=device)
+    p: Params = {
         "norm1": _norm_init(cfg.norm, d, device, n),
         "attn": attn,
         "norm2": _norm_init(cfg.norm, d, device, n),
-        "ffn": {
-            "w_gate": _dense((d, cfg.d_ff), generator, device, n),
-            "w_up": _dense((d, cfg.d_ff), generator, device, n),
-            "w_down": _dense((cfg.d_ff, d), generator, device, n),
-        },
     }
+    if kind == "moe_attn":
+        p["moe"] = moe.moe_init(cfg.moe, dense)
+    else:
+        p["ffn"] = layers.glu_ffn_init(dense, d, cfg.d_ff)
+    return p
 
 
-def init_params(cfg: ArchConfig, generator: torch.Generator, device="cuda") -> Params:
+def init_params(cfg: ArchConfig, generator: torch.Generator | None, device="cuda") -> Params:
     """Random weights with the reference's tree, shapes and init law.
 
     ``generator`` must live on ``device``.  The values differ from
     ``repro.models.model.init_params`` (another generator); tests that need
-    equal weights bridge the JAX tree with ``models.bridge``.
+    equal weights bridge the JAX tree with ``models.bridge``.  On the
+    ``"meta"`` device (``generator`` None) it builds the shapes alone.
     """
     d = cfg.d_model
     params: Params = {
@@ -93,10 +115,22 @@ def init_params(cfg: ArchConfig, generator: torch.Generator, device="cuda") -> P
         "exit_norms": {f"exit_{h}": _norm_init(cfg.norm, d, device) for h in cfg.exit_stages},
     }
     params["stages"] = [
-        {"blocks": tuple(_block_init(cfg, n, generator, device) for _ in cfg.period)}
+        {"blocks": tuple(_block_init(kind, cfg, n, generator, device) for kind in cfg.period)}
         for n in cfg.stage_periods()
     ]
     return params
+
+
+def count_params(cfg: ArchConfig, active_only: bool = False) -> int:
+    """Parameters of the model (shapes on the meta device, nothing drawn);
+    ``active_only`` leaves out each MoE block's routed experts past top-k."""
+    leaves = torch.utils._pytree.tree_leaves(init_params(cfg, None, "meta"))
+    total = sum(t.numel() for t in leaves)
+    if active_only and cfg.moe is not None:
+        n_moe = sum(1 for k in cfg.period if k == "moe_attn") * cfg.num_periods
+        m = cfg.moe
+        total -= n_moe * (m.num_experts - m.top_k) * 3 * m.d_model * m.d_ff_expert
+    return total
 
 
 def _period(tree: Params, i: int) -> Params:
@@ -109,7 +143,16 @@ def _period(tree: Params, i: int) -> Params:
 # ---------------------------------------------------------------------------
 
 
+def _ffn(kind: str, p: Params, h2: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """The block's FFN on the normed residual: the GLU, or the MoE (whose
+    load-balance loss only training reads)."""
+    if kind == "moe_attn":
+        return moe.moe_forward(p["moe"], h2, cfg.moe)[0]
+    return layers.glu_ffn(p["ffn"], h2, cfg.act)
+
+
 def _block_apply(
+    kind: str,
     p: Params,
     x: torch.Tensor,
     cfg: ArchConfig,
@@ -117,40 +160,62 @@ def _block_apply(
     mode: str,  # "train" | "prefill"
     max_len: int = 0,
 ):
-    """One attention block.  Returns (x', cache or None)."""
+    """One attention block of ``kind``.  Returns (x', cache or None)."""
     h = layers.apply_norm(cfg.norm, p["norm1"], x)
-    dims = cfg.attn_dims()
     cache = None
-    if mode == "prefill":
-        out, (k, v) = attention.gqa_forward(p["attn"], h, dims, positions, cfg.q_chunk, return_kv=True)
-        cache = attention.make_kv_cache(x.shape[0], max_len, dims, device=x.device)
-        cache = attention.prefill_into_cache(cache, k, v)
+    if cfg.mla is not None:
+        if mode == "prefill":
+            out, (c_kv, k_pe) = attention.mla_forward(
+                p["attn"], h, cfg.mla, positions, cfg.q_chunk, return_latent=True
+            )
+            cache = attention.make_mla_cache(x.shape[0], max_len, cfg.mla, device=x.device)
+            cache = attention.mla_prefill_into_cache(cache, c_kv, k_pe)
+        else:
+            out = attention.mla_forward(p["attn"], h, cfg.mla, positions, cfg.q_chunk)
     else:
-        out = attention.gqa_forward(p["attn"], h, dims, positions, cfg.q_chunk)
+        dims = cfg.attn_dims()
+        if mode == "prefill":
+            out, (k, v) = attention.gqa_forward(p["attn"], h, dims, positions, cfg.q_chunk,
+                                                return_kv=True)
+            cache = attention.make_kv_cache(x.shape[0], max_len, dims, device=x.device)
+            cache = attention.prefill_into_cache(cache, k, v)
+        else:
+            out = attention.gqa_forward(p["attn"], h, dims, positions, cfg.q_chunk)
     x = x + out
     h2 = layers.apply_norm(cfg.norm, p["norm2"], x)
-    return x + layers.glu_ffn(p["ffn"], h2, cfg.act), cache
+    return x + _ffn(kind, p, h2, cfg), cache
 
 
-def _block_decode(p: Params, x: torch.Tensor, cache: Params, cfg: ArchConfig, ragged: bool = False,
-                  paged_seq_len: int | None = None):
+def _block_decode(kind: str, p: Params, x: torch.Tensor, cache: Params, cfg: ArchConfig,
+                  ragged: bool = False, paged_seq_len: int | None = None):
     """One-token block step.  ``ragged=True`` treats ``cache["pos"]`` as a
     per-row int32 [B] vector (the serving engine's slot-cache batches);
     ``paged_seq_len`` selects the paged path, where the cache holds a block
     pool plus a per-row block ``table`` instead of contiguous rows."""
     h = layers.apply_norm(cfg.norm, p["norm1"], x)
-    if paged_seq_len is not None:
+    if cfg.mla is not None:
+        if paged_seq_len is not None:
+            out, cache = attention.mla_decode_paged(p["attn"], h, cache, cfg.mla, paged_seq_len)
+        else:
+            decode = attention.mla_decode_ragged if ragged else attention.mla_decode
+            out, cache = decode(p["attn"], h, cache, cfg.mla)
+    elif paged_seq_len is not None:
         out, cache = attention.gqa_decode_paged(p["attn"], h, cache, cfg.attn_dims(), paged_seq_len)
     else:
         decode = attention.gqa_decode_ragged if ragged else attention.gqa_decode
         out, cache = decode(p["attn"], h, cache, cfg.attn_dims())
     x = x + out
     h2 = layers.apply_norm(cfg.norm, p["norm2"], x)
-    return x + layers.glu_ffn(p["ffn"], h2, cfg.act), cache
+    return x + _ffn(kind, p, h2, cfg), cache
 
 
 def _stack_caches(per_period: list[Params]) -> Params:
     return {k: torch.stack([c[k] for c in per_period]) for k in per_period[0]}
+
+
+def _num_periods(stage: Params) -> int:
+    """Periods of a stage, from its parameters (every block kind has norm1)."""
+    return stage["blocks"][0]["norm1"]["scale"].shape[0]
 
 
 def _run_stage(
@@ -158,11 +223,11 @@ def _run_stage(
     max_len: int = 0,
 ):
     """Run this stage's periods in order.  Returns (x, stacked caches or None)."""
-    n_periods = stage["blocks"][0]["attn"]["w_q"].shape[0]
     caches: list[list[Params]] = [[] for _ in cfg.period]
-    for i in range(n_periods):
-        for j, _ in enumerate(cfg.period):
-            x, cache = _block_apply(_period(stage["blocks"][j], i), x, cfg, positions, mode, max_len)
+    for i in range(_num_periods(stage)):
+        for j, kind in enumerate(cfg.period):
+            x, cache = _block_apply(kind, _period(stage["blocks"][j], i), x, cfg, positions, mode,
+                                    max_len)
             caches[j].append(cache)
     if mode != "prefill":
         return x, None
@@ -173,18 +238,16 @@ def _decode_stage(stage: Params, x: torch.Tensor, caches, cfg: ArchConfig, ragge
                   paged_seq_len: int | None = None):
     """One token through a stage.  The stacked caches are updated in place;
     the returned tuple holds them with their advanced ``pos``."""
-    n_periods = caches[0]["k"].shape[0]
-    new_caches = []
-    for j, _ in enumerate(cfg.period):
-        pos_out = []
-        for i in range(n_periods):
+    n_periods = _num_periods(stage)
+    pos_out: list[list[torch.Tensor]] = [[] for _ in cfg.period]
+    for i in range(n_periods):
+        for j, kind in enumerate(cfg.period):
             x, nc = _block_decode(
-                _period(stage["blocks"][j], i), x, _period(caches[j], i), cfg, ragged,
+                kind, _period(stage["blocks"][j], i), x, _period(caches[j], i), cfg, ragged,
                 paged_seq_len,
             )
-            pos_out.append(nc["pos"])
-        new_caches.append(dict(caches[j], pos=torch.stack(pos_out)))
-    return x, tuple(new_caches)
+            pos_out[j].append(nc["pos"])
+    return x, tuple(dict(c, pos=torch.stack(p)) for c, p in zip(caches, pos_out))
 
 
 # ---------------------------------------------------------------------------
@@ -215,6 +278,18 @@ def validate_slot_layout(cfg: ArchConfig, stage_idx: int, max_len: int) -> None:
         )
 
 
+def _block_cache(cfg: ArchConfig, n: int, batch: int, max_len: int, device) -> Params:
+    """Zeroed sequence leaves of one attention kind's cache, stacked over
+    ``n`` periods: ``k``/``v`` ``[n, batch, max_len, kv, hd]``, or MLA's
+    ``c_kv``/``k_pe`` ``[n, batch, max_len, lora or rope_dim]``."""
+    if cfg.mla is not None:
+        one = attention.make_mla_cache(batch, max_len, cfg.mla, device="meta")
+    else:
+        one = attention.make_kv_cache(batch, max_len, cfg.attn_dims(), device="meta")
+    return {key: torch.zeros((n, *t.shape), dtype=t.dtype, device=device)
+            for key, t in one.items() if key in PAGED_CACHE_LEAVES}
+
+
 def init_stage_slot_caches(
     cfg: ArchConfig, stage_idx: int, num_slots: int, max_len: int, device="cuda"
 ):
@@ -223,22 +298,16 @@ def init_stage_slot_caches(
     vector, so a decode batch can gather any subset of slots."""
     validate_slot_layout(cfg, stage_idx, max_len)
     n = cfg.stage_periods()[stage_idx - 1]
-    dims = cfg.attn_dims()
-    shape = (n, num_slots, max_len, dims.num_kv_heads, dims.head_dim)
     return tuple(
-        {
-            "k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
-            "v": torch.zeros(shape, dtype=torch.bfloat16, device=device),
-            "pos": torch.zeros((n, num_slots), dtype=torch.int32, device=device),
-        }
+        dict(_block_cache(cfg, n, num_slots, max_len, device),
+             pos=torch.zeros((n, num_slots), dtype=torch.int32, device=device))
         for _ in cfg.period
     )
 
 
 # cache leaves with a ``max_len`` sequence dimension: the only ones the paged
-# layout moves into the block pool (``pos`` stays slot-indexed).  The
-# reference adds MLA's ``c_kv``/``k_pe``, which are not ported yet.
-PAGED_CACHE_LEAVES = ("k", "v")
+# layout moves into the block pool (``pos`` stays slot-indexed)
+PAGED_CACHE_LEAVES = ("k", "v", "c_kv", "k_pe")
 
 
 def init_stage_paged_caches(
@@ -252,20 +321,16 @@ def init_stage_paged_caches(
 ):
     """Zeroed PAGED caches for one stage's replica: ``(pool, state)``.
 
-    ``pool`` holds ``k``/``v`` as physical block pools ``[n_periods,
-    num_blocks, block_size, kv, hd]`` addressed through per-request block
-    tables; ``state`` keeps ``pos`` per slot, ``[n_periods, num_slots]``, as
-    the dense layout does.  Both counts INCLUDE their trailing trash row
-    (padded batch rows write there).
+    ``pool`` holds the sequence leaves (``k``/``v``, or MLA's ``c_kv``/
+    ``k_pe``) as physical block pools ``[n_periods, num_blocks, block_size,
+    ...]`` addressed through per-request block tables; ``state`` keeps
+    ``pos`` per slot, ``[n_periods, num_slots]``, as the dense layout does.
+    Both counts INCLUDE their trailing trash row (padded batch rows write
+    there).
     """
     validate_slot_layout(cfg, stage_idx, max_len)
     n = cfg.stage_periods()[stage_idx - 1]
-    dims = cfg.attn_dims()
-    shape = (n, num_blocks, block_size, dims.num_kv_heads, dims.head_dim)
-    pool = tuple(
-        {key: torch.zeros(shape, dtype=torch.bfloat16, device=device) for key in PAGED_CACHE_LEAVES}
-        for _ in cfg.period
-    )
+    pool = tuple(_block_cache(cfg, n, num_blocks, block_size, device) for _ in cfg.period)
     state = tuple(
         {"pos": torch.zeros((n, num_slots), dtype=torch.int32, device=device)} for _ in cfg.period
     )

@@ -13,8 +13,8 @@ store tensors:
     the batch's slots, run the ragged cached decode (per-row positions,
     flash-decode kernel), scatter the rows back;
   * ``paged_slot_write`` / ``paged_stage_decode`` / ``block_copy`` — the
-    same for the paged layout, whose K/V live in a pool of blocks reached
-    through per-request block tables.
+    same for the paged layout, whose sequence leaves (K/V, or MLA's latent
+    rows) live in a pool of blocks reached through per-request block tables.
 """
 from __future__ import annotations
 
@@ -89,9 +89,9 @@ def paged_slot_write(pool_stage, state_stage, new_caches, wtab: torch.Tensor,
     ``wtab`` is int64 [B, n_logical], each row's WRITE table: the pool block
     per logical block, with prefix-shared blocks (already filled and read by
     other rows) and blocks past the prompt sent to the trash block; padded
-    rows are all trash.  The ``k``/``v`` rows are cut into blocks and
-    scattered through ``wtab``; ``pos`` scatters at ``slots`` as in the
-    dense layout.  Only the trash block repeats in ``wtab``, and which
+    rows are all trash.  Every pool leaf's rows (``k``/``v``, or MLA's
+    ``c_kv``/``k_pe``) are cut into blocks and scattered through ``wtab``;
+    ``pos`` scatters at ``slots`` as in the dense layout.  Only the trash block repeats in ``wtab``, and which
     duplicate lands there does not matter: no row reads it.
     """
     flat = wtab.reshape(-1)  # [B * n_logical]

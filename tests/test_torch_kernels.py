@@ -196,7 +196,7 @@ def test_split_plan_tiles_the_row_and_depends_on_its_length_alone(length):
                for start, end in spans) or spans == [(0, 0)]
     assert len(spans) == max(1, -(-length // tdec.SPLIT_KEYS))
     for S in {max(length, 1), length + 1, 4 * length + 7}:
-        for G in tdec.GROUPS:
+        for G in range(1, tdec.MMA_G + 1):
             part_o, part_lse = tdec.split_scratch(2, S, 3, G, 32, "cpu")
             n = 1 if part_o is None else part_o.shape[2]
             assert n == len(tdec.split_bounds(S)) >= len(spans)
@@ -224,21 +224,64 @@ def test_split_size_is_a_multiple_of_the_walks_warp_tile():
 
 def test_every_group_fits_the_walks_tensor_core_rows():
     """The CUDA walk refuses a G above the M rows of its tensor-core tiles
-    (``MMA_G``): the wrappers take every G that fits them, those without a
-    power of two (3, 5, 6, 12) included, and no other."""
-    assert tdec.GROUPS == tuple(range(1, _walk_constant("MMA_G") + 1))
-    assert {3, 5, 6, 12} <= set(tdec.GROUPS)
+    (``MMA_G``): one launch takes every G that fits them, those without a
+    power of two (3, 5, 6, 12) included, and the wrappers cut a larger G
+    into chunks of ``MMA_G``."""
+    assert tdec.MMA_G == _walk_constant("MMA_G")
+    assert max(3, 5, 6, 12) <= tdec.MMA_G
+
+
+@pytest.mark.parametrize("G", [17, 24, 32])
+def test_split_groups_with_the_plain_launcher_matches_one_call(G):
+    """Above the walk's 16 rows the wrappers launch chunks of at most 16
+    query heads per KV head: driven by the plain version as its launcher,
+    the split gives the plain version on all heads at once, bit for bit,
+    and the JAX oracle's result at the bf16 tolerance; dense and paged."""
+    from repro.kernels import ref as jref
+
+    rng = np.random.default_rng(40 + G)
+    B, KVH, hd, S = 3, 2, 32, 40
+    q = torch.from_numpy(rng.standard_normal((B, KVH * G, hd)).astype(np.float32)).bfloat16()
+    k = torch.from_numpy(rng.standard_normal((B, S, KVH, hd)).astype(np.float32)).bfloat16()
+    v = torch.from_numpy(rng.standard_normal((B, S, KVH, hd)).astype(np.float32)).bfloat16()
+    lengths = torch.tensor([40, 17, 1], dtype=torch.int32)
+    chunks = []
+
+    def launch(qc):
+        chunks.append(qc.shape[1] // KVH)
+        assert qc.is_contiguous()
+        return ref.decode_attention_ref(qc, k, v, lengths)
+
+    got = tdec.split_groups(q, KVH, launch)
+    assert chunks == [16] * (G // 16) + ([G % 16] if G % 16 else [])
+    assert torch.equal(got, ref.decode_attention_ref(q, k, v, lengths))
+    want = jref.decode_attention_ref(jnp.asarray(q.float().numpy(), jnp.bfloat16),
+                                     jnp.asarray(k.float().numpy(), jnp.bfloat16),
+                                     jnp.asarray(v.float().numpy(), jnp.bfloat16),
+                                     jnp.asarray(lengths.numpy()))
+    np.testing.assert_allclose(_np(got), _np(want), atol=TOL["bfloat16"])
+    # the paged plain version through the same split: the rows' blocks of 4 in order
+    table = torch.arange(B * 10, dtype=torch.int32).reshape(B, 10)
+    k_pool, v_pool = (t.reshape(B * 10, 4, KVH, hd) for t in (k, v))
+    paged = tdec.split_groups(q, KVH, lambda qc: ref.paged_decode_attention_ref(
+        qc, k_pool, v_pool, table, lengths, seq_len=S))
+    assert torch.equal(paged, got)
+    # at G <= 16 the launcher gets the query itself, once
+    seen = []
+    q16 = q[:, : KVH * 16].contiguous()
+    tdec.split_groups(q16, KVH, lambda qc: seen.append(qc) or qc)
+    assert len(seen) == 1 and seen[0] is q16
 
 
 @pytest.mark.parametrize("arch", ["qwen2.5-32b", "internlm2-20b", "glm4-9b", "stablelm-1.6b"])
 def test_registry_attention_fits_the_decode_wrappers(arch):
     """The GQA configs of the JAX registry (G 5, 6, 16 and 1, all hd 128 or
-    64) are shapes both decode wrappers take."""
+    64) are shapes both decode wrappers take in one launch of the walk."""
     from repro.configs import get_config
 
     cfg = get_config(arch)
     assert cfg.num_heads % cfg.num_kv_heads == 0
-    assert cfg.num_heads // cfg.num_kv_heads in tdec.GROUPS
+    assert 1 <= cfg.num_heads // cfg.num_kv_heads <= tdec.MMA_G
     assert cfg.head_dim in tdec.HEAD_DIMS
 
 

@@ -15,7 +15,9 @@ element-wise to its plain version at bf16 2e-2 and f32 2e-5, and its gate is
 shown to reject three planted faults.  The decode walk (tensor cores, split
 over the sequence, one walk for every G) is held to the same gates at the
 warp tile's and the split's edges at every G, and its gate is shown to
-reject a dropped last split and a skipped combine at G 1 and 16.
+reject a dropped last split and a skipped combine at G 1 and 16.  Above 16
+query heads per KV head the wrappers launch the walk once per chunk of at
+most 16, held to the same gates at G 17, 24 and 32.
 """
 import math
 
@@ -113,10 +115,13 @@ def test_decode_attention_rejects_what_it_cannot_take(cuda):
     k = torch.zeros((1, 8, 2, 64), dtype=torch.bfloat16, device=cuda)
     one = torch.ones(1, dtype=torch.int32, device=cuda)
     assert tdec.decode_attention(q, k, k, one).shape == q.shape  # G = 3 is taken
-    for heads in (34, 64):  # G = 17, 32: past the walk's 16 rows
-        with pytest.raises(ValueError, match="G <= 16"):
-            tdec.decode_attention(torch.zeros((1, heads, 64), dtype=torch.bfloat16, device=cuda),
-                                  k, k, one)
+    for heads in (34, 64):  # G = 17, 32: past the walk's 16 rows, launched in chunks
+        qg = torch.zeros((1, heads, 64), dtype=torch.bfloat16, device=cuda)
+        assert tdec.decode_attention(qg, k, k, one).shape == qg.shape
+    with pytest.raises(ValueError, match="hd in"):
+        tdec.decode_attention(torch.zeros((1, 2, 80), dtype=torch.bfloat16, device=cuda),
+                              torch.zeros((1, 8, 2, 80), dtype=torch.bfloat16, device=cuda),
+                              torch.zeros((1, 8, 2, 80), dtype=torch.bfloat16, device=cuda), one)
     with pytest.raises(TypeError):
         tdec.decode_attention(q.float(), k.float(), k.float(),
                               torch.ones(1, dtype=torch.int32, device=cuda))
@@ -151,11 +156,13 @@ def _gathered(pool, table, seq_len):
 
 def _assert_paged_gates(q, k_pool, v_pool, table, lengths, seq_len):
     """Element-wise against the f32-score plain version on the gathered cache,
-    and bitwise against the dense kernel on it."""
+    and bitwise against the dense kernel on it; one launch per chunk of at
+    most 16 query heads per KV head."""
     n0 = tpaged.paged_decode_attention.launches
     got = tpaged.paged_decode_attention(q, k_pool, v_pool, table, lengths, seq_len=seq_len)
     torch.cuda.synchronize()
-    assert tpaged.paged_decode_attention.launches == n0 + 1
+    G = q.shape[1] // k_pool.shape[2]
+    assert tpaged.paged_decode_attention.launches == n0 + -(-G // tdec.MMA_G)
     kg, vg = _gathered(k_pool, table, seq_len), _gathered(v_pool, table, seq_len)
     ln = lengths.clamp(max=seq_len)
     torch.testing.assert_close(got.float(), ref.decode_attention_f32_scores_ref(q, kg, vg, ln).float(),
@@ -223,9 +230,8 @@ def test_paged_decode_attention_rejects_what_it_cannot_take(cuda):
     table = torch.zeros((1, 2), dtype=torch.int32, device=cuda)
     one = torch.ones(1, dtype=torch.int32, device=cuda)
     assert tpaged.paged_decode_attention(q, pool, pool, table, one).shape == q.shape  # G = 3
-    with pytest.raises(ValueError, match="G <= 16"):  # G = 17
-        tpaged.paged_decode_attention(torch.zeros((1, 34, 64), dtype=torch.bfloat16, device=cuda),
-                                      pool, pool, table, one)
+    qg = torch.zeros((1, 34, 64), dtype=torch.bfloat16, device=cuda)  # G = 17, in two chunks
+    assert tpaged.paged_decode_attention(qg, pool, pool, table, one).shape == qg.shape
     with pytest.raises(TypeError):
         tpaged.paged_decode_attention(q[:, :4], pool, pool, table.long(), one)
 
@@ -255,7 +261,7 @@ def _assert_split_gates(got, q, k, v, lengths):
                                rtol=0, atol=2e-2)
 
 
-@pytest.mark.parametrize("G", tdec.GROUPS)
+@pytest.mark.parametrize("G", range(1, tdec.MMA_G + 1))
 @pytest.mark.parametrize("hd", [32, 64, 128])
 def test_decode_attention_g16_split_edges_match_plain(cuda, hd, G):
     """Lengths 0, 1, either side of the 32-key warp tile and of the split
@@ -279,6 +285,27 @@ def test_paged_decode_attention_g16_bitwise_equal_to_dense(cuda, bs, G):
     case = _paged_case(gen, cuda, 2 * G, 2, 128, bs, lengths)
     got = _assert_paged_gates(*case, seq_len=max(lengths))
     assert torch.all(got[4] == 0)
+
+
+@pytest.mark.parametrize("G", [17, 24, 32])
+def test_decode_attention_above_16_heads_per_kv_head(cuda, G):
+    """G above the walk's 16 rows: one launch per chunk of at most 16 query
+    heads per KV head, held to the split gates, each chunk bitwise the
+    kernel on that chunk's heads alone; paged bitwise dense at bs 16, 3, 1."""
+    gen = torch.Generator(device=cuda).manual_seed(23)
+    q, k, v, ln = _split_case(gen, cuda, EDGE_LENGTHS, 4096, 128, G)
+    n0 = tdec.decode_attention.launches
+    got = tdec.decode_attention(q, k, v, ln)
+    torch.cuda.synchronize()
+    assert tdec.decode_attention.launches == n0 + -(-G // 16)
+    _assert_split_gates(got, q, k, v, ln)
+    B = q.shape[0]
+    first = q.view(B, 2, G, 128)[:, :, :16].reshape(B, 32, 128).contiguous()
+    assert torch.equal(tdec.decode_attention(first, k, v, ln),
+                       got.view(B, 2, G, 128)[:, :, :16].reshape(B, 32, 128))
+    lengths = [4096, 3000, SPLIT + 1, 1, 0, 700, SPLIT, 2049]
+    for bs in (16, 3, 1):
+        _assert_paged_gates(*_paged_case(gen, cuda, 2 * G, 2, 128, bs, lengths), seq_len=max(lengths))
 
 
 @pytest.mark.parametrize("G", [1, 16])

@@ -33,8 +33,11 @@ from repro_torch.models import model as tmodel
 from torch_port_common import F32_ATOL, as_np, assert_bf16_close, bridged_params
 
 S, B, MAX_LEN = 10, 3, 16
-# stablelm-1.6b reduced: MHA, hd 32, LayerNorm; glm4-9b reduced: G 2, hd 32, RMSNorm
-ARCHS = ("stablelm-1.6b", "glm4-9b")
+# reduced: stablelm-1.6b MHA, hd 32, LayerNorm; glm4-9b G 2, hd 32, RMSNorm;
+# internlm2-20b and qwen2.5-32b 4 query heads over 4 KV heads (qwen with
+# QKV bias); deepseek-v2-lite-16b MLA attention and an MoE FFN of 8 experts
+GQA_ARCHS = ("stablelm-1.6b", "glm4-9b", "internlm2-20b", "qwen2.5-32b")
+ARCHS = GQA_ARCHS + ("deepseek-v2-lite-16b",)
 
 
 @pytest.fixture
@@ -46,6 +49,16 @@ def op_by_op():
 @pytest.fixture(scope="module", params=ARCHS)
 def bridged(request):
     return bridged_params(0, request.param)
+
+
+@pytest.fixture(scope="module", params=GQA_ARCHS)
+def gqa_bridged(request):
+    return bridged_params(0, request.param)
+
+
+def _seq_leaf(caches) -> str:
+    """The first sequence leaf of a stage's caches: ``k``, or MLA's ``c_kv``."""
+    return "k" if "k" in caches[0] else "c_kv"
 
 
 def _block(tree, i=0):
@@ -73,19 +86,74 @@ def test_config_matches_reference(reduced, arch):
     if reduced:
         jcfg, tcfg = jcfg.reduced(vocab_size=128), tcfg.reduced(vocab_size=128)
     for f in dataclasses.fields(tcfg):
-        if f.name != "dtype":
+        if f.name in ("moe", "mla"):  # the port's own dims classes
+            want, got = getattr(jcfg, f.name), getattr(tcfg, f.name)
+            assert (got is None) == (want is None), f.name
+            if got is not None:
+                assert dataclasses.asdict(got) == dataclasses.asdict(want), f.name
+        elif f.name != "dtype":
             assert getattr(tcfg, f.name) == getattr(jcfg, f.name), f.name
     assert tcfg.dtype == torch.bfloat16
     assert tcfg.stage_periods() == jcfg.stage_periods()
+    assert tcfg.uses_attention == jcfg.uses_attention
     assert dataclasses.asdict(tcfg.attn_dims()) == dataclasses.asdict(jcfg.attn_dims())
+    if reduced:  # the reference counts through jax.eval_shape; cheap only when reduced
+        for active in (False, True):
+            assert tcfg.param_count(active_only=active) == jcfg.param_count(active_only=active)
 
 
-def test_unported_kinds_raise():
+@pytest.mark.parametrize("arch,lo,hi", [
+    ("deepseek-v2-lite-16b", 15.5e9, 16.5e9),
+    ("internlm2-20b", 19e9, 21e9),
+    ("qwen2.5-32b", 31e9, 34e9),
+])
+def test_param_counts_match_claimed_scale(arch, lo, hi):
+    """The port's analogue of ``tests/test_models_smoke.py``'s scale check,
+    counted on the meta device (nothing allocated)."""
+    n = tconfigs.get_config(arch).param_count()
+    assert lo <= n <= hi, n
+    if arch.startswith("deepseek"):  # MoE: 6 of 64 routed experts active per token
+        assert 2e9 <= tconfigs.get_config(arch).param_count(active_only=True) <= 3e9
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_stage_profiles_match_reference(arch):
+    """Per-stage parameter counts (MoE stages charged their active
+    parameters, MLA its latent projections) and the DTO-EE profile built
+    from them, at full width, equal the reference's."""
+    from repro.configs import get_config
+    from repro.core import profiles as jprofiles
+
+    from repro_torch.core import profiles as tprofiles
+
+    jcfg, tcfg = get_config(arch), tconfigs.get_config(arch)
+    assert tprofiles.stage_param_counts(tcfg) == jprofiles.stage_param_counts(jcfg)
+    assert (dataclasses.asdict(tprofiles.profile_from_arch(tcfg))
+            == dataclasses.asdict(jprofiles.profile_from_arch(jcfg)))
+
+
+@pytest.mark.parametrize("change", [
+    {"period": ("mamba",)},
+    {"period": ("mlstm", "slstm")},
+    {"period": ("dense_attn",)},
+    {"sliding_window": 64},
+    {"ffn": "mlp"},
+    {"frontend": "embeds"},
+], ids=lambda c: "-".join(f"{k}={v}" for k, v in c.items()))
+def test_unported_kinds_raise(change):
+    """The kinds and options the port does not run yet raise, naming what
+    is missing; an unknown kind is a ValueError as in the reference."""
     cfg = tconfigs.get_config("stablelm-1.6b")
     with pytest.raises(NotImplementedError):
-        dataclasses.replace(cfg, period=("mamba",))
-    with pytest.raises(NotImplementedError):
-        dataclasses.replace(cfg, sliding_window=64)
+        dataclasses.replace(cfg, **change)
+
+
+def test_unknown_kind_and_moe_without_dims_raise():
+    cfg = tconfigs.get_config("stablelm-1.6b")
+    with pytest.raises(ValueError, match="unknown block kind"):
+        dataclasses.replace(cfg, period=("conv",))
+    with pytest.raises(ValueError, match="moe dims"):
+        dataclasses.replace(cfg, period=("moe_attn",))
 
 
 def test_init_params_tree_matches_reference(bridged):
@@ -155,12 +223,14 @@ def test_rope_matches(dtype):
 
 
 def test_silu_glu_embed_matmul_match(bridged):
+    """The GLU FFN (an MoE block's shared experts under deepseek)."""
     jparams, tparams, _, _ = bridged
     rng = np.random.default_rng(2)
     jx, tx = _x(rng, (3, 5, 128))
     assert_bf16_close(tlayers.silu(tx), jax.nn.silu(jx))
-    jffn = _block(jparams["stages"][0]["blocks"][0])["ffn"]
-    tffn = tmodel._period(tparams["stages"][0]["blocks"][0], 0)["ffn"]
+    jblk = _block(jparams["stages"][0]["blocks"][0])
+    tblk = tmodel._period(tparams["stages"][0]["blocks"][0], 0)
+    jffn, tffn = (blk["ffn"] if "ffn" in blk else blk["moe"]["shared"] for blk in (jblk, tblk))
     assert_bf16_close(tlayers.glu_ffn(tffn, tx), jlayers.glu_ffn(jffn, jx))
     assert_bf16_close(tlayers.matmul(tx, tffn["w_up"]), jlayers.matmul(jx, jffn["w_up"]))
     toks = rng.integers(0, 128, (2, 6)).astype(np.int32)
@@ -175,8 +245,8 @@ def test_silu_glu_embed_matmul_match(bridged):
 # ---------------------------------------------------------------------------
 
 
-def test_gqa_forward_matches(bridged):
-    jparams, tparams, jcfg, tcfg = bridged
+def test_gqa_forward_matches(gqa_bridged):
+    jparams, tparams, jcfg, tcfg = gqa_bridged
     rng = np.random.default_rng(3)
     jx, tx = _x(rng, (B, S, jcfg.d_model))
     jp = _block(jparams["stages"][0]["blocks"][0])["attn"]
@@ -189,8 +259,8 @@ def test_gqa_forward_matches(bridged):
     assert_bf16_close(tv, jv)
 
 
-def test_gqa_decode_ragged_and_scalar_match(bridged):
-    jparams, tparams, jcfg, tcfg = bridged
+def test_gqa_decode_ragged_and_scalar_match(gqa_bridged):
+    jparams, tparams, jcfg, tcfg = gqa_bridged
     rng = np.random.default_rng(4)
     dims_j, dims_t = jcfg.attn_dims(), tcfg.attn_dims()
     jp = _block(jparams["stages"][1]["blocks"][0])["attn"]
@@ -245,7 +315,8 @@ def test_prefill_and_ragged_decode_stage_match(bridged, op_by_op):
         jout, jcaches = jmodel.prefill_stage(jparams, stage, jx, jcfg, MAX_LEN)
         tout, tcaches = tmodel.prefill_stage(tparams, stage, tx, tcfg, MAX_LEN)
         assert_bf16_close(tout, jout)
-        assert_bf16_close(tcaches[0]["k"], jcaches[0]["k"])
+        leaf = _seq_leaf(tcaches)
+        assert_bf16_close(tcaches[0][leaf], jcaches[0][leaf])
         np.testing.assert_array_equal(tcaches[0]["pos"].numpy(), np.asarray(jcaches[0]["pos"]))
         # one ragged token against the prefilled caches, per-row positions
         jstep, tstep = _x(rng, (B, 1, jcfg.d_model))
@@ -256,7 +327,7 @@ def test_prefill_and_ragged_decode_stage_match(bridged, op_by_op):
         jy, jnew = jmodel.decode_stage_ragged(jparams, stage, jstep, jc, jcfg)
         ty, tnew = tmodel.decode_stage_ragged(tparams, stage, tstep, tc, tcfg)
         assert_bf16_close(ty, jy)
-        assert_bf16_close(tnew[0]["k"], jnew[0]["k"])
+        assert_bf16_close(tnew[0][leaf], jnew[0][leaf])
         np.testing.assert_array_equal(tnew[0]["pos"].numpy(), np.asarray(jnew[0]["pos"]))
 
 
@@ -291,4 +362,5 @@ def test_monolithic_prefill_and_decode_step_match(bridged, op_by_op):
         np.testing.assert_array_equal(tn.numpy(), np.asarray(jn))
         np.testing.assert_array_equal(ttok.numpy(), np.asarray(jtok))
         assert_bf16_close(tconf, jconf)
-        assert_bf16_close(tcaches[3][0]["k"], jcaches[3][0]["k"])
+        leaf = _seq_leaf(tcaches[3])
+        assert_bf16_close(tcaches[3][0][leaf], jcaches[3][0][leaf])
