@@ -17,14 +17,17 @@ exits non-zero without the final result line:
      3 and 1, at the serve's lengths and on the 4096-key cache; both also at
      G 32 and G 24 (64 and 48 query heads over 2 KV heads of 128), launched
      in chunks of at most 16 query heads per KV head, dense and paged at
-     block sizes 16, 3 and 1) plus edge cases; each gate must also reject
-     faults planted on the same inputs;
+     block sizes 16, 3 and 1); the exit head at all five LM heads (B 1, 8,
+     32 and 65, the last in two passes over w), with fewer vocab columns
+     than a unit per CTA and with a tie across a CTA boundary; plus edge cases;
+     each gate must also reject faults planted on the same inputs;
      the paged kernel is also held bit for bit to the dense kernel on the
      gathered cache;
   4. serve  — ``CollaborativeEngine.serve`` of 32 Poisson requests through
      full-width stablelm-1.6b (24 layers, random weights from a seed),
      cached decode, 16 tokens each; the launch counts of the exit, decode
-     and flash kernels over this run must be non-zero; then one full-width
+     and flash kernels over this run must be non-zero, and the exit kernel's
+     one per head call (every call at most 64 rows); then one full-width
      ``stage_decode`` with the kernels forced off and on, compared, and
      against the f32-score plain attention (six layers norm-wise, and each
      layer's attention output element-wise) and two planted faults; one
@@ -57,7 +60,8 @@ exits non-zero without the final result line:
      internlm2-20b (48 layers, d 6144, G 6) and qwen2.5-32b (64 layers, d
      5120, G 5, QKV bias; ~65.5 GB of bf16 weights) 8 requests of 8 tokens
      each.  Every model serves dense and then paged (block 16): every
-     request completes, each serve launches the kernels of its path (deepseek:
+     request completes, each serve launches the kernels of its path, the
+     exit kernel once per head call (deepseek:
      the exit head only, and neither decode kernel nor flash, since MLA has
      none in the reference either), and the paged serve's tokens and exits
      equal the dense serve's; a short deepseek serve runs under the
@@ -69,19 +73,21 @@ exits non-zero without the final result line:
   8. times  — each kernel at the serve's shapes (device time from the
      profiler, cold L2) beside its bound, its plain version and one library
      yardstick (none computes the paged function in one call; the exit head
-     and its yardstick timed in turns, medians of 4, also at the LM heads of
-     deepseek-v2-lite-16b, internlm2-20b and qwen2.5-32b); the flash kernel
-     also at glm4-9b's heads and at 2048-token prompts (at B 8 in turns with
-     SDPA, medians of 4, each reading with its launches' spread), both
+     and its yardstick timed in turns at every model's LM head, at B 1, 8
+     and 32, medians of 4, each beside its share of the bound); the flash
+     kernel also at glm4-9b's heads and at 2048-token prompts (at B 8 in
+     turns with SDPA, medians of 4, each reading with its launches'
+     spread), both
      decode kernels also at glm4-9b's shapes, on the 4096-key cache at
-     either's heads, and at G 5 and G 6 at the serve's lengths and on the
-     4096-key cache.
+     either's heads, and at G 5, 6, 24 and 32 at the serve's lengths and on
+     the 4096-key cache.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits 2.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -422,11 +428,11 @@ def main() -> None:
     check("exit_confidence gate rejects a dropped vocab tile", not ok,
           f"conf max|err| {err:.3g} (atol 1e-3 alone would {'pass' if err <= 1e-3 else 'reject'} "
           f"it), max rel err {rel:.3g} (rtol 1e-4)")
-    # the LM-head shapes of the three configs served after glm4-9b (at d
-    # 6144 a CTA stages 96 KiB of h): each held to the plain version at B 1
-    # and at a full batch, and each gate shown to reject the dropped tile.
-    # Drawn from a generator of their own, so every later phase's inputs
-    # stay what they were before these gates came.
+    # the LM-head shapes of the three configs served after glm4-9b: each
+    # held to the plain version at B 1 and at a full batch, and each gate
+    # shown to reject the dropped tile.  Drawn from a generator of their
+    # own, so every later phase's inputs stay what they were before these
+    # gates came.
     head_gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     for arch in ("deepseek-v2-lite-16b", "internlm2-20b", "qwen2.5-32b"):
         acfg = get_config(arch)
@@ -445,7 +451,61 @@ def main() -> None:
         check(f"exit_confidence gate rejects a dropped vocab tile at d={d_} V={V_}", not ok,
               f"conf max|err| {err:.3g}, max rel err {rel:.3g}")
         del h, w, c_f
-    h, w = head_inputs(13, 128, 2056)  # vocab not a multiple of the 256-column tile, two row blocks
+    # glm4-9b's head (d 4096, V 151552) at B 1 and 8 with the dropped-tile
+    # fault, and every LM head at B 32 (one pass over w, N 32) and 65 (two
+    # passes: 64 rows, then 1), from the same generator after the gates
+    # above, so that their inputs stay as they were
+    head_shapes = {arch: (get_config(arch).d_model, get_config(arch).vocab_size)
+                   for arch in ("stablelm-1.6b", "glm4-9b", "deepseek-v2-lite-16b", "internlm2-20b",
+                                "qwen2.5-32b")}
+    for arch, (d_, V_) in head_shapes.items():
+        for B in ((1, BATCH, 32, 65) if arch == "glm4-9b" else (32, 65)):
+            h, w = head_inputs(B, d_, V_, head_gen)
+            n0 = kexit.exit_confidence.launches
+            c, i = kexit.exit_confidence(h, w)
+            passes = kexit.exit_confidence.launches - n0
+            cr, ir = ref.exit_confidence_ref(h, w)
+            ok, err, rel = conf_close(c, cr)
+            check(f"exit_confidence {arch}'s head B={B} d={d_} V={V_}",
+                  ok and torch.equal(i, ir) and passes == -(-B // kexit.MAX_ROWS),
+                  f"{passes} launches; conf max|err| {err:.3g} (atol 1e-3), max rel err {rel:.3g} "
+                  f"(rtol 1e-4), argmax equal {torch.equal(i, ir)}")
+            max_err["exit_confidence"] = max(max_err["exit_confidence"], err)
+        if arch == "glm4-9b":
+            c_f, _ = kexit.exit_confidence(h, w[:, : V_ - 256].contiguous())
+            ok, err, rel = conf_close(c_f, cr)
+            check(f"exit_confidence gate rejects a dropped vocab tile at d={d_} V={V_}", not ok,
+                  f"conf max|err| {err:.3g}, max rel err {rel:.3g}")
+            del c_f
+        del h, w
+    # fewer vocab columns than a 64-column unit per CTA (most CTAs' ranges
+    # empty), and a tie across a CTA boundary: equal top logits at the last
+    # column of one CTA's range, the first of the next and the first of the
+    # last range
+    for V_ in (120, 136):
+        h, w = head_inputs(5, 64, V_, head_gen)
+        c, i = kexit.exit_confidence(h, w)
+        cr, ir = ref.exit_confidence_ref(h, w)
+        ok, err, rel = conf_close(c, cr)
+        n_ctas = kexit.grid_ctas(V_, kexit._ctas(dev))
+        check(f"exit_confidence V={V_} < {kexit.UNIT} x {n_ctas} CTAs", ok and torch.equal(i, ir),
+              f"conf max|err| {err:.3g}, max rel err {rel:.3g}, argmax equal {torch.equal(i, ir)}")
+    ranges = [(lo, hi) for lo, hi in kexit.vocab_ranges(V, kexit.grid_ctas(V, kexit._ctas(dev)))
+              if hi > lo]
+    a_col, b_col = ranges[4][1] - 1, ranges[5][0]
+    ht = torch.randn((5, 256), generator=head_gen, device=dev)
+    wt = torch.randn((256, V), generator=head_gen, device=dev) * 0.01
+    col = 4.0 * ht.sum(0) / ht.sum(0).norm()
+    for c_ in (b_col, a_col, ranges[-1][0]):
+        wt[:, c_] = col
+    c, it = kexit.exit_confidence(ht.bfloat16(), wt.bfloat16())
+    cr, ir = ref.exit_confidence_ref(ht.bfloat16(), wt.bfloat16())
+    ok, err, rel = conf_close(c, cr)
+    check(f"exit_confidence tie across the CTA boundary at column {b_col} (V={V})",
+          bool(torch.all(it == a_col)) and torch.equal(it, ir) and ok,
+          f"argmax {it.tolist()} (want {a_col}); conf max|err| {err:.3g}, max rel err {rel:.3g}")
+    del ht, wt
+    h, w = head_inputs(13, 128, 2056)  # vocab not a multiple of the 256-column tile
     c, i = kexit.exit_confidence(h, w)
     cr, ir = ref.exit_confidence_ref(h, w)
     ok, err, rel = conf_close(c, cr)
@@ -835,12 +895,37 @@ def main() -> None:
                 "paged_decode_attention": kpaged.paged_decode_attention.launches,
                 "flash_attention": kflash.flash_attention.launches}
 
+    @contextlib.contextmanager
+    def head_calls():
+        """The batch rows of every exit-head call on the model's path
+        (``ops.exit_confidence``) while active."""
+        rows, real = [], ops.exit_confidence
+
+        def counted(h_, w_):
+            rows.append(h_.shape[0])
+            return real(h_, w_)
+
+        ops.exit_confidence = counted
+        try:
+            yield rows
+        finally:
+            ops.exit_confidence = real
+
+    def check_head_passes(label, rows, n_launches):
+        """Every head call of a serve has at most 64 rows, so each is one
+        pass over w: one launch per call."""
+        check(f"{label}: one exit_confidence launch per head call (one pass over w)",
+              bool(rows) and max(rows) <= kexit.MAX_ROWS and n_launches == len(rows),
+              f"{n_launches} launches for {len(rows)} head calls of "
+              f"{min(rows, default=0)}..{max(rows, default=0)} rows")
+
     torch.cuda.reset_peak_memory_stats()
     engine.rng = np.random.default_rng(SEED)
     zero_counts()
     t0 = time.perf_counter()
-    stats = engine.serve(prompts, batch_size=BATCH, gen_len=GEN_LEN, decode_mode="cached")
-    torch.cuda.synchronize()
+    with head_calls() as serve_head_rows:
+        stats = engine.serve(prompts, batch_size=BATCH, gen_len=GEN_LEN, decode_mode="cached")
+        torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counts()
     s = stats.summary()
@@ -855,6 +940,7 @@ def main() -> None:
           and all(1 <= len(g) <= GEN_LEN for g in seqs), f"{len(seqs)} sequences")
     for name in ("exit_confidence", "decode_attention", "flash_attention"):
         check(f"{name} launched on the main path", launches[name] > 0, f"{launches[name]} launches")
+    check_head_passes("serve", serve_head_rows, launches["exit_confidence"])
     dense_seqs = stats.sequences_by_rid()
 
     # the same serve observed: a span tracer and a metrics collector on the
@@ -1398,9 +1484,10 @@ def main() -> None:
             m_engine.rng = np.random.default_rng(SEED)
             zero_counts()
             t0 = time.perf_counter()
-            m_stats = m_engine.serve(m_prompts, arrival_rate=1e4, batch_size=BATCH, gen_len=gen_len,
-                                     decode_mode="cached", **kw)
-            torch.cuda.synchronize()
+            with head_calls() as m_head_rows:
+                m_stats = m_engine.serve(m_prompts, arrival_rate=1e4, batch_size=BATCH,
+                                         gen_len=gen_len, decode_mode="cached", **kw)
+                torch.cuda.synchronize()
             m_wall = time.perf_counter() - t0
             m_counts = read_counts()
             m_sum = m_stats.summary()
@@ -1418,6 +1505,7 @@ def main() -> None:
             for name in zero_names:
                 check(f"{label} {layout} serve launched no {name}", m_counts[name] == 0,
                       f"{m_counts[name]} launches")
+            check_head_passes(f"{label} {layout} serve", m_head_rows, m_counts["exit_confidence"])
         diverged = [r for r, v in runs["paged"].items() if runs["dense"].get(r) != v]
         check(f"{label} paged serve tokens and exits equal the dense serve's",
               not diverged and len(runs["dense"]) == n_requests,
@@ -1428,6 +1516,7 @@ def main() -> None:
     g_engine, g_params, _ = serve_model(glm, GLM_REQUESTS, GLM_GEN,
                                      ("exit_confidence", "decode_attention", "flash_attention"),
                                      ("paged_decode_attention",))
+    heads["glm4-9b"] = g_params["lm_head"]
     del g_engine, g_params
     free("glm4-9b")
 
@@ -1517,12 +1606,13 @@ def main() -> None:
     flush = L2Flush(dev)
     kernels_out = []
 
-    def time_head(w_lm):
-        """The exit head at B 8 on one model's LM head: the kernel and its
-        library yardstick in turns (kernel, library, library, kernel, twice;
-        the medians of 4 readings each), the plain version, the bound."""
+    def time_head(w_lm, B):
+        """The exit head at B rows on one model's LM head: the kernel and its
+        library yardstick in turns (kernel, library, library, kernel,
+        twice; the medians of 4 readings each), the bound, and at B 8 the
+        plain version."""
         d_, V_ = w_lm.shape
-        h = torch.randn((BATCH, d_), generator=gen, device=dev).bfloat16()
+        h = torch.randn((B, d_), generator=gen, device=dev).bfloat16()
 
         def library_head():
             logits = torch.matmul(h, w_lm).float()
@@ -1537,34 +1627,38 @@ def main() -> None:
                             ("library", library_head), ("kernel", kernel_head)):
                 head_ms[tag].append(time_cold(fn, 50, flush))
         t_k, t_l = (float(np.median(head_ms[tag])) for tag in ("kernel", "library"))
-        t_p = time_cold(lambda: ref.exit_confidence_ref(h, w_lm), 10, flush)
-        bytes_ = d_ * V_ * 2 + BATCH * d_ * 2 + BATCH * 8
-        flops = 2 * BATCH * d_ * V_
+        t_p = time_cold(lambda: ref.exit_confidence_ref(h, w_lm), 10, flush) if B == BATCH else None
+        bytes_ = d_ * V_ * 2 + B * d_ * 2 + B * 8
+        flops = 2 * B * d_ * V_
         b_bytes, b_ops = bytes_ / HBM_BW * 1e3, flops / PEAK_FLOPS_BF16 * 1e3
-        print(f"exit_confidence B={BATCH} d={d_} V={V_}: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
-              f"library (bf16 matmul + max/logsumexp/argmax) {t_l:.4f} ms, bound {max(b_bytes, b_ops):.4f} "
-              f"ms ({'bytes' if b_bytes >= b_ops else 'operations'}: {bytes_ / 1e6:.1f} MB, "
-              f"{flops / 1e9:.2f} GFLOP); kernel at {max(b_bytes, b_ops) / t_k:.0%} of the bound")
+        bound = max(b_bytes, b_ops)
+        plain = f", plain {t_p:.4f} ms" if t_p is not None else ""
+        print(f"exit_confidence B={B} d={d_} V={V_}: kernel {t_k:.4f} ms at {bound / t_k:.1%} of the "
+              f"bound, library (bf16 matmul + max/logsumexp/argmax) {t_l:.4f} ms at {bound / t_l:.1%} "
+              f"(kernel / library {t_k / t_l:.3f}){plain}, bound {bound:.4f} ms "
+              f"({'bytes' if b_bytes >= b_ops else 'operations'}: {bytes_ / 1e6:.1f} MB, "
+              f"{flops / 1e9:.2f} GFLOP)")
         print("  in turns, ms: " + "; ".join(
             f"{tag} {' '.join(f'{t:.5f}' for t in ts)} (median {np.median(ts):.5f}, spread "
             f"{max(ts) - min(ts):.5f})" for tag, ts in head_ms.items()), flush=True)
-        return t_k, t_p, t_l, max(b_bytes, b_ops), "bytes" if b_bytes >= b_ops else "operations", h
+        return t_k, t_p, t_l, bound, "bytes" if b_bytes >= b_ops else "operations"
 
-    t_k, t_p, t_l, bound, bound_by, h = time_head(heads["stablelm-1.6b"])
-    h1 = h[:1].contiguous()
-    t_k1 = time_cold(lambda: kexit.exit_confidence(h1, heads["stablelm-1.6b"]), 50, flush)
-    print(f"exit_confidence B=1: kernel {t_k1:.4f} ms")
-    kernels_out.append({
-        "name": "exit_confidence", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/exit_confidence.cu",
-        "replaces": "src/repro/kernels/exit_confidence.py:111",
-        "launches": launches["exit_confidence"], "max_abs_err": max_err["exit_confidence"],
-        "ms": t_k, "plain_ms": t_p, "bound_ms": bound, "bound_by": bound_by, "library_ms": t_l,
-    })
-    # the exit head at the LM heads of the three configs this slice added
-    for arch in ("deepseek-v2-lite-16b", "internlm2-20b", "qwen2.5-32b"):
+    # every LM head at B 1, 8 and 32, medians of 4 in turns
+    for arch in ("stablelm-1.6b", "glm4-9b", "deepseek-v2-lite-16b", "internlm2-20b", "qwen2.5-32b"):
         print(f"{arch}'s LM head:")
-        time_head(heads.pop(arch))
+        w_lm = heads.pop(arch)
+        for B in (1, BATCH, 32):
+            t_k, t_p, t_l, bound, bound_by = time_head(w_lm, B)
+            if arch == "stablelm-1.6b" and B == BATCH:
+                kernels_out.append({
+                    "name": "exit_confidence", "route": "cuda",
+                    "source": "src/repro_torch/kernels/csrc/exit_confidence.cu",
+                    "replaces": "src/repro/kernels/exit_confidence.py:111",
+                    "launches": launches["exit_confidence"], "max_abs_err": max_err["exit_confidence"],
+                    "ms": t_k, "plain_ms": t_p, "bound_ms": bound, "bound_by": bound_by,
+                    "library_ms": t_l,
+                })
+        del w_lm
 
     q, k, v, ln = dec_inputs(BATCH, max_len, Hq, KVH, hd, dec_lengths)
     kt, vt = k.transpose(1, 2), v.transpose(1, 2)  # [B, KVH, S, hd] views
@@ -1636,9 +1730,10 @@ def main() -> None:
         "bound_by": "bytes" if b_bytes >= b_ops else "operations", "library_ms": None,
     })
 
-    # both decode kernels at G 5 and G 6 (hd 128), at the serve's lengths and
-    # on the long cache
-    for name, (hq, kvh, hd_) in GQA_HEADS.items():
+    # both decode kernels at G 5 and G 6 (hd 128), and at G 24 and G 32 (in
+    # chunks of 16 heads per KV head), at the serve's lengths and on the long
+    # cache
+    for name, (hq, kvh, hd_) in {**GQA_HEADS, **WIDE_HEADS}.items():
         for label, S, lengths in gqa_lengths:
             q, k, v, ln = dec_inputs(BATCH, S, hq, kvh, hd_, lengths)
             args = paged_inputs(BATCH, hq, kvh, hd_, BLOCK, lengths, -(-S // BLOCK))

@@ -2,9 +2,14 @@
 
 The counterpart of ``repro.kernels.exit_confidence``.  On a CUDA tensor the
 wrapper launches the hand-written kernel in ``csrc/exit_confidence.cu``
-(vocab tiles across CTAs, a per-tile (max, sum-exp, argmax) partial, an
-in-order combine); on a CPU tensor it runs the plain version in ``ref``.
-There is no other path: a CUDA tensor the kernel cannot take raises.
+(tensor cores, a TMA ring, at most one CTA per SM over a contiguous vocab
+range, one (max, sum-exp, argmax) partial per (row, CTA), an in-order
+combine), one pass over w per 64 batch rows; on a CPU tensor it runs the
+plain version in ``ref``.  There is no other path: a CUDA tensor the kernel
+cannot take raises.  ``grid_ctas``, ``vocab_ranges`` and ``batch_passes``
+are the kernel's split of the vocab and the batch, written out so that the
+CPU tests reach it (``ref.exit_confidence_split_ref`` runs the plain
+version over it).
 """
 from __future__ import annotations
 
@@ -14,15 +19,57 @@ import torch
 
 from repro_torch.kernels import build, ref
 
-_SMEM_LIMIT = 227 * 1024
-_ROWS = 8  # batch rows staged in shared memory per CTA (csrc ROWS)
+MAX_ROWS = 64  # batch rows per pass over w: wgmma's N at most
+# vocab columns per unit of the split: one 128-byte row of a TMA box, so
+# every box starts on a 128-byte boundary of w (at 16-byte offsets the loads
+# ran at 55-63% of the bound, against 78-90% aligned); the kernel's UNIT
+# (csrc/exit_confidence.cu)
+UNIT = 64
+
+_sm_count: dict[int, int] = {}
+
+
+def batch_passes(B: int) -> list[tuple[int, int]]:
+    """The batch rows ``[r0, r1)`` of each launch, in order, at most
+    ``MAX_ROWS`` each: one pass over w for every B <= 64."""
+    return [(r, min(B, r + MAX_ROWS)) for r in range(0, B, MAX_ROWS)]
+
+
+def vocab_ranges(V: int, n_ctas: int) -> list[tuple[int, int]]:
+    """CTA i's vocab columns ``[lo, hi)``: lo = min(V, floor(i * U /
+    n_ctas) * UNIT) with U = ceil(V / UNIT) units, as the kernel computes
+    them.  Contiguous, ascending, edges on units (the last at V), widths
+    within one unit of each other, empty only when U < n_ctas."""
+    units = -(-V // UNIT)
+    return [(min(V, i * units // n_ctas * UNIT), min(V, (i + 1) * units // n_ctas * UNIT))
+            for i in range(n_ctas)]
+
+
+def grid_ctas(V: int, n_sm: int) -> int:
+    """The persistent grid for a vocab of V on ``n_sm`` SMs: the fewest CTAs
+    that still leave each at most q = ceil(U / n_sm) of the U units (the
+    slowest CTA's work is that of a full grid), but not below 90% of the
+    SMs.  Fewer CTAs then sit idle while the last units are read: at
+    deepseek-v2-lite-16b's V 102400 (1600 units, q 13) 132 CTAs leave 16 of
+    them a 13th unit and 116 slots idle, 124 CTAs leave 12."""
+    units = -(-V // UNIT)
+    q = -(-units // n_sm)
+    return max(-(-9 * n_sm // 10), -(-units // q))
+
+
+def _ctas(dev: torch.device) -> int:
+    """The SM count of ``dev``: one persistent CTA per SM."""
+    i = dev.index if dev.index is not None else torch.cuda.current_device()
+    if i not in _sm_count:
+        _sm_count[i] = torch.cuda.get_device_properties(i).multi_processor_count
+    return _sm_count[i]
 
 
 def _lib():
     lib = build.load("exit_confidence")
     fn = lib.exit_confidence_bf16
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -41,28 +88,37 @@ def exit_confidence(h: torch.Tensor, w: torch.Tensor) -> tuple[torch.Tensor, tor
         raise ValueError("exit_confidence: h and w must be contiguous")
     B, d = h.shape
     V = w.shape[1]
-    if B < 1 or V < 1:
-        raise ValueError("exit_confidence: empty batch or vocab")
-    if V % 8 != 0 or w.data_ptr() % 16 != 0:  # the kernel reads w in 16-byte rows of 8
+    if B < 1 or V < 1 or d < 1:
+        raise ValueError("exit_confidence: empty batch, width or vocab")
+    # TMA reads w in rows of V elements: a row stride of 16-byte multiples
+    # from a 16-byte aligned base
+    if V % 8 != 0 or w.data_ptr() % 16 != 0:
         raise ValueError(f"exit_confidence kernel needs V % 8 == 0 and a 16-byte aligned w, "
                          f"got V={V} at offset {w.data_ptr() % 16}")
-    if d * _ROWS * 2 > _SMEM_LIMIT:
-        raise ValueError(f"exit_confidence: d={d} exceeds the kernel's shared-memory stage")
+    if d % 8 != 0 or h.data_ptr() % 16 != 0:
+        # the same rule for h's rows: a zero-padded aligned copy (B x d,
+        # small beside w); the padded columns meet w's zero fill past d
+        hp = torch.zeros((B, -(-d // 8) * 8), dtype=h.dtype, device=h.device)
+        hp[:, :d] = h
+        h = hp
     fn = _lib()
-    nt = -(-V // 256)
-    part_m = torch.empty((B, nt), dtype=torch.float32, device=h.device)
-    part_l = torch.empty((B, nt), dtype=torch.float32, device=h.device)
-    part_i = torch.empty((B, nt), dtype=torch.int32, device=h.device)
-    conf = torch.empty((B,), dtype=torch.float32, device=h.device)
-    idx = torch.empty((B,), dtype=torch.int32, device=h.device)
+    n = grid_ctas(V, _ctas(h.device))
+    # the partials m, l, argmax [B, n] each, then conf and idx [B], in one
+    # allocation of 4-byte words (the serve is host-bound: one allocation,
+    # the partials by address)
+    buf = torch.empty(3 * B * n + 2 * B, dtype=torch.float32, device=h.device)
+    conf = buf[3 * B * n: 3 * B * n + B]
+    idx = buf[3 * B * n + B:].view(torch.int32)
+    base, part_bytes = buf.data_ptr(), 4 * B * n
     stream = torch.cuda.current_stream(h.device).cuda_stream
-    err = fn(
-        h.data_ptr(), w.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
-        part_i.data_ptr(), conf.data_ptr(), idx.data_ptr(), B, d, V, stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"exit_confidence kernel launch failed: cudaError {err}")
-    exit_confidence.launches += 1
+    for r0, r1 in batch_passes(B):
+        err = fn(
+            h.data_ptr(), w.data_ptr(), base, base + part_bytes, base + 2 * part_bytes,
+            conf.data_ptr(), idx.data_ptr(), B, d, h.shape[1], V, r0, r1 - r0, n, stream,
+        )
+        if err != 0:
+            raise RuntimeError(f"exit_confidence kernel launch failed: cudaError {err}")
+        exit_confidence.launches += 1
     return conf, idx
 
 

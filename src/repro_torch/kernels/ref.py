@@ -129,3 +129,29 @@ def exit_confidence_ref(h: torch.Tensor, w: torch.Tensor) -> tuple[torch.Tensor,
     conf = 1.0 / l
     idx = torch.argmax(logits, dim=-1).to(torch.int32)
     return conf, idx
+
+
+def exit_confidence_split_ref(h: torch.Tensor, w: torch.Tensor,
+                              ranges: list[tuple[int, int]]) -> tuple[torch.Tensor, torch.Tensor]:
+    """The exit head as the CUDA kernel splits it: one (max, sum-exp, first
+    argmax) partial per vocab range (``exit_confidence.vocab_ranges``; an
+    empty range gives m = -1e30, l = 0, idx 0), combined in range order, a
+    later range taking the argmax only when its max is strictly greater.
+    The logits are ``exit_confidence_ref``'s; only the order of the sums
+    differs."""
+    logits = torch.matmul(h.float(), w.to(h.dtype).float())
+    B = logits.shape[0]
+    m = torch.full((B,), NEG_INF, dtype=torch.float32, device=logits.device)
+    l = torch.zeros((B,), dtype=torch.float32, device=logits.device)
+    idx = torch.zeros((B,), dtype=torch.int32, device=logits.device)
+    for lo, hi in ranges:
+        if hi <= lo:
+            continue  # the empty partial changes nothing
+        part = logits[:, lo:hi]
+        pm, parg = torch.max(part, dim=-1)  # the first index on ties
+        pl = torch.sum(torch.exp(part - pm[:, None]), dim=-1)
+        mn = torch.maximum(m, pm)
+        l = l * torch.exp(m - mn) + pl * torch.exp(pm - mn)
+        idx = torch.where(pm > m, parg.to(torch.int32) + lo, idx)
+        m = mn
+    return 1.0 / torch.where(l > 0, l, 1.0), idx

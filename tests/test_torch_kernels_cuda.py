@@ -17,7 +17,10 @@ over the sequence, one walk for every G) is held to the same gates at the
 warp tile's and the split's edges at every G, and its gate is shown to
 reject a dropped last split and a skipped combine at G 1 and 16.  Above 16
 query heads per KV head the wrappers launch the walk once per chunk of at
-most 16, held to the same gates at G 17, 24 and 32.
+most 16, held to the same gates at G 17, 24 and 32.  The exit head is held
+at the five LM heads of the registry, at B up to 65 (one pass over w per 64
+rows), at a d of 16384 and one not a multiple of 8, with fewer vocab
+columns than its CTAs' unit, and with a tie across a CTA boundary.
 """
 import math
 
@@ -366,12 +369,20 @@ def _assert_conf_close(conf, cref):
     torch.testing.assert_close(conf, cref, rtol=1e-4, atol=0)
 
 
-# vocabs are multiples of 8 (the kernel's 16-byte loads), most not of the
-# 256-column tile
+# vocabs are multiples of 8 (TMA's 16-byte row rule), most not of the
+# 256-column tile; the five LM heads of the registry at B 1 and 8; B 16-65
+# at stablelm-1.6b's head (65: two passes over w); d 16384 and d 100 (not a
+# multiple of 8: an aligned, zero-padded copy of h); V 120 and 136, fewer
+# columns than a 64-column unit per CTA
+LM_HEADS = [(2048, 100352), (4096, 151552), (2048, 102400), (6144, 92544), (5120, 152064)]
+
+
 @pytest.mark.parametrize(
     "B,d,V",
-    [(1, 2048, 100352), (8, 2048, 100352), (4, 64, 1000), (3, 32, 520), (5, 16, 136),
-     (13, 128, 2048), (6, 16, 120)],
+    [(B, d, V) for d, V in LM_HEADS for B in (1, 8)]
+    + [(B, 2048, 100352) for B in (16, 32, 64, 65)]
+    + [(4, 64, 1000), (3, 32, 520), (5, 16, 136), (13, 128, 2048), (6, 16, 120),
+       (3, 16384, 1024), (5, 100, 2056)],
 )
 def test_exit_confidence_matches_plain(cuda, B, d, V):
     gen = torch.Generator(device=cuda).manual_seed(2)
@@ -379,7 +390,7 @@ def test_exit_confidence_matches_plain(cuda, B, d, V):
     n0 = texit.exit_confidence.launches
     conf, idx = texit.exit_confidence(h, w)
     torch.cuda.synchronize()
-    assert texit.exit_confidence.launches == n0 + 1
+    assert texit.exit_confidence.launches == n0 + -(-B // texit.MAX_ROWS)
     cref, iref = ref.exit_confidence_ref(h, w)
     _assert_conf_close(conf, cref)
     assert torch.equal(idx, iref)
@@ -417,6 +428,25 @@ def test_exit_confidence_tie_takes_first_index(cuda):
     assert torch.all(idx == 40)
     _, iref = ref.exit_confidence_ref(h.bfloat16(), w.bfloat16())
     assert torch.equal(idx, iref)
+
+
+def test_exit_confidence_tie_across_a_cta_boundary(cuda):
+    """Equal top logits at the last column of one CTA's vocab range, the
+    first of the next and one in the last range: the first wins."""
+    V = 100352
+    ranges = texit.vocab_ranges(V, texit.grid_ctas(V, texit._ctas(cuda)))
+    a, b = ranges[4][1] - 1, ranges[5][0]
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    h = torch.randn((5, 256), generator=gen, device=cuda)
+    w = torch.randn((256, V), generator=gen, device=cuda) * 0.01
+    col = 4.0 * h.sum(0) / h.sum(0).norm()
+    for c in (b, a, ranges[-1][0]):
+        w[:, c] = col
+    conf, idx = texit.exit_confidence(h.bfloat16(), w.bfloat16())
+    assert torch.all(idx == a)
+    cref, iref = ref.exit_confidence_ref(h.bfloat16(), w.bfloat16())
+    assert torch.equal(idx, iref)
+    _assert_conf_close(conf, cref)
 
 
 def test_exit_confidence_padded_rows_do_not_leak(cuda):
