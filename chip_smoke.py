@@ -20,6 +20,13 @@ exits non-zero without the final result line:
      block sizes 16, 3 and 1); the exit head at all five LM heads (B 1, 8,
      32 and 65, the last in two passes over w), with fewer vocab columns
      than a unit per CTA and with a tie across a CTA boundary; plus edge cases;
+     zamba2-2.7b's attention at head dim 80 (32 query heads over 32 KV
+     heads) in all three attention kernels: decode dense and paged (bs 16
+     and 1) at the zamba2 serve's lengths and on the 4096-key cache, flash
+     at a prefill batch of B 8, S 104 and at a 2048-token prompt (with the
+     f64 check); the exit head at zamba2-2.7b's (d 2560, V 32000) and
+     xlstm-350m's (d 1024, V 50304) LM heads at B 1, 8 and 32 (these from
+     a generator of their own, so every earlier gate keeps its inputs);
      each gate must also reject faults planted on the same inputs;
      the paged kernel is also held bit for bit to the dense kernel on the
      gathered cache;
@@ -70,6 +77,14 @@ exits non-zero without the final result line:
      (prefill B 2, S 16, then one ragged decode token) runs on the card and on
      the CPU with the same weights, norm-wise within 2^-7 and with the
      routers' top-6 choices agreeing on >= 99% of (token, choice) pairs;
+     then full-width zamba2-2.7b (54 layers: 9 periods of five Mamba2 blocks
+     and a dense attention block; the attention kernels at hd 80) and
+     xlstm-350m (24 layers of mLSTM and sLSTM blocks, no attention: the exit
+     head's kernel only, neither decode kernel nor flash), 16 requests of 8
+     tokens each, dense and paged, a short serve of each profiled, and one
+     full-width period of each one's recurrent blocks (zamba2's first Mamba2
+     block; xlstm's mLSTM and sLSTM blocks) on the card and on the CPU with
+     the same weights, norm-wise within 2^-7;
   8. times  — each kernel at the serve's shapes (device time from the
      profiler, cold L2) beside its bound, its plain version and one library
      yardstick (none computes the paged function in one call; the exit head
@@ -80,7 +95,11 @@ exits non-zero without the final result line:
      spread), both
      decode kernels also at glm4-9b's shapes, on the 4096-key cache at
      either's heads, and at G 5, 6, 24 and 32 at the serve's lengths and on
-     the 4096-key cache.
+     the 4096-key cache; the exit head also at zamba2-2.7b's and
+     xlstm-350m's LM heads; all three attention kernels at zamba2-2.7b's
+     heads (hd 80): both decode kernels at its serve's lengths and on the
+     4096-key cache, flash at its prefill batch (in turns with SDPA) and at
+     a 2048-token prompt.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits 2.
@@ -126,10 +145,19 @@ GQA_HEADS = {"qwen2.5-32b": (40, 8, 128), "internlm2-20b": (48, 8, 128)}
 # heads per KV head
 WIDE_HEADS = {"G 32": (64, 2, 128), "G 24": (48, 2, 128)}
 CTRL_REQUESTS, CTRL_GEN = 16, 8  # the control-loop serves
+SSM_REQUESTS, SSM_GEN = 16, 8  # the zamba2-2.7b and xlstm-350m serves
+# flash_attention at zamba2-2.7b's heads (hd 80): (label, B, S, Hq, KVH, hd)
+ZAMBA_FLASH = (
+    ("zamba2-2.7b's prefill batch", 8, 104, 32, 32, 80),
+    ("one 2048-token prompt at zamba2-2.7b's heads", 1, 2048, 32, 32, 80),
+)
+
+
+_START = time.perf_counter()
 
 
 def phase(name: str) -> None:
-    print(f"== {name}", flush=True)
+    print(f"== {name} (at {time.perf_counter() - _START:.1f} s)", flush=True)
 
 
 def nvidia_smi() -> str:
@@ -305,10 +333,11 @@ def profiled_serve(engine, prompts, label: str, gen_len: int = 4):
     """A short serve of ``prompts`` under ``torch.profiler`` (the profiler's
     own overhead is inside its wall time, so the busy share is a lower
     bound): prints its wall, the device's busy share and the eight kernels
-    with the most device time; returns ([(kernel, device us)], busy us)."""
+    with the most device time; returns ([(kernel, device us)], busy us).
+    Only the device is recorded: the host ops' events of a recurrent
+    model's serve take minutes to parse, and nothing here reads them."""
     engine.rng = np.random.default_rng(SEED)
-    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         engine.serve(prompts, batch_size=BATCH, gen_len=gen_len, decode_mode="cached")
         torch.cuda.synchronize()
@@ -367,9 +396,9 @@ def main() -> None:
     # -- 1. device ----------------------------------------------------------
     phase("device")
     smi = nvidia_smi()
-    kind = torch.cuda.get_device_name(0)
+    device_kind = torch.cuda.get_device_name(0)
     print(f"nvidia-smi: {smi}")
-    print(f"torch: {torch.__version__} cuda {torch.version.cuda} device {kind} "
+    print(f"torch: {torch.__version__} cuda {torch.version.cuda} device {device_kind} "
           f"count {torch.cuda.device_count()}", flush=True)
 
     # -- 2. build -----------------------------------------------------------
@@ -523,10 +552,10 @@ def main() -> None:
     check("exit_confidence padded rows", torch.equal(c8[:3], c3) and torch.equal(i8[:3], i3),
           "real rows unchanged by 5 zero rows")
 
-    def dec_inputs(B, S, hq, kvh, hd_, lengths):
-        q = torch.randn((B, hq, hd_), generator=gen, device=dev).bfloat16()
-        k = torch.randn((B, S, kvh, hd_), generator=gen, device=dev).bfloat16()
-        v = torch.randn((B, S, kvh, hd_), generator=gen, device=dev).bfloat16()
+    def dec_inputs(B, S, hq, kvh, hd_, lengths, g=gen):
+        q = torch.randn((B, hq, hd_), generator=g, device=dev).bfloat16()
+        k = torch.randn((B, S, kvh, hd_), generator=g, device=dev).bfloat16()
+        v = torch.randn((B, S, kvh, hd_), generator=g, device=dev).bfloat16()
         return q, k, v, torch.tensor(lengths, dtype=torch.int32, device=dev)
 
     dec_cases = [
@@ -573,16 +602,16 @@ def main() -> None:
 
     # paged decode attention: physical blocks shuffled, the columns past each
     # row's length at the trailing trash block
-    def paged_inputs(B, hq, kvh, hd_, bs, lengths, n_logical):
+    def paged_inputs(B, hq, kvh, hd_, bs, lengths, n_logical, g=gen):
         NB = B * n_logical + 1
-        perm = torch.randperm(NB - 1, generator=gen, device=dev).int()
+        perm = torch.randperm(NB - 1, generator=g, device=dev).int()
         table = torch.full((B, n_logical), NB - 1, dtype=torch.int32, device=dev)
         for b, n in enumerate(lengths):
             used = -(-n // bs)
             table[b, :used] = perm[b * n_logical : b * n_logical + used]
-        q = torch.randn((B, hq, hd_), generator=gen, device=dev).bfloat16()
-        kp = torch.randn((NB, bs, kvh, hd_), generator=gen, device=dev).bfloat16()
-        vp = torch.randn((NB, bs, kvh, hd_), generator=gen, device=dev).bfloat16()
+        q = torch.randn((B, hq, hd_), generator=g, device=dev).bfloat16()
+        kp = torch.randn((NB, bs, kvh, hd_), generator=g, device=dev).bfloat16()
+        vp = torch.randn((NB, bs, kvh, hd_), generator=g, device=dev).bfloat16()
         return q, kp, vp, table, torch.tensor(lengths, dtype=torch.int32, device=dev)
 
     def gathered(pool, table, seq_len):
@@ -639,159 +668,133 @@ def main() -> None:
           ok and bool(torch.all(o[0] == 0)), f"row 0 zeros {bool(torch.all(o[0] == 0))}; "
           f"max|diff| {err32:.3g} to the f32-score plain; bitwise to dense {bitwise}")
 
-    # both decode kernels at glm4-9b's shapes: 16 query heads over each of 2
-    # KV heads of 128 (two CTAs per KV head)
-    glm = get_config("glm4-9b")
-    g_hq, g_kvh, g_hd = glm.num_heads, glm.num_kv_heads, glm.head_dim
-    g_len = max(GLM_LENGTHS) + 8
-    q, k, v, ln = dec_inputs(BATCH, g_len, g_hq, g_kvh, g_hd, GLM_LENGTHS)
-    o = kdec.decode_attention(q, k, v, ln)
-    err = float((o.float() - ref.decode_attention_ref(q, k, v, ln).float()).abs().max())
-    ok32, err32, _ = bf16_close(o, ref.decode_attention_f32_scores_ref(q, k, v, ln))
-    check(f"decode_attention glm4-9b G={g_hq // g_kvh} B={BATCH} S={g_len} Hq={g_hq} KVH={g_kvh} "
-          f"hd={g_hd}", err <= 2e-2 and ok32, f"max|err| {err:.3g} (tol 2e-2); against the "
-          f"f32-score plain version max|diff| {err32:.3g} (rtol 1.6e-2, atol 1e-2)")
-    n_log_g = -(-g_len // BLOCK)
-    args = paged_inputs(BATCH, g_hq, g_kvh, g_hd, BLOCK, GLM_LENGTHS, n_log_g)
-    o = kpaged.paged_decode_attention(*args, seq_len=g_len)
-    ok, err32, bitwise = paged_gate(o, *args, g_len)
-    err = float((o.float() - ref.paged_decode_attention_ref(*args, seq_len=g_len).float()).abs().max())
-    check(f"paged_decode_attention glm4-9b G={g_hq // g_kvh} bs={BLOCK} n_logical={n_log_g}",
-          ok and err <= 2e-2, f"against the f32-score plain version on the gathered cache "
-          f"max|diff| {err32:.3g}; bitwise equal to the dense kernel {bitwise}; against the plain "
-          f"version max|err| {err:.3g} (tol 2e-2)")
-
-    # both decode kernels on a long cache (S 4096), at glm4-9b's heads (G 16)
-    # and at stablelm-1.6b's (G 1): several splits of the walk per row, added
-    # by the combine; planted faults on the same inputs: the last split of
-    # every row dropped, and the combine skipped
+    # Both decode kernels at one model's heads (hq, kvh, hd): dense against
+    # the plain version (atol 2e-2) and element-wise at the bf16 tolerance
+    # against the f32-score plain version, in one launch per 16 query heads
+    # of a KV head; paged at each block size against the plain version and
+    # the f32-score plain version on the gathered cache, and bit for bit the
+    # dense kernel on it.  Each planted fault runs on the gate's inputs and
+    # must fall outside the bf16 tolerance: the dense ones as
+    # fn(q, k, v, lengths), the paged ones as fn(q, pool_k, pool_v, table,
+    # lengths, seq_len) at the first block size.
     split = kdec.SPLIT_KEYS
-    n_log_long = -(-LONG_S // BLOCK)
-    long_heads = {"glm4-9b": (g_hq, g_kvh, g_hd), "stablelm-1.6b": (Hq, KVH, hd)}
-    long_paged = {}
-    for name, (hq, kvh, hd_) in long_heads.items():
+
+    def skip_combine(q, k, v, ln):
+        out = torch.zeros_like(q)
+        kdec._launch(q, k, v, ln, out, combine=False)
+        return out
+
+    def skip_combine_paged(q, kp, vp, table, ln, S):
+        out = torch.zeros_like(q)
+        kpaged._launch(q, kp, vp, table, ln, out, S, combine=False)
+        return out
+
+    def first_chunk(q_all, kvh, run):
+        """Every chunk of 16 heads per KV head answered with the first
+        chunk's query heads (a wrong head offset per chunk)."""
+        B_, hq_, hd_ = q_all.shape
+        G = hq_ // kvh
+
+        def chunk(qc):
+            g = qc.shape[1] // kvh
+            return run(q_all.view(B_, kvh, G, hd_)[:, :, :g].reshape(B_, kvh * g, hd_).contiguous())
+
+        return kdec.split_groups(q_all, kvh, chunk)
+
+    def neighbour_block(q, kp, vp, table, ln, S):
+        wrong = table.clone()
+        wrong[0, 1] = (wrong[0, 1] + 1) % (kp.shape[0] - 1)
+        return kpaged.paged_decode_attention(q, kp, vp, wrong, ln, seq_len=S)
+
+    DROP_TOKEN = ("the current token dropped (lengths - 1)",
+                  lambda q, k, v, ln: kdec.decode_attention(q, k, v, ln - 1))
+    DROP_SPLIT = ("the last split of every row dropped",
+                  lambda q, k, v, ln: kdec.decode_attention(q, k, v, (ln - 1) // split * split))
+    SKIP_COMBINE = ("the combine over splits skipped", skip_combine)
+    FIRST_CHUNK = ("every chunk answered with the first chunk's heads",
+                   lambda q, k, v, ln: first_chunk(q, k.shape[2],
+                                                   lambda q0: kdec.decode_attention(q0, k, v, ln)))
+    NEIGHBOUR = ("row 0's second block read from its neighbour", neighbour_block)
+    SKIP_COMBINE_PAGED = ("the combine over splits skipped", skip_combine_paged)
+    FIRST_CHUNK_PAGED = ("every chunk answered with the first chunk's heads",
+                         lambda q, kp, vp, table, ln, S: first_chunk(
+                             q, kp.shape[2], lambda q0: kpaged.paged_decode_attention(
+                                 q0, kp, vp, table, ln, seq_len=S)))
+
+    def decode_gate(name, heads, S, lengths, g=gen, block_sizes=(BLOCK, 3, 1), dense_faults=(),
+                    paged_faults=()):
+        """Returns the max|err| to the plain versions: dense, and paged at
+        the first block size."""
+        hq, kvh, hd_ = heads
         G = hq // kvh
-        q, k, v, ln = dec_inputs(BATCH, LONG_S, hq, kvh, hd_, LONG_LENGTHS)
+        shape = f"G={G} B={BATCH} S={S} Hq={hq} KVH={kvh} hd={hd_} lengths {min(lengths)}..{max(lengths)}"
+        q, k, v, ln = dec_inputs(BATCH, S, hq, kvh, hd_, lengths, g)
+        n0 = kdec.decode_attention.launches
         o = kdec.decode_attention(q, k, v, ln)
+        chunks = kdec.decode_attention.launches - n0
         want32 = ref.decode_attention_f32_scores_ref(q, k, v, ln)
-        err = float((o.float() - ref.decode_attention_ref(q, k, v, ln).float()).abs().max())
+        errs = [float((o.float() - ref.decode_attention_ref(q, k, v, ln).float()).abs().max())]
         ok32, err32, _ = bf16_close(o, want32)
-        check(f"decode_attention {name} long cache G={G} B={BATCH} S={LONG_S} Hq={hq} KVH={kvh} "
-              f"hd={hd_} lengths {min(LONG_LENGTHS)}..{max(LONG_LENGTHS)} "
-              f"({len(kdec.split_bounds(min(LONG_LENGTHS)))}-{len(kdec.split_bounds(max(LONG_LENGTHS)))} "
-              f"splits of {split})", err <= 2e-2 and ok32,
-              f"max|err| {err:.3g} (tol 2e-2); against the f32-score plain version max|diff| {err32:.3g} "
-              f"(rtol 1.6e-2, atol 1e-2)")
-        skipped = torch.zeros_like(q)
-        kdec._launch(q, k, v, ln, skipped, combine=False)
-        for fault, out in (("the last split of every row dropped",
-                            kdec.decode_attention(q, k, v, (ln - 1) // split * split)),
-                           ("the combine over splits skipped", skipped)):
-            ok_f, err_f, out_f = bf16_close(out, want32)
-            check(f"decode_attention {name} long-cache gate rejects a planted fault: {fault}", not ok_f,
+        check(f"decode_attention {name} {shape}", errs[0] <= 2e-2 and ok32 and chunks == -(-G // kdec.MMA_G),
+              f"{chunks} launches; max|err| {errs[0]:.3g} (tol 2e-2); against the f32-score plain "
+              f"version max|diff| {err32:.3g} (rtol 1.6e-2, atol 1e-2)")
+        for fault, run in dense_faults:
+            ok_f, err_f, out_f = bf16_close(run(q, k, v, ln), want32)
+            check(f"decode_attention {name} gate rejects a planted fault: {fault}", not ok_f,
                   f"max|diff| {err_f:.3g}, {out_f:.2%} of elements outside")
-        del q, k, v
-        long_paged[name] = paged_inputs(BATCH, hq, kvh, hd_, BLOCK, LONG_LENGTHS, n_log_long)
-        o = kpaged.paged_decode_attention(*long_paged[name], seq_len=LONG_S)
-        ok, err32, bitwise = paged_gate(o, *long_paged[name], LONG_S)
-        check(f"paged_decode_attention {name} long cache G={G} bs={BLOCK} n_logical={n_log_long}", ok,
-              f"against the f32-score plain version on the gathered cache max|diff| {err32:.3g}; "
-              f"bitwise equal to the dense kernel {bitwise}")
-        q, kp, vp, table, ln = long_paged[name]
-        skipped = torch.zeros_like(q)
-        kpaged._launch(q, kp, vp, table, ln, skipped, LONG_S, combine=False)
-        want32 = ref.decode_attention_f32_scores_ref(q, gathered(kp, table, LONG_S),
-                                                     gathered(vp, table, LONG_S), ln)
-        ok_f, err_f, out_f = bf16_close(skipped, want32)
-        check(f"paged_decode_attention {name} long-cache gate rejects a planted fault: the combine "
-              f"over splits skipped", not ok_f, f"max|diff| {err_f:.3g}, {out_f:.2%} of elements outside")
+        del q, k, v, o, want32
+        for bs in block_sizes:
+            args = paged_inputs(BATCH, hq, kvh, hd_, bs, lengths, -(-S // bs), g)
+            o = kpaged.paged_decode_attention(*args, seq_len=S)
+            ok, err32, bitwise = paged_gate(o, *args, S)
+            err = float((o.float() - ref.paged_decode_attention_ref(*args, seq_len=S).float()).abs().max())
+            check(f"paged_decode_attention {name} {shape} bs={bs}", ok and err <= 2e-2,
+                  f"against the f32-score plain version on the gathered cache max|diff| {err32:.3g}; "
+                  f"bitwise equal to the dense kernel {bitwise}; against the plain version max|err| "
+                  f"{err:.3g} (tol 2e-2)")
+            if bs == block_sizes[0]:
+                errs.append(err)
+                q, kp, vp, table, ln = args
+                for fault, run in paged_faults:
+                    ok_f, err_f, out_f = bf16_close(run(*args, S), ref.decode_attention_f32_scores_ref(
+                        q, gathered(kp, table, S), gathered(vp, table, S), ln))
+                    check(f"paged_decode_attention {name} bs={bs} gate rejects a planted fault: {fault}",
+                          not ok_f, f"max|diff| {err_f:.3g}, {out_f:.2%} of elements outside")
+                del q, kp, vp, table, ln
+            del args, o
+        return errs
 
-    # both decode kernels at G 5 and G 6 (hd 128), at the serve's lengths and
-    # on the long cache: dense against the plain version (atol 2e-2) and the
-    # f32-score plain version (element-wise, bf16 tolerance); paged at bs 16,
-    # 3 and 1 against the f32-score plain version on the gathered cache and
-    # bit for bit against the dense kernel on it
+    # glm4-9b's shapes: 16 query heads over each of 2 KV heads of 128 (two
+    # CTAs per KV head)
+    glm = get_config("glm4-9b")
+    glm_heads = (glm.num_heads, glm.num_kv_heads, glm.head_dim)
+    g_len = max(GLM_LENGTHS) + 8
+    decode_gate("glm4-9b", glm_heads, g_len, GLM_LENGTHS, block_sizes=(BLOCK,))
+    # a long cache (S 4096), at glm4-9b's heads (G 16) and at
+    # stablelm-1.6b's (G 1): several 512-key splits of the walk per row,
+    # added by the combine
+    long_heads = {"glm4-9b": glm_heads, "stablelm-1.6b": (Hq, KVH, hd)}
+    for name, heads in long_heads.items():
+        decode_gate(f"{name} long cache", heads, LONG_S, LONG_LENGTHS, block_sizes=(BLOCK,),
+                    dense_faults=(DROP_SPLIT, SKIP_COMBINE), paged_faults=(SKIP_COMBINE_PAGED,))
+    # G 5 and G 6 (qwen2.5-32b's and internlm2-20b's heads, hd 128), and
+    # above 16 query heads per KV head (G 32 and 24, one launch per chunk of
+    # at most 16 heads), at the serve's lengths and on the long cache
     gqa_lengths = (("serve lengths", max_len, dec_lengths), ("long cache", LONG_S, LONG_LENGTHS))
-    for name, (hq, kvh, hd_) in GQA_HEADS.items():
-        G = hq // kvh
+    for name, heads in GQA_HEADS.items():
         for label, S, lengths in gqa_lengths:
-            q, k, v, ln = dec_inputs(BATCH, S, hq, kvh, hd_, lengths)
-            o = kdec.decode_attention(q, k, v, ln)
-            err = float((o.float() - ref.decode_attention_ref(q, k, v, ln).float()).abs().max())
-            ok32, err32, _ = bf16_close(o, ref.decode_attention_f32_scores_ref(q, k, v, ln))
-            check(f"decode_attention {name} G={G} {label} B={BATCH} S={S} Hq={hq} KVH={kvh} hd={hd_}",
-                  err <= 2e-2 and ok32, f"max|err| {err:.3g} (tol 2e-2); against the f32-score plain "
-                  f"version max|diff| {err32:.3g} (rtol 1.6e-2, atol 1e-2)")
-            del q, k, v
-            for bs in (BLOCK, 3, 1):
-                args = paged_inputs(BATCH, hq, kvh, hd_, bs, lengths, -(-S // bs))
-                o = kpaged.paged_decode_attention(*args, seq_len=S)
-                ok, err32, bitwise = paged_gate(o, *args, S)
-                check(f"paged_decode_attention {name} G={G} {label} bs={bs}", ok,
-                      f"against the f32-score plain version on the gathered cache max|diff| "
-                      f"{err32:.3g}; bitwise equal to the dense kernel {bitwise}")
-                del args
-
-    # both decode kernels above 16 query heads per KV head (G 32 and 24, hd
-    # 128): one launch per chunk of at most 16 heads.  Dense against the
-    # plain version (atol 2e-2) and the f32-score plain version
-    # (element-wise, bf16 tolerance); paged at bs 16, 3 and 1 the same on the
-    # gathered cache and bit for bit the dense kernel on it.  A planted fault
-    # on the same inputs, dense and paged: every chunk answered with the
-    # first chunk's query heads (a wrong head offset per chunk).
-    for name, (hq, kvh, hd_) in WIDE_HEADS.items():
-        G = hq // kvh
-        for label, S, lengths in (("serve lengths", max_len, dec_lengths),
-                                  ("long cache", LONG_S, LONG_LENGTHS)):
-            q, k, v, ln = dec_inputs(BATCH, S, hq, kvh, hd_, lengths)
-            n0 = kdec.decode_attention.launches
-            o = kdec.decode_attention(q, k, v, ln)
-            chunks = kdec.decode_attention.launches - n0
-            want32 = ref.decode_attention_f32_scores_ref(q, k, v, ln)
-            err = float((o.float() - ref.decode_attention_ref(q, k, v, ln).float()).abs().max())
-            ok32, err32, _ = bf16_close(o, want32)
-            check(f"decode_attention {name} {label} B={BATCH} S={S} Hq={hq} KVH={kvh} hd={hd_}",
-                  err <= 2e-2 and ok32 and chunks == -(-G // kdec.MMA_G),
-                  f"{chunks} launches; max|err| {err:.3g} (tol 2e-2); against the f32-score plain "
-                  f"version max|diff| {err32:.3g} (rtol 1.6e-2, atol 1e-2)")
-
-            def first_chunk(q_all, qc, run):
-                g = qc.shape[1] // kvh
-                q0 = q_all.view(BATCH, kvh, G, hd_)[:, :, :g].reshape(BATCH, kvh * g, hd_)
-                return run(q0.contiguous())
-
-            o_f = kdec.split_groups(q, kvh, lambda qc: first_chunk(
-                q, qc, lambda q0: kdec.decode_attention(q0, k, v, ln)))
-            ok_f, err_f, out_f = bf16_close(o_f, want32)
-            check(f"decode_attention {name} {label} gate rejects a planted fault: every chunk "
-                  f"answered with the first chunk's heads", not ok_f,
-                  f"max|diff| {err_f:.3g}, {out_f:.2%} of elements outside")
-            del k, v
-            for bs in (BLOCK, 3, 1):
-                args = paged_inputs(BATCH, hq, kvh, hd_, bs, lengths, -(-S // bs))
-                o = kpaged.paged_decode_attention(*args, seq_len=S)
-                ok, err32, bitwise = paged_gate(o, *args, S)
-                check(f"paged_decode_attention {name} {label} bs={bs}", ok,
-                      f"against the f32-score plain version on the gathered cache max|diff| "
-                      f"{err32:.3g}; bitwise equal to the dense kernel {bitwise}")
-                if bs == BLOCK:
-                    qp, kp, vp, table, lnp = args
-                    o_f = kdec.split_groups(qp, kvh, lambda qc: first_chunk(
-                        qp, qc, lambda q0: kpaged.paged_decode_attention(q0, kp, vp, table, lnp,
-                                                                     seq_len=S)))
-                    ok_f, err_f, out_f = bf16_close(o_f, ref.decode_attention_f32_scores_ref(
-                        qp, gathered(kp, table, S), gathered(vp, table, S), lnp))
-                    check(f"paged_decode_attention {name} {label} gate rejects a planted fault: every "
-                          f"chunk answered with the first chunk's heads", not ok_f,
-                          f"max|diff| {err_f:.3g}, {out_f:.2%} of elements outside")
-                del args
+            decode_gate(f"{name} {label}", heads, S, lengths)
+    for name, heads in WIDE_HEADS.items():
+        for label, S, lengths in gqa_lengths:
+            decode_gate(f"{name} {label}", heads, S, lengths, dense_faults=(FIRST_CHUNK,),
+                        paged_faults=(FIRST_CHUNK_PAGED,))
 
     # prefill flash attention: element-wise at tests/test_kernels.py's bf16
     # tolerance (atol 2e-2) against the plain version on the same inputs
-    def flash_inputs(B, Sq, Sk, hq, kvh, hd_):
-        return (torch.randn((B, Sq, hq, hd_), generator=gen, device=dev).bfloat16(),
-                torch.randn((B, Sk, kvh, hd_), generator=gen, device=dev).bfloat16(),
-                torch.randn((B, Sk, kvh, hd_), generator=gen, device=dev).bfloat16())
+    def flash_inputs(B, Sq, Sk, hq, kvh, hd_, g=gen):
+        return (torch.randn((B, Sq, hq, hd_), generator=g, device=dev).bfloat16(),
+                torch.randn((B, Sk, kvh, hd_), generator=g, device=dev).bfloat16(),
+                torch.randn((B, Sk, kvh, hd_), generator=g, device=dev).bfloat16())
 
     def flash_gate(out, want):
         """(within atol 2e-2, max|err|, share of elements outside)."""
@@ -822,22 +825,26 @@ def main() -> None:
         ("Sq = 1", (2, 1, 50, 8, 2, 32), True, None),
         ("S not a multiple of 64", (3, 77, 77, 8, 2, 32), True, None),
     ]
-    for label, shape, causal, window in flash_cases:
-        q, k, v = flash_inputs(*shape)
+    def flash_case(label, shape, causal=True, window=None, g=gen):
+        """The kernel against the plain version at atol 2e-2 and, since the
+        plain version rounds the scores to bf16 as the reference does and
+        the kernel keeps them in f32, no farther than it from the f64
+        answer.  Returns (q, k, v, the plain version's output, max|err|)."""
+        q, k, v = flash_inputs(*shape, g)
         o = kflash.flash_attention(q, k, v, causal=causal, window=window)
         want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
         ok, err, out_share = flash_gate(o, want)
         B, Sq, Sk, hq, kvh, hd_ = shape
         check(f"flash_attention {label} B={B} Sq={Sq} Sk={Sk} Hq={hq} KVH={kvh} hd={hd_}", ok,
               f"max|err| {err:.3g} (atol 2e-2), {out_share:.2%} of elements outside")
-        # the plain version rounds the scores to bf16, as the reference
-        # does; the kernel keeps them in f32.  Both against the f64 answer:
-        # the kernel may be no farther from it than the plain version.
         exact = flash_f64(q, k, v, causal, window)
         err_k, err_p = (float((x.double() - exact).abs().max()) for x in (o, want))
         check(f"flash_attention {label}: no farther from the f64 answer than the plain version",
               err_k <= err_p, f"max|kernel - f64| {err_k:.3g}, max|plain - f64| {err_p:.3g}")
-        del exact
+        return q, k, v, want, err
+
+    for label, shape, causal, window in flash_cases:
+        q, k, v, want, err = flash_case(label, shape, causal, window)
         if label == FLASH_SHAPES[0][0]:
             max_err["flash_attention"] = err
         if label == FLASH_SHAPES[1][0]:
@@ -864,6 +871,59 @@ def main() -> None:
                                                            v[:, :-128].contiguous()), want)
     check("flash_attention gate rejects a planted fault at 2048 tokens: the last key tile dropped",
           not ok, f"max|err| {err:.3g}, {out_share:.2%} of elements outside")
+
+    # zamba2-2.7b's attention at head dim 80 (32 query heads over 32 KV heads,
+    # G 1) in all three attention kernels, and the exit head at the LM heads
+    # of zamba2-2.7b and xlstm-350m: inputs from a generator of their own,
+    # so that every gate above and every later phase keeps its inputs.
+    # Decode at the zamba2 serve's lengths and on the 4096-key cache, dense
+    # and paged (bs 16 and 1, bit for bit the dense kernel on the gathered
+    # cache); flash at a full prefill batch and a 2048-token prompt, with the
+    # f64 check; each gate shown to reject a planted fault on its inputs.
+    zcfg, xcfg = get_config("zamba2-2.7b"), get_config("xlstm-350m")
+    z_hq, z_kvh, z_hd = zcfg.num_heads, zcfg.num_kv_heads, zcfg.head_dim
+    z_prompts = [tok for _, tok in poisson_requests(zcfg, rcfg, duration=60.0)][:SSM_REQUESTS]
+    z_max_len = max(map(len, z_prompts)) + SSM_GEN
+    z_lengths = [len(p) + SSM_GEN // 2 for p in z_prompts[:BATCH]]
+    z_decode = (("serve lengths", z_max_len, z_lengths), ("long cache", LONG_S, LONG_LENGTHS))
+    gen80 = torch.Generator(device=dev).manual_seed(SEED + 2)
+    z_heads = (z_hq, z_kvh, z_hd)
+    for label, S, lengths in z_decode:
+        faults = (((DROP_TOKEN,), (NEIGHBOUR,)) if label == "serve lengths" else
+                  ((DROP_SPLIT, SKIP_COMBINE), (SKIP_COMBINE_PAGED,)))
+        errs = decode_gate(f"zamba2-2.7b {label}", z_heads, S, lengths, gen80, (BLOCK, 1), *faults)
+        if label == "serve lengths":
+            max_err["decode_attention hd 80"], max_err["paged_decode_attention hd 80"] = errs
+    for n_shape, (label, B, S, hq, kvh, hd_) in enumerate(ZAMBA_FLASH):
+        q, k, v, want, err = flash_case(label, (B, S, S, hq, kvh, hd_), g=gen80)
+        if n_shape == 0:
+            max_err["flash_attention hd 80"] = err
+            fault, kf, vf = ("K/V shifted by one position", torch.roll(k, -1, dims=1),
+                             torch.roll(v, -1, dims=1))
+        else:
+            fault, kf, vf = ("the last key tile dropped", k[:, :-128].contiguous(),
+                             v[:, :-128].contiguous())
+        ok, err, out_share = flash_gate(kflash.flash_attention(q, kf, vf), want)
+        check(f"flash_attention hd={hd_} {label} gate rejects a planted fault: {fault}", not ok,
+              f"max|err| {err:.3g}, {out_share:.2%} of elements outside")
+        del q, k, v, kf, vf, want
+    for arch, acfg in (("zamba2-2.7b", zcfg), ("xlstm-350m", xcfg)):
+        d_, V_ = acfg.d_model, acfg.vocab_size
+        for B in (1, BATCH, 32):
+            h, w = head_inputs(B, d_, V_, gen80)
+            c, i = kexit.exit_confidence(h, w)
+            cr, ir = ref.exit_confidence_ref(h, w)
+            ok, err, rel = conf_close(c, cr)
+            check(f"exit_confidence {arch}'s head B={B} d={d_} V={V_} ({kexit.grid_ctas(V_, kexit._ctas(dev))} "
+                  f"CTAs over {-(-V_ // kexit.UNIT)} units)", ok and torch.equal(i, ir),
+                  f"conf max|err| {err:.3g} (atol 1e-3), max rel err {rel:.3g} (rtol 1e-4), argmax "
+                  f"equal {torch.equal(i, ir)}")
+            max_err[f"exit_confidence {arch}"] = max(max_err.get(f"exit_confidence {arch}", 0.0), err)
+        c_f, _ = kexit.exit_confidence(h, w[:, : V_ - 256].contiguous())
+        ok, err, rel = conf_close(c_f, cr)
+        check(f"exit_confidence gate rejects a dropped vocab tile at d={d_} V={V_}", not ok,
+              f"conf max|err| {err:.3g}, max rel err {rel:.3g}")
+        del h, w, c_f
 
     # -- 4. full-width serve -------------------------------------------------
     phase("full-width serve")
@@ -1444,12 +1504,15 @@ def main() -> None:
 
     free("stablelm-1.6b")
 
+    serve_counts = {}  # model -> layout -> the kernels' launches in that serve
+
     def serve_model(mcfg, n_requests: int, gen_len: int, dense_names, paged_names, zero_names=()):
         """Build ``mcfg`` at full width, serve ``n_requests`` Poisson prompts
         of ``gen_len`` tokens dense and then paged at full batches: every
         request completes, each of ``*_names`` launched in its serve, each
         of ``zero_names`` in neither, and paged == dense in tokens and exits.
-        Returns (engine, params, prompts)."""
+        Each serve's launches land in ``serve_counts``.  Returns (engine,
+        params, prompts)."""
         label = mcfg.name
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -1469,10 +1532,12 @@ def main() -> None:
             raise RuntimeError(f"request stream gave {len(m_prompts)} prompts")
         attn = (f"MLA {mcfg.mla.num_heads} heads (kv_lora {mcfg.mla.kv_lora_rank}, rope "
                 f"{mcfg.mla.qk_rope_head_dim})" if mcfg.mla is not None else
-                f"{mcfg.num_heads} query heads over {mcfg.num_kv_heads} KV heads of {mcfg.head_dim}")
+                f"{mcfg.num_heads} query heads over {mcfg.num_kv_heads} KV heads of {mcfg.head_dim}"
+                if mcfg.uses_attention else "no attention")
         ffn = (f"MoE {mcfg.moe.num_experts} experts top-{mcfg.moe.top_k} + {mcfg.moe.num_shared} "
                f"shared, expert d_ff {mcfg.moe.d_ff_expert}" if mcfg.moe is not None else f"d_ff {mcfg.d_ff}")
-        print(f"{label} full width: {mcfg.num_layers} layers, d {mcfg.d_model}, {attn}, {ffn}, vocab "
+        print(f"{label} full width: {mcfg.num_layers} layers (period {'/'.join(mcfg.period)}), d "
+              f"{mcfg.d_model}, {attn}, {ffn}, vocab "
               f"{mcfg.vocab_size}; {n / 1e9:.3f} B params ({n * 2 / 1e9:.1f} GB in bf16); set-up "
               f"{time.perf_counter() - t0:.1f} s, peak device memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; prompts {n_requests}, lengths "
@@ -1490,6 +1555,7 @@ def main() -> None:
                 torch.cuda.synchronize()
             m_wall = time.perf_counter() - t0
             m_counts = read_counts()
+            serve_counts.setdefault(label, {})[layout] = m_counts
             m_sum = m_stats.summary()
             runs[layout] = m_stats.sequences_by_rid()
             print(f"{label} {layout} serve: wall {m_wall:.3f} s; generated tokens "
@@ -1601,6 +1667,103 @@ def main() -> None:
         del m_engine, m_params
         free(arch)
 
+    # zamba2-2.7b (Mamba2 blocks and a dense attention block per period: the
+    # attention kernels at hd 80) and xlstm-350m (mLSTM and sLSTM blocks, no
+    # attention: the exit head's kernel only; the decode and flash kernels
+    # must not run), each served dense and paged, a short serve profiled,
+    # and one full-width period of its recurrent blocks on the card and on
+    # the CPU with the same weights (stage 1, period 0: zamba2's first Mamba2
+    # block, xlstm's mLSTM and sLSTM blocks): a prefill of B 2, S 16, then
+    # one ragged decode token, norm-wise at 2^-7 (two bf16 ulps; the two
+    # devices sum and round in other orders).
+    # - Block by block: each block gets the card's input to it on both
+    #   devices and decodes from a copy of the card's prefilled cache.
+    # - The period chained (xlstm): each device's mLSTM output and caches
+    #   feed its own sLSTM.  Its gap is held to a witness on the CPU alone:
+    #   the CPU's sLSTM fed the card's mLSTM outputs against itself fed its
+    #   own.  The two agree within 2^-7 when the chain's gap is the sLSTM's
+    #   response to the input gap; the same witness on the card is printed.
+    def block_run(kind, mcfg, p_, x_, xd_, cache=None):
+        """One block on p_'s device: the prefill, and one ragged decode
+        token from a copy of ``cache`` (a prefilled cache) or of its own
+        prefilled cache.  Returns (y, yd, its own prefilled cache)."""
+        d_ = p_["norm"]["scale"].device
+        pos = torch.arange(16, dtype=torch.int32, device=d_)
+        y, own = model_lib._block_apply(kind, p_, x_.to(d_), mcfg, pos, "prefill", 17)
+        c = {key: t.to(d_).clone() for key, t in (own if cache is None else cache).items()}
+        c["pos"] = torch.full((2,), 16, dtype=torch.int32, device=d_)
+        yd, _ = model_lib._block_decode(kind, p_, xd_.to(d_), c, mcfg, ragged=True)
+        return y, yd, own
+
+    def recurrent_period(mcfg, m_params, blocks):
+        """Block by block: [(kind, rel prefill, rel decode)], card vs CPU.
+        With two blocks or more, also the chained period: {"chain", "witness
+        cpu", "witness card": (rel prefill, rel decode)}."""
+        x0 = layer_inputs[mcfg.name]
+        p = {}
+        for j in blocks:
+            p_card = model_lib._period(m_params["stages"][0]["blocks"][j], 0)
+            p[j] = {"card": p_card, "cpu": model_lib.params_to(p_card, "cpu")}
+        rows, (x_, xd_) = [], x0
+        for j in blocks:
+            kind = mcfg.period[j]
+            y_c, yd_c, cache_c = block_run(kind, mcfg, p[j]["card"], x_, xd_)
+            y_h, yd_h, _ = block_run(kind, mcfg, p[j]["cpu"], x_, xd_, cache_c)
+            rows.append((kind, rel_norm(y_c.cpu(), y_h), rel_norm(yd_c.cpu(), yd_h)))
+            x_, xd_ = y_c, yd_c  # the card's outputs feed the next block on both devices
+        if len(blocks) < 2:
+            return rows, None
+        ins = {where: x0 for where in ("card", "cpu")}  # (y, yd) into the next block
+        for j in blocks[:-1]:
+            for where in ins:
+                ins[where] = block_run(mcfg.period[j], mcfg, p[j][where], *ins[where])[:2]
+        last, kind = blocks[-1], mcfg.period[blocks[-1]]
+        out = {f"{where} fed {fed}": block_run(kind, mcfg, p[last][where], *ins[fed])[:2]
+               for where, fed in (("card", "card"), ("cpu", "cpu"), ("cpu", "card"), ("card", "cpu"))}
+        own = {where: out[f"{where} fed {where}"] for where in ("card", "cpu")}
+
+        def gap(a, b):
+            return tuple(rel_norm(u.cpu(), w.cpu()) for u, w in zip(a, b))
+
+        return rows, {"input": gap(ins["card"], ins["cpu"]),
+                      "chain": gap(own["card"], own["cpu"]),
+                      "witness cpu": gap(out["cpu fed card"], own["cpu"]),
+                      "witness card": gap(own["card"], out["card fed cpu"])}
+
+    layer_inputs = {}
+    for arch, blocks in (("zamba2-2.7b", (0,)), ("xlstm-350m", (0, 1))):
+        phase(f"{arch} serve")
+        mcfg = get_config(arch)
+        if mcfg.uses_attention:
+            names = (("exit_confidence", "decode_attention", "flash_attention"),
+                     ("paged_decode_attention", "flash_attention"), ())
+        else:
+            names = (("exit_confidence",), ("exit_confidence",), gqa)
+        m_engine, m_params, m_prompts = serve_model(mcfg, SSM_REQUESTS, SSM_GEN, *names)
+        profiled_serve(m_engine, m_prompts[:BATCH], arch)
+        heads[arch] = m_params["lm_head"]
+        layer_inputs[arch] = (
+            torch.randn((2, 16, mcfg.d_model), generator=gen80, device=dev).bfloat16(),
+            torch.randn((2, 1, mcfg.d_model), generator=gen80, device=dev).bfloat16())
+        t0 = time.perf_counter()
+        rows, chained = recurrent_period(mcfg, m_params, blocks)
+        kinds = " + ".join(row[0] for row in rows)
+        check(f"{arch} one {kinds} period, card vs CPU, block by block (prefill B 2 S 16, one "
+              f"ragged decode token; {time.perf_counter() - t0:.1f} s)",
+              all(rp <= 2**-7 and rd <= 2**-7 for _, rp, rd in rows),
+              "; ".join(f"{bk}: norm-wise rel prefill {rp:.3g}, decode {rd:.3g}" for bk, rp, rd in rows)
+              + f" (tol 2^-7 = {2**-7:.3g})")
+        if chained is not None:
+            (cp, cd), (wp, wd) = chained["chain"], chained["witness cpu"]
+            check(f"{arch} one {kinds} period chained, card vs CPU, against the witness on the CPU "
+                  f"alone (its {rows[-1][0]} fed the card's {rows[-2][0]} outputs against fed its own)",
+                  abs(cp - wp) <= 2**-7 and abs(cd - wd) <= 2**-7,
+                  "; ".join(f"{label}: norm-wise rel prefill {gp:.3g}, decode {gd:.3g}"
+                            for label, (gp, gd) in chained.items())
+                  + f" (|chain - witness cpu| tol 2^-7 = {2**-7:.3g})")
+        del m_engine, m_params
+        free(arch)
+
     # -- 8. times -------------------------------------------------------------
     phase("times (device time from the profiler, cold L2, mean over launches)")
     flush = L2Flush(dev)
@@ -1643,18 +1806,28 @@ def main() -> None:
             f"{max(ts) - min(ts):.5f})" for tag, ts in head_ms.items()), flush=True)
         return t_k, t_p, t_l, bound, "bytes" if b_bytes >= b_ops else "operations"
 
-    # every LM head at B 1, 8 and 32, medians of 4 in turns
-    for arch in ("stablelm-1.6b", "glm4-9b", "deepseek-v2-lite-16b", "internlm2-20b", "qwen2.5-32b"):
+    # every LM head at B 1, 8 and 32, medians of 4 in turns.  The entries:
+    # stablelm-1.6b's head (launches in its serve), and the heads of
+    # zamba2-2.7b and xlstm-350m (launches in their dense serves)
+    head_entries = {"stablelm-1.6b": ("exit_confidence", launches["exit_confidence"],
+                                      max_err["exit_confidence"])}
+    for arch, tag in (("zamba2-2.7b", "zamba2"), ("xlstm-350m", "xlstm")):
+        head_entries[arch] = (f"exit_confidence_{tag}_head",
+                              serve_counts[arch]["dense"]["exit_confidence"],
+                              max_err[f"exit_confidence {arch}"])
+    for arch in ("stablelm-1.6b", "glm4-9b", "deepseek-v2-lite-16b", "internlm2-20b", "qwen2.5-32b",
+                 "zamba2-2.7b", "xlstm-350m"):
         print(f"{arch}'s LM head:")
         w_lm = heads.pop(arch)
         for B in (1, BATCH, 32):
             t_k, t_p, t_l, bound, bound_by = time_head(w_lm, B)
-            if arch == "stablelm-1.6b" and B == BATCH:
+            if arch in head_entries and B == BATCH:
+                name, n_launch, err = head_entries[arch]
                 kernels_out.append({
-                    "name": "exit_confidence", "route": "cuda",
+                    "name": name, "route": "cuda",
                     "source": "src/repro_torch/kernels/csrc/exit_confidence.cu",
                     "replaces": "src/repro/kernels/exit_confidence.py:111",
-                    "launches": launches["exit_confidence"], "max_abs_err": max_err["exit_confidence"],
+                    "launches": n_launch, "max_abs_err": err,
                     "ms": t_k, "plain_ms": t_p, "bound_ms": bound, "bound_by": bound_by,
                     "library_ms": t_l,
                 })
@@ -1730,92 +1903,93 @@ def main() -> None:
         "bound_by": "bytes" if b_bytes >= b_ops else "operations", "library_ms": None,
     })
 
-    # both decode kernels at G 5 and G 6 (hd 128), and at G 24 and G 32 (in
-    # chunks of 16 heads per KV head), at the serve's lengths and on the long
-    # cache
-    for name, (hq, kvh, hd_) in {**GQA_HEADS, **WIDE_HEADS}.items():
-        for label, S, lengths in gqa_lengths:
-            q, k, v, ln = dec_inputs(BATCH, S, hq, kvh, hd_, lengths)
-            args = paged_inputs(BATCH, hq, kvh, hd_, BLOCK, lengths, -(-S // BLOCK))
-            iters = 200 if S == max_len else 100
-            t_k = time_cold(lambda: kdec.decode_attention(q, k, v, ln), iters, flush)
-            t_pg = time_cold(lambda: kpaged.paged_decode_attention(*args, seq_len=S), iters, flush)
-            t_p = time_cold(lambda: ref.decode_attention_ref(q, k, v, ln), iters // 10, flush)
-            mask = (torch.arange(S, device=dev)[None, :] < ln[:, None])[:, None, None, :]
-            t_l = time_cold(lambda: F.scaled_dot_product_attention(
-                q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask,
-                enable_gqa=True), iters, flush)
-            tot = int(sum(lengths))
-            bytes_ = 2 * tot * kvh * hd_ * 2 + 2 * BATCH * hq * hd_ * 2 + BATCH * 4
-            flops = 4 * tot * hq * hd_
-            b_bytes, b_ops = bytes_ / HBM_BW * 1e3, flops / PEAK_FLOPS_BF16 * 1e3
-            print(f"{name} decode G={hq // kvh} {label} B={BATCH} S={S} Hq={hq} KVH={kvh} hd={hd_} "
-                  f"lengths {min(lengths)}..{max(lengths)}: decode_attention {t_k:.4f} ms, "
-                  f"paged_decode_attention (bs {BLOCK}) {t_pg:.4f} ms, plain {t_p:.4f} ms, library "
-                  f"(SDPA, length mask, GQA) {t_l:.4f} ms, bound {max(b_bytes, b_ops):.5f} ms "
-                  f"({'bytes' if b_bytes >= b_ops else 'operations'}: {bytes_ / 1e6:.2f} MB, "
-                  f"{flops / 1e6:.1f} MFLOP)", flush=True)
-            del q, k, v, args
-
-    # both decode kernels at glm4-9b's shapes (G 16, hd 128)
-    q, k, v, ln = dec_inputs(BATCH, g_len, g_hq, g_kvh, g_hd, GLM_LENGTHS)
-    t_k = time_cold(lambda: kdec.decode_attention(q, k, v, ln), 200, flush)
-    args = paged_inputs(BATCH, g_hq, g_kvh, g_hd, BLOCK, GLM_LENGTHS, n_log_g)
-    t_pg = time_cold(lambda: kpaged.paged_decode_attention(*args, seq_len=g_len), 200, flush)
-    t_p = time_cold(lambda: ref.decode_attention_ref(q, k, v, ln), 50, flush)
-    mask = (torch.arange(g_len, device=dev)[None, :] < ln[:, None])[:, None, None, :]
-    t_l = time_cold(lambda: F.scaled_dot_product_attention(
-        q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask, enable_gqa=True),
-        200, flush)
-    tot = int(sum(GLM_LENGTHS))
-    bytes_ = 2 * tot * g_kvh * g_hd * 2 + 2 * BATCH * g_hq * g_hd * 2 + BATCH * 4
-    flops = 4 * tot * g_hq * g_hd
-    b_bytes, b_ops = bytes_ / HBM_BW * 1e3, flops / PEAK_FLOPS_BF16 * 1e3
-    print(f"glm4-9b decode B={BATCH} S={g_len} Hq={g_hq} KVH={g_kvh} hd={g_hd} lengths {GLM_LENGTHS}: "
-          f"decode_attention {t_k:.4f} ms, paged_decode_attention (bs {BLOCK}) {t_pg:.4f} ms, plain "
-          f"{t_p:.4f} ms, library (SDPA, length mask, GQA) {t_l:.4f} ms, bound "
-          f"{max(b_bytes, b_ops):.5f} ms ({'bytes' if b_bytes >= b_ops else 'operations'}: "
-          f"{bytes_ / 1e6:.3f} MB, {flops / 1e6:.1f} MFLOP)")
-
-    # both decode kernels on the long cache (S 4096), at glm4-9b's heads and
-    # at stablelm-1.6b's
-    for name, (hq, kvh, hd_) in long_heads.items():
-        q, k, v, ln = dec_inputs(BATCH, LONG_S, hq, kvh, hd_, LONG_LENGTHS)
-        t_k = time_cold(lambda: kdec.decode_attention(q, k, v, ln), 100, flush)
-        t_pg = time_cold(lambda: kpaged.paged_decode_attention(*long_paged[name], seq_len=LONG_S),
-                         100, flush)
-        t_p = time_cold(lambda: ref.decode_attention_ref(q, k, v, ln), 10, flush)
-        mask = (torch.arange(LONG_S, device=dev)[None, :] < ln[:, None])[:, None, None, :]
-        t_l = time_cold(lambda: F.scaled_dot_product_attention(
+    def time_decode(name, heads, S, lengths, g=gen):
+        """Both decode kernels (paged at bs 16 on shuffled blocks), their
+        plain versions, SDPA (length mask, GQA) and the bounds at one
+        model's heads, printed; returns the numbers."""
+        hq, kvh, hd_ = heads
+        q, k, v, ln = dec_inputs(BATCH, S, hq, kvh, hd_, lengths, g)
+        args = paged_inputs(BATCH, hq, kvh, hd_, BLOCK, lengths, -(-S // BLOCK), g)
+        iters = 200 if S <= max(max_len, g_len, z_max_len) else 100
+        t = {"ms": time_cold(lambda: kdec.decode_attention(q, k, v, ln), iters, flush),
+             "paged_ms": time_cold(lambda: kpaged.paged_decode_attention(*args, seq_len=S), iters, flush),
+             "plain_ms": time_cold(lambda: ref.decode_attention_ref(q, k, v, ln), iters // 10, flush),
+             "paged_plain_ms": time_cold(lambda: ref.paged_decode_attention_ref(*args, seq_len=S),
+                                         iters // 10, flush)}
+        mask = (torch.arange(S, device=dev)[None, :] < ln[:, None])[:, None, None, :]
+        t["library_ms"] = time_cold(lambda: F.scaled_dot_product_attention(
             q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask, enable_gqa=True),
-            100, flush)
-        tot = int(sum(LONG_LENGTHS))
+            iters, flush)
+        tot = int(sum(lengths))
         bytes_ = 2 * tot * kvh * hd_ * 2 + 2 * BATCH * hq * hd_ * 2 + BATCH * 4
+        blocks_read = sum(-(-n // BLOCK) for n in lengths)
         flops = 4 * tot * hq * hd_
-        b_bytes, b_ops = bytes_ / HBM_BW * 1e3, flops / PEAK_FLOPS_BF16 * 1e3
-        print(f"{name} long-cache decode G={hq // kvh} B={BATCH} S={LONG_S} Hq={hq} KVH={kvh} hd={hd_} "
-              f"lengths {LONG_LENGTHS}: decode_attention {t_k:.4f} ms, paged_decode_attention (bs "
-              f"{BLOCK}) {t_pg:.4f} ms, plain {t_p:.4f} ms, library (SDPA, length mask, GQA) {t_l:.4f} "
-              f"ms, bound {max(b_bytes, b_ops):.5f} ms ({'bytes' if b_bytes >= b_ops else 'operations'}: "
-              f"{bytes_ / 1e6:.2f} MB, {flops / 1e6:.1f} MFLOP)")
-        del q, k, v
+        b_ops = flops / PEAK_FLOPS_BF16 * 1e3
+        for key, b_bytes in (("", bytes_ / HBM_BW * 1e3), ("paged_", (bytes_ + blocks_read * 4) / HBM_BW * 1e3)):
+            t[f"{key}bound_ms"] = max(b_bytes, b_ops)
+            t[f"{key}bound_by"] = "bytes" if b_bytes >= b_ops else "operations"
+        print(f"{name} decode G={hq // kvh} B={BATCH} S={S} Hq={hq} KVH={kvh} hd={hd_} lengths "
+              f"{min(lengths)}..{max(lengths)}: decode_attention {t['ms']:.4f} ms, paged_decode_attention "
+              f"(bs {BLOCK}) {t['paged_ms']:.4f} ms, plain {t['plain_ms']:.4f} ms (paged plain "
+              f"{t['paged_plain_ms']:.4f} ms), library (SDPA, length mask, GQA) {t['library_ms']:.4f} ms, "
+              f"bound {t['bound_ms']:.5f} ms ({t['bound_by']}: {bytes_ / 1e6:.3f} MB, {flops / 1e6:.1f} "
+              f"MFLOP; paged {t['paged_bound_ms']:.5f} ms with {blocks_read} table entries)", flush=True)
+        del q, k, v, args
+        return t
 
-    # prefill flash attention at every timed shape; the first is the entry.
-    # At the two B 8 shapes the kernel and SDPA are timed in turns (medians
-    # of 4), each reading printed with its launches' spread: one reading in
-    # a run has come out 2x off before.
-    for n_shape, (label, B, S, hq, kvh, hd_) in enumerate(FLASH_SHAPES):
-        q, k, v = flash_inputs(B, S, S, hq, kvh, hd_)
+    # both decode kernels at G 5 and G 6 (hd 128), at G 24 and G 32 (in
+    # chunks of 16 heads per KV head), at the serve's lengths and on the
+    # long cache; at glm4-9b's shapes (G 16, hd 128); on the long cache (S
+    # 4096) at glm4-9b's heads and at stablelm-1.6b's
+    for name, heads in {**GQA_HEADS, **WIDE_HEADS}.items():
+        for label, S, lengths in gqa_lengths:
+            time_decode(f"{name} {label}", heads, S, lengths)
+    time_decode("glm4-9b", glm_heads, g_len, GLM_LENGTHS)
+    for name, heads in long_heads.items():
+        time_decode(f"{name} long-cache", heads, LONG_S, LONG_LENGTHS)
+
+    # zamba2-2.7b's attention at hd 80: both decode kernels at the serve's
+    # lengths (the entries) and on the long cache.  Launches: the zamba2
+    # serves' (dense for decode and flash, paged for paged decode).
+    z_counts = serve_counts["zamba2-2.7b"]
+    for label, S, lengths in z_decode:
+        t = time_decode(f"zamba2-2.7b {label}", z_heads, S, lengths, gen80)
+        if label == "serve lengths":
+            kernels_out += [{
+                "name": "decode_attention_hd80", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+                "replaces": "src/repro/kernels/decode_attention.py:124",
+                "launches": z_counts["dense"]["decode_attention"],
+                "max_abs_err": max_err["decode_attention hd 80"], "ms": t["ms"],
+                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                "library_ms": t["library_ms"],
+            }, {
+                "name": "paged_decode_attention_hd80", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/paged_decode_attention.cu",
+                "replaces": "src/repro/kernels/paged_decode_attention.py:148",
+                "launches": z_counts["paged"]["paged_decode_attention"],
+                "max_abs_err": max_err["paged_decode_attention hd 80"], "ms": t["paged_ms"],
+                "plain_ms": t["paged_plain_ms"], "bound_ms": t["paged_bound_ms"],
+                "bound_by": t["paged_bound_by"], "library_ms": None,
+            }]
+
+    # prefill flash attention at every timed shape, stablelm's and glm4's
+    # heads, then zamba2's at hd 80; the first of each is its entry.  At the
+    # B 8 shapes the kernel and SDPA are timed in turns (medians of 4), each
+    # reading printed with its launches' spread: one reading in a run has
+    # come out 2x off before.
+    def time_flash(label, B, S, hq, kvh, hd_, g=gen):
+        q, k, v = flash_inputs(B, S, S, hq, kvh, hd_, g)
 
         def library_flash():
             return F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
                                                   v.transpose(1, 2), is_causal=True, enable_gqa=True)
 
-        lib_err = float((library_flash().transpose(1, 2).float()
-                         - ref.flash_attention_ref(q, k, v).float()).abs().max())
         def kernel_flash():
             return kflash.flash_attention(q, k, v)
 
+        lib_err = float((library_flash().transpose(1, 2).float()
+                         - ref.flash_attention_ref(q, k, v).float()).abs().max())
         turns = [("kernel", kernel_flash), ("library", library_flash)]
         if B == BATCH:
             turns = (turns + turns[::-1]) * 2
@@ -1828,27 +2002,35 @@ def main() -> None:
         bytes_ = 2 * q.numel() * 2 + 2 * k.numel() * 2  # q and out, k and v
         flops = 4 * B * hq * hd_ * (S * (S + 1) // 2)  # QK^T and PV over the causal triangle
         b_bytes, b_ops = bytes_ / HBM_BW * 1e3, flops / PEAK_FLOPS_BF16 * 1e3
+        by = "bytes" if b_bytes >= b_ops else "operations"
         print(f"flash_attention {label} B={B} S={S} Hq={hq} KVH={kvh} hd={hd_}: kernel {t_k:.4f} ms, "
               f"plain {t_p:.4f} ms, library (SDPA, is_causal, enable_gqa; max|diff| vs plain "
-              f"{lib_err:.3g}) {t_l:.4f} ms, bound {max(b_bytes, b_ops):.5f} ms "
-              f"({'bytes' if b_bytes >= b_ops else 'operations'}: {bytes_ / 1e6:.2f} MB, "
-              f"{flops / 1e9:.3f} GFLOP)")
+              f"{lib_err:.3g}) {t_l:.4f} ms, bound {max(b_bytes, b_ops):.5f} ms ({by}: "
+              f"{bytes_ / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)")
         for tag, rs in readings.items():
             for ms, summary in rs:
                 print(f"  {tag} {ms:.5f} ms: {summary}")
-        if n_shape == 0:
-            kernels_out.append({
-                "name": "flash_attention", "route": "cuda",
-                "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-                "replaces": "src/repro/kernels/flash_attention.py:172",
-                "launches": launches["flash_attention"], "max_abs_err": max_err["flash_attention"],
-                "ms": t_k, "plain_ms": t_p, "bound_ms": max(b_bytes, b_ops),
-                "bound_by": "bytes" if b_bytes >= b_ops else "operations", "library_ms": t_l,
-            })
+        del q, k, v
+        return {"ms": t_k, "plain_ms": t_p, "bound_ms": max(b_bytes, b_ops), "bound_by": by,
+                "library_ms": t_l}
+
+    for entry, shapes, g, n_launch, err_key in (
+            ("flash_attention", FLASH_SHAPES, gen, launches["flash_attention"], "flash_attention"),
+            ("flash_attention_hd80", ZAMBA_FLASH, gen80, z_counts["dense"]["flash_attention"],
+             "flash_attention hd 80")):
+        for n_shape, shape in enumerate(shapes):
+            t = time_flash(*shape, g)
+            if n_shape == 0:
+                kernels_out.append({
+                    "name": entry, "route": "cuda",
+                    "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+                    "replaces": "src/repro/kernels/flash_attention.py:172",
+                    "launches": n_launch, "max_abs_err": max_err[err_key], **t,
+                })
 
     print(f"nvidia-smi: {nvidia_smi()}")
     print(json.dumps({"kernels": kernels_out}))
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_kind,
                                              "count": torch.cuda.device_count()}}))
 
 

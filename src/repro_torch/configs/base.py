@@ -5,12 +5,14 @@ block kinds, partitioned into ``num_stages`` pipeline stages at period
 granularity, with early-exit heads after the stages named in
 ``exit_stages`` (1-indexed).
 
-The port runs attention blocks with a GLU FFN (``"attn"``) or a
-mixture-of-experts FFN (``"moe_attn"``), each with GQA or, where ``mla`` is
-set, DeepSeek's multi-head latent attention.  The other kinds (``mamba``,
-``mlstm``, ``slstm``, ``dense_attn``), sliding-window caches, the two-matmul
-MLP FFN and the embeds frontend arrive with their modules (ROADMAP queue 1,
-item 7), and this class rejects them until then.
+The port runs every block kind of the reference: attention blocks with a
+GLU FFN (``"attn"``, and zamba2's ``"dense_attn"``, which runs as ``"attn"``
+does) or a mixture-of-experts FFN (``"moe_attn"``), each with GQA or, where
+``mla`` is set, DeepSeek's multi-head latent attention; Mamba2 blocks
+(``"mamba"``, with ``mamba`` dims); and xLSTM's ``"mlstm"`` and ``"slstm"``
+blocks (with ``xlstm`` dims).  Sliding-window caches, the two-matmul MLP FFN
+and the embeds frontend arrive with their modules (ROADMAP queue 1, item 7),
+and this class rejects them until then.
 """
 from __future__ import annotations
 
@@ -22,10 +24,11 @@ import torch
 
 from repro_torch.models.attention import AttnDims, MlaDims
 from repro_torch.models.moe import MoeDims
+from repro_torch.models.ssm import MambaDims, XlstmDims
 
-BLOCK_KINDS = ("attn", "moe_attn")
-# kinds of the reference's ``BLOCK_KINDS`` the port does not run yet
-UNPORTED_KINDS = ("mamba", "dense_attn", "mlstm", "slstm")
+BLOCK_KINDS = ("attn", "moe_attn", "mamba", "dense_attn", "mlstm", "slstm")
+# the dims each kind needs besides the attention fields
+_KIND_DIMS = {"moe_attn": "moe", "mamba": "mamba", "mlstm": "xlstm", "slstm": "xlstm"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,6 +51,8 @@ class ArchConfig:
     period: tuple[str, ...] = ("attn",)
     moe: MoeDims | None = None
     mla: MlaDims | None = None
+    mamba: MambaDims | None = None
+    xlstm: XlstmDims | None = None
     frontend: str = "tokens"
     num_stages: int = 4
     exit_stages: tuple[int, ...] = (2, 3)
@@ -61,15 +66,11 @@ class ArchConfig:
         if self.head_dim == 0:
             object.__setattr__(self, "head_dim", self.d_model // max(self.num_heads, 1))
         for kind in self.period:
-            if kind in UNPORTED_KINDS:
-                raise NotImplementedError(
-                    f"block kind {kind!r} is not ported yet: the port runs {BLOCK_KINDS}; "
-                    "Mamba and xLSTM (ROADMAP queue 1, item 7) come after the benchmark ports"
-                )
             if kind not in BLOCK_KINDS:
                 raise ValueError(f"unknown block kind {kind!r}")
-        if "moe_attn" in self.period and self.moe is None:
-            raise ValueError(f"{self.name}: a 'moe_attn' period needs moe dims")
+            dims = _KIND_DIMS.get(kind)
+            if dims is not None and getattr(self, dims) is None:
+                raise ValueError(f"{self.name}: a {kind!r} period needs {dims} dims")
         if self.sliding_window is not None:
             raise NotImplementedError(
                 "sliding-window ring caches are not ported yet (ROADMAP queue 1, item 7); "
@@ -126,8 +127,7 @@ class ArchConfig:
 
     def reduced(self, **overrides) -> "ArchConfig":
         """A smoke-test-sized sibling: same family/period structure, tiny dims
-        (the attention, MoE and MLA branches of
-        ``repro.configs.base.ArchConfig.reduced``)."""
+        (``repro.configs.base.ArchConfig.reduced``)."""
         n_periods = max(self.num_stages, 4)
         small: dict[str, Any] = dict(
             num_layers=n_periods * len(self.period),
@@ -158,5 +158,11 @@ class ArchConfig:
                 v_head_dim=32,
             )
             small["head_dim"] = 32
+        if self.mamba is not None:
+            small["mamba"] = dataclasses.replace(
+                self.mamba, d_model=128, d_state=16, head_dim=32, chunk=16
+            )
+        if self.xlstm is not None:
+            small["xlstm"] = dataclasses.replace(self.xlstm, d_model=128, num_heads=4, chunk=16)
         small.update(overrides)
         return dataclasses.replace(self, name=f"{self.name}-smoke", **small)

@@ -1,9 +1,9 @@
 """Architecture registry of the port: ``--arch <id>`` -> ArchConfig.
 
 It holds only the architectures the port can run.  The JAX package's others
-(zamba2-2.7b and xlstm-350m: Mamba and xLSTM blocks; mixtral-8x7b: sliding
-window rings; musicgen-medium: the tanh-gelu MLP and the embeds frontend; phi-3-vision-4.2b: the
-embeds frontend) arrive with their modules (ROADMAP queue 1, item 7).
+(mixtral-8x7b: sliding window rings; musicgen-medium: the tanh-gelu MLP and
+the embeds frontend; phi-3-vision-4.2b: the embeds frontend) arrive with
+their modules (ROADMAP queue 1, item 7).
 """
 from __future__ import annotations
 
@@ -18,6 +18,8 @@ _MODULES: dict[str, str] = {
     "internlm2-20b": "repro_torch.configs.internlm2_20b",
     "qwen2.5-32b": "repro_torch.configs.qwen2_5_32b",
     "deepseek-v2-lite-16b": "repro_torch.configs.deepseek_v2_lite_16b",
+    "zamba2-2.7b": "repro_torch.configs.zamba2_2_7b",
+    "xlstm-350m": "repro_torch.configs.xlstm_350m",
 }
 
 

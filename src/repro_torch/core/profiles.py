@@ -21,12 +21,19 @@ from repro_torch.models import moe as moe_lib
 
 
 def stage_param_counts(cfg: ArchConfig) -> list[int]:
-    """Approximate active parameters per stage (MoE counts top-k experts):
-    the attention kinds' branches of ``repro.core.profiles.stage_param_counts``
-    (the port's configs hold no other kind)."""
+    """Approximate active parameters per stage (MoE counts top-k experts),
+    as ``repro.core.profiles.stage_param_counts`` counts them: the Mamba
+    block by its projections and conv, each xLSTM block as 6 d^2."""
     d = cfg.d_model
     per_block: dict[str, int] = {}
     for kind in set(cfg.period):
+        if kind == "mamba":
+            m = cfg.mamba
+            per_block[kind] = d * 2 * m.d_inner + m.d_inner * d + d * m.conv_dim
+            continue
+        if kind in ("mlstm", "slstm"):
+            per_block[kind] = 6 * d * d  # projections + gates, coarse
+            continue
         if cfg.mla is not None:
             m = cfg.mla
             attn = d * m.num_heads * m.qk_head_dim + d * (m.kv_lora_rank + m.qk_rope_head_dim)

@@ -16,7 +16,8 @@
 // more than one.  It is launched only when S > split, since no row can have
 // two splits otherwise.  The caller allocates the splits' scratch.  Key t of
 // row b is cache row b * S + t; the walk reads no key at or past the row's
-// length, clamped to S.
+// length, clamped to S.  Head dims 32, 64, 80 (zamba2-2.7b: five k-steps
+// of Q K^T and ten 8-dim column blocks of P V, paired) and 128.
 //
 // Each exported function returns cudaGetLastError() after its launch.
 

@@ -64,12 +64,17 @@ __host__ __device__ __forceinline__ int n_splits(int len, int split) {
 
 template <int HD>
 struct Smem {
-  static constexpr int PITCH = HD + 8;           // bf16 per shared row
+  // bf16 per shared row: 16 bytes of padding, so the 8 rows an ldmatrix or a
+  // fragment read touches start in 8 distinct 16-byte bank groups (row
+  // bytes 80, 144, 176 and 272 at hd 32, 64, 80 and 128), and every row
+  // starts on 16 bytes, as ldmatrix and cp.async need
+  static constexpr int PITCH = HD + 8;
   static constexpr int TILE_ELEMS = WT * PITCH;  // one K or V tile
   // dynamic shared memory of one CTA: the warps' rings, which then become
   // the reduction area (each warp's acc, m and l for its G heads)
   static constexpr int BYTES = WARPS * RING * 2 * TILE_ELEMS * 2;
   static_assert(BYTES >= WARPS * MMA_G * (HD + 2) * 4, "the reduction area fits in the rings");
+  static_assert(HD % 16 == 0 && (PITCH * 2) % 16 == 0, "whole k-steps, 16-byte rows");
 };
 
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
@@ -410,6 +415,7 @@ cudaError_t dispatch(int hd, Args... args) {
   switch (hd) {
     case 32: return Launch<32>::run(args...);
     case 64: return Launch<64>::run(args...);
+    case 80: return Launch<80>::run(args...);
     case 128: return Launch<128>::run(args...);
     default: return cudaErrorInvalidValue;
   }

@@ -32,7 +32,7 @@
 //     VMEM, becomes a loop inside the CTA.  Warpgroup 0 is the producer:
 //     one thread issues TMA loads of each work tile's Q (into one of two
 //     slots) and of its K and V tiles into a ring of STAGES stages (3 at
-//     hd <= 64, 2 at hd 128) in dynamic shared memory, each completing on
+//     hd <= 80, 2 at hd 128) in dynamic shared memory, each completing on
 //     its own mbarrier, and waits on a slot's or a stage's "empty" barrier
 //     before reusing it (K and V of a stage are released apart, so K
 //     reloads while the stage's P V still runs); the ring runs on across
@@ -43,13 +43,18 @@
 //     `setmaxnreg` moves registers from the producer (24) to the consumers
 //     (240).
 //   * Tiles: 128 query rows per work tile, FA_N = 128 keys per K/V tile at every
-//     hd (32, 64, 128): the S accumulator is 64 f32 per thread, the output
+//     hd (32, 64, 80, 128): the S accumulator is 64 f32 per thread, the output
 //     accumulator hd / 2.  TMA maps are 4-D over [B, S, H, hd]; a box is one
 //     head's rows of at most 64 columns (128 bytes, the 128-byte swizzle's
 //     span), so hd 128 loads as two 64-column boxes and the descriptors walk
 //     them the same way; hd 32 rows are 64 bytes and take the 64-byte
-//     swizzle.  The boxes' out-of-range fill gives zeros past Sq and Sk, so
-//     nothing is padded.
+//     swizzle.  A 160-byte row of hd 80 fits no swizzle span, so it loads
+//     as five 16-column boxes of 32-byte rows under the 32-byte swizzle:
+//     each k-step of Q K^T reads one box (K-major, 8-row groups 256 bytes
+//     apart), and P V's B operand (MN-major) steps from box to box by the
+//     descriptor's leading offset, as hd 128's two boxes do; P V is one
+//     wgmma m64n80k16 per 16 keys.  The boxes' out-of-range fill gives
+//     zeros past Sq and Sk, so nothing is padded.
 //   * S = Q K^T: wgmma m64n128k16, both operands in shared memory (K-major),
 //     hd / 16 steps.  Softmax in registers: the scores are masked, and
 //     scaled by a multiply inside the exponent (one FMA by sm_scale *
@@ -130,10 +135,12 @@ constexpr int CONSUMER_WARPS = 8;
 
 template <int HD>
 struct FaSmem {
-  static constexpr int BOX = HD < 64 ? HD : 64;  // columns per TMA box
+  // columns per TMA box: 64 (hd 64, 128), 32 (hd 32) or 16 (hd 80)
+  static constexpr int BOX = HD % 64 == 0 ? 64 : HD % 32 == 0 ? 32 : 16;
   static constexpr int NBOX = HD / BOX;
   static constexpr int ROW = BOX * 2;  // bytes per shared row: the swizzle span
-  static constexpr uint64_t LAYOUT = ROW == 128 ? 1 : 2;  // descriptor: 128B or 64B swizzle
+  // descriptor layout: the 128-, 64- or 32-byte swizzle
+  static constexpr uint64_t LAYOUT = ROW == 128 ? 1 : ROW == 64 ? 2 : 3;
   static constexpr int STAGES = HD == 128 ? 2 : 3;        // K/V ring depth
   static constexpr int Q_BYTES = FA_M * HD * 2;
   static constexpr int KV_BYTES = FA_N * HD * 2;
@@ -142,7 +149,7 @@ struct FaSmem {
   static constexpr int BAR_OFF = V_OFF + STAGES * KV_BYTES;
   // Q full and empty per slot; K full, V full, K empty and V empty per stage
   static constexpr int BYTES = BAR_OFF + 8 * (4 + 4 * STAGES) + 1024;  // + alignment slack
-  static_assert(HD % 32 == 0 && HD <= 128, "hd 32, 64 or 128");
+  static_assert(HD == 32 || HD == 64 || HD == 80 || HD == 128, "hd 32, 64, 80 or 128");
   static_assert(Q_BYTES % 1024 == 0 && KV_BYTES % 1024 == 0, "tiles on swizzle-atom bounds");
   static_assert(BYTES <= 232448, "fits an SM's shared memory");
 };
@@ -261,11 +268,31 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
 }
 
+// D[64 x 80] (+)= A[64 x 16] . B[16 x 80]; A from registers, B from shared memory,
+// MN-major (the transpose bit)
+__device__ __forceinline__ void wgmma_rs_n80(float (&d)[40], const uint32_t (&a)[4],
+                                             uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39"
+      "}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : WG_F8(d, 0),
+        WG_F8(d, 8),
+        WG_F8(d, 16),
+        WG_F8(d, 24),
+        WG_F8(d, 32)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
 template <int HD>
 __device__ __forceinline__ void wgmma_pv(float (&o)[HD / 2], const uint32_t (&a)[4],
                                          uint64_t desc_v) {
   if constexpr (HD == 32) wgmma_rs_n32(o, a, desc_v, 1);
   else if constexpr (HD == 64) wgmma_rs_n64(o, a, desc_v, 1);
+  else if constexpr (HD == 80) wgmma_rs_n80(o, a, desc_v, 1);
   else wgmma_rs_n128(o, a, desc_v, 1);
 }
 
@@ -479,7 +506,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,  // [B, Sq, Hq, HD
 #pragma unroll
         for (int kk = 0; kk < FA_N / 16; ++kk) {
           // keys [16 kk, 16 kk + 16): two 8-row groups 8 rows apart (SBO); the
-          // 64-column boxes of hd 128 lie FA_N rows apart (LBO)
+          // boxes of a row (hd 128's two of 64 columns, hd 80's five of 16)
+          // lie FA_N rows apart (LBO)
           const uint64_t dv = wg_desc(vs + kk * 16 * L::ROW, FA_N * L::ROW, 8 * L::ROW, L::LAYOUT);
           wgmma_pv<HD>(o, pa[kk], dv);
         }
@@ -604,18 +632,19 @@ flash_simple_kernel(const float* __restrict__ q,  // [B, Sq, Hq, HD]
 // ---------------------------------------------------------------------------
 
 // a 4-D map over bf16 [B, S, H, hd], boxes of one head's `rows` rows x
-// `box` columns, zeros past S, swizzled over the box's row bytes
+// `box` columns, zeros past S, swizzled over the box's row bytes (128, 64 or 32)
 bool encode(EncodeTiled enc, CUtensorMap* map, const void* ptr, int B, int S, int H, int hd,
             int rows, int box) {
+  const CUtensorMapSwizzle swizzle = box * 2 == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : box * 2 == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                     : CU_TENSOR_MAP_SWIZZLE_32B;
   const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)hd * 2, (cuuint64_t)H * hd * 2,
                                  (cuuint64_t)S * H * hd * 2};
   const cuuint32_t boxes[4] = {(cuuint32_t)box, 1, (cuuint32_t)rows, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
-             boxes, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             box * 2 == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+             boxes, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 bool shape_ok(int B, int Sq, int Sk, int Hq, int KVH) {
@@ -680,6 +709,7 @@ extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v,
   switch (hd) {
     case 32: return launch_bf16<32>(q, k, v, out, B, Sq, Sk, Hq, KVH, causal, window, sm_scale, s);
     case 64: return launch_bf16<64>(q, k, v, out, B, Sq, Sk, Hq, KVH, causal, window, sm_scale, s);
+    case 80: return launch_bf16<80>(q, k, v, out, B, Sq, Sk, Hq, KVH, causal, window, sm_scale, s);
     case 128:
       return launch_bf16<128>(q, k, v, out, B, Sq, Sk, Hq, KVH, causal, window, sm_scale, s);
     default: return cudaErrorInvalidValue;
@@ -693,6 +723,7 @@ extern "C" int flash_attention_f32(const void* q, const void* k, const void* v, 
   switch (hd) {
     case 32: return launch_f32<32>(q, k, v, out, B, Sq, Sk, Hq, KVH, causal, window, sm_scale, s);
     case 64: return launch_f32<64>(q, k, v, out, B, Sq, Sk, Hq, KVH, causal, window, sm_scale, s);
+    case 80: return launch_f32<80>(q, k, v, out, B, Sq, Sk, Hq, KVH, causal, window, sm_scale, s);
     case 128: return launch_f32<128>(q, k, v, out, B, Sq, Sk, Hq, KVH, causal, window, sm_scale, s);
     default: return cudaErrorInvalidValue;
   }

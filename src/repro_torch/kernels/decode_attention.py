@@ -20,7 +20,7 @@ import torch
 
 from repro_torch.kernels import build, ref
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 80, 128)
 # Query heads per KV head one launch of the walk takes at most: the walk
 # puts a KV head's G query heads on the first G of its tensor-core tiles' 16
 # M rows.  The wrappers take any G, in chunks of at most ``MMA_G``

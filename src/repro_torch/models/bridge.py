@@ -6,9 +6,11 @@ each other without matching random generators.  The port never sees a JAX
 array: the caller converts on its side.  Weight matrices become bf16 (the
 reference casts them to bf16 at every matmul); norm scales, norm biases and
 QKV biases stay f32.  The tree is walked by leaf name, so the MoE
-``experts`` stacks and ``shared`` GLU, the router and MLA's projections
-become bf16 like every other name in ``BF16_LEAVES``, and MLA's
-``norm_ckv`` scale stays f32.
+``experts`` stacks and ``shared`` GLU, the router, MLA's projections and
+the recurrent blocks' projections and conv kernels become bf16 like every
+other name in ``BF16_LEAVES``, and MLA's ``norm_ckv`` scale, the recurrent
+blocks' decay, skip, bias and gate leaves and sLSTM's ``r_gates`` (cast to
+its f32 state's dtype in the reference) stay f32.
 """
 from __future__ import annotations
 

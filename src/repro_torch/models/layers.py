@@ -1,4 +1,4 @@
-"""Shared primitive layers: norms, embeddings, RoPE, FFNs.
+"""Shared primitive layers: norms, activations, embeddings, RoPE, FFNs.
 
 The counterpart of ``repro.models.layers``.  Parameters are nested dicts of
 tensors.  Weight matrices are stored in bf16 once at load (the JAX package
@@ -74,6 +74,18 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     """``x * 1 / (1 + exp(-x))`` op for op in the input dtype, as
     ``jax.nn.silu`` lowers: each step rounds to bf16 on a bf16 input."""
     return x * (1.0 / (1.0 + torch.exp(-x)))
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``log(1 + exp(x))`` as ``jax.nn.softplus`` computes it, ``logaddexp(x,
+    0)``: exact for large x, where ``torch.nn.functional.softplus`` turns
+    linear above its threshold of 20."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def log_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``-softplus(-x)``, ``jax.nn.log_sigmoid``'s form."""
+    return -softplus(-x)
 
 
 _ACTS = {"silu": silu}

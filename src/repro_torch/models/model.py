@@ -1,5 +1,7 @@
-"""Staged decoder with early-exit heads — the ``"attn"`` and ``"moe_attn"``
-kinds of ``repro.models.model``, each with GQA or MLA attention.
+"""Staged decoder with early-exit heads — ``repro.models.model``'s block
+kinds: attention (``"attn"``, ``"dense_attn"`` and ``"moe_attn"``, each with
+GQA or MLA attention), Mamba2 (``"mamba"``) and xLSTM (``"mlstm"``,
+``"slstm"``).
 
 A model is ``num_stages`` pipeline stages; each stage runs its block
 periods in order.  Early-exit branches hang off the stages in
@@ -10,28 +12,55 @@ softmax probability, computed by the fused ``exit_confidence`` kernel so
 Parameters mirror the JAX tree: ``stages[i]["blocks"]`` is a tuple (one
 entry per period kind) of dicts whose leaves are stacked over the stage's
 periods.  Caches mirror it too: a stage's caches are a tuple of dicts with
-leaves ``[n_periods, B, ...]``.  The reference's ``lax.scan`` over periods
-is a Python loop here.
+leaves ``[n_periods, B, ...]``: an attention kind's K/V (or MLA's latent
+rows) over the sequence, a recurrent kind's state (Mamba's conv tail and SSD
+state, mLSTM's conv tail and ``C``/``n``/``m``, sLSTM's ``c``/``n``/``h``/
+``m``), and ``pos``.  The reference's ``lax.scan`` over periods is a Python
+loop here.
 """
 from __future__ import annotations
 
 import math
-from typing import Any
+from typing import Any, NamedTuple
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops as kernel_ops
-from repro_torch.models import attention, layers, moe
+from repro_torch.models import attention, layers, moe, ssm
 from repro_torch.models.layers import Params
 
 # weight matrices kept in bf16 (cast once at load; the reference casts each
-# to bf16 at every use); everything else (norm scales and biases, QKV
-# biases, MLA's ``norm_ckv``) is f32
+# to bf16 at every use, the conv kernels to the bf16 activations' dtype);
+# everything else (norm scales and biases, QKV biases, MLA's ``norm_ckv``,
+# the SSM blocks' ``a_log``, ``dt_bias``, ``d_skip``, conv and gate biases,
+# and sLSTM's ``r_gates``, which the reference casts to its f32 state's
+# dtype) is f32
 BF16_LEAVES = (
     "embed", "lm_head", "w_q", "w_k", "w_v", "w_o", "w_gate", "w_up", "w_down",
     "router", "w_dkv", "w_kpe", "w_uk", "w_uv",
+    "in_proj", "out_proj", "up_proj", "down_proj", "w_if", "w_gates", "conv_w",
 )
+
+
+class _StateKind(NamedTuple):
+    """A recurrent block kind's functions in ``models.ssm`` and the config
+    field holding its dims."""
+    init: Any
+    forward: Any
+    decode: Any
+    make_cache: Any
+    dims: str
+
+
+_STATE_KINDS = {
+    "mamba": _StateKind(ssm.mamba_init, ssm.mamba_forward, ssm.mamba_decode,
+                        ssm.make_mamba_cache, "mamba"),
+    "mlstm": _StateKind(ssm.mlstm_init, ssm.mlstm_forward, ssm.mlstm_decode,
+                        ssm.make_mlstm_cache, "xlstm"),
+    "slstm": _StateKind(ssm.slstm_init, ssm.slstm_forward, ssm.slstm_decode,
+                        ssm.make_slstm_cache, "xlstm"),
+}
 
 
 # ---------------------------------------------------------------------------
@@ -39,14 +68,15 @@ BF16_LEAVES = (
 # ---------------------------------------------------------------------------
 
 
-def _dense(shape, generator: torch.Generator | None, device, stacked: int | None = None) -> torch.Tensor:
+def _dense(shape, generator: torch.Generator | None, device, stacked: int | None = None,
+           dtype=torch.bfloat16) -> torch.Tensor:
     """Truncated normal at +-3 std with std 1/sqrt(shape[0]) (the
-    reference's fan-in), made in f32 and stored in bf16 (the reference
-    keeps the f32 master).  A stacked leaf is filled one period at a time,
-    so no f32 temporary is larger than one period's matrix.  On the meta
-    device nothing is drawn (shapes only)."""
+    reference's fan-in), made in f32 and stored in ``dtype`` (bf16 for a
+    weight matrix; the reference keeps the f32 master).  A stacked leaf is
+    filled one period at a time, so no f32 temporary is larger than one
+    period's matrix.  On the meta device nothing is drawn (shapes only)."""
     std = 1.0 / math.sqrt(shape[0])
-    out = torch.empty(shape if stacked is None else (stacked, *shape), dtype=torch.bfloat16,
+    out = torch.empty(shape if stacked is None else (stacked, *shape), dtype=dtype,
                       device=device)
     if out.is_meta:
         return out
@@ -65,10 +95,33 @@ def _norm_init(kind: str, d: int, device, stacked: int | None = None) -> Params:
     return p
 
 
+def _state_block_init(kind: str, cfg: ArchConfig, n: int, generator: torch.Generator | None,
+                      device) -> Params:
+    """One Mamba2, mLSTM or sLSTM block (its pre-norm and its cell's
+    parameters), stacked over ``n`` periods."""
+    sk = _STATE_KINDS[kind]
+
+    def const(t: torch.Tensor) -> torch.Tensor:
+        out = torch.empty((n, *t.shape), dtype=torch.float32, device=device)
+        return out if out.is_meta else out.copy_(t.expand(n, *t.shape))
+
+    cell = sk.init(
+        getattr(cfg, sk.dims),
+        lambda shape: _dense(shape, generator, device, n),
+        lambda shape: _dense(shape, generator, device, n, torch.float32),
+        const,
+        lambda w: _norm_init("rmsnorm", w, device, n),
+    )
+    return {"norm": _norm_init(cfg.norm, cfg.d_model, device, n), kind: cell}
+
+
 def _block_init(kind: str, cfg: ArchConfig, n: int, generator: torch.Generator | None,
                 device) -> Params:
-    """One attention block of ``kind`` (GQA or MLA attention; a GLU FFN or,
-    for ``"moe_attn"``, a mixture of experts), stacked over ``n`` periods."""
+    """One block of ``kind``, stacked over ``n`` periods: an attention block
+    (GQA or MLA attention; a GLU FFN or, for ``"moe_attn"``, a mixture of
+    experts), or a recurrent one (``_state_block_init``)."""
+    if kind in _STATE_KINDS:
+        return _state_block_init(kind, cfg, n, generator, device)
     d = cfg.d_model
 
     def dense(shape):
@@ -151,6 +204,34 @@ def _ffn(kind: str, p: Params, h2: torch.Tensor, cfg: ArchConfig) -> torch.Tenso
     return layers.glu_ffn(p["ffn"], h2, cfg.act)
 
 
+def _state_block_apply(kind: str, p: Params, x: torch.Tensor, cfg: ArchConfig, mode: str):
+    """One recurrent block.  Prefill also returns its cache: the cell's
+    final state, the conv tail (the last ``conv_kernel - 1`` pre-conv
+    features, recomputed from the normed input; a prompt shorter than that
+    leaves fewer rows, as in the reference, and the engine refuses such a
+    prompt for cached decode) and ``pos``.  An sLSTM block's output holds
+    its own residual FFN (the xLSTM block form)."""
+    h = layers.apply_norm(cfg.norm, p["norm"], x)
+    if mode != "prefill":
+        sk = _STATE_KINDS[kind]
+        return x + sk.forward(p[kind], h, getattr(cfg, sk.dims)), None
+    if kind == "mamba":
+        dims = cfg.mamba
+        out, state = ssm.mamba_forward(p["mamba"], h, dims, return_state=True)
+        _, xbc, _ = ssm._mamba_split(p["mamba"], h[:, -(dims.conv_kernel - 1):], dims)
+        cache = {"conv": xbc.to(torch.bfloat16), "ssd": state}
+    elif kind == "mlstm":
+        dims = cfg.xlstm
+        out, (C, n, m) = ssm.mlstm_forward(p["mlstm"], h, dims, return_state=True)
+        up = layers.matmul(h[:, -(dims.conv_kernel - 1):], p["mlstm"]["up_proj"])
+        cache = {"conv": torch.chunk(up, 2, dim=-1)[0].to(torch.bfloat16), "C": C, "n": n, "m": m}
+    else:
+        out, (c, n, hs, m) = ssm.slstm_forward(p["slstm"], h, cfg.xlstm, return_state=True)
+        cache = {"c": c, "n": n, "h": hs, "m": m}
+    cache["pos"] = torch.tensor(x.shape[1], dtype=torch.int32, device=x.device)
+    return x + out, cache
+
+
 def _block_apply(
     kind: str,
     p: Params,
@@ -160,7 +241,9 @@ def _block_apply(
     mode: str,  # "train" | "prefill"
     max_len: int = 0,
 ):
-    """One attention block of ``kind``.  Returns (x', cache or None)."""
+    """One block of ``kind``.  Returns (x', cache or None)."""
+    if kind in _STATE_KINDS:
+        return _state_block_apply(kind, p, x, cfg, mode)
     h = layers.apply_norm(cfg.norm, p["norm1"], x)
     cache = None
     if cfg.mla is not None:
@@ -191,7 +274,17 @@ def _block_decode(kind: str, p: Params, x: torch.Tensor, cache: Params, cfg: Arc
     """One-token block step.  ``ragged=True`` treats ``cache["pos"]`` as a
     per-row int32 [B] vector (the serving engine's slot-cache batches);
     ``paged_seq_len`` selects the paged path, where the cache holds a block
-    pool plus a per-row block ``table`` instead of contiguous rows."""
+    pool plus a per-row block ``table`` instead of contiguous rows.  The
+    recurrent kinds' steps are position-free: their new state is written
+    into ``cache``'s leaves in place."""
+    if kind in _STATE_KINDS:
+        sk = _STATE_KINDS[kind]
+        h = layers.apply_norm(cfg.norm, p["norm"], x)
+        out, new = sk.decode(p[kind], h, cache, getattr(cfg, sk.dims))
+        for key, t in new.items():
+            if key != "pos":
+                cache[key].copy_(t)
+        return x + out, dict(cache, pos=new["pos"])
     h = layers.apply_norm(cfg.norm, p["norm1"], x)
     if cfg.mla is not None:
         if paged_seq_len is not None:
@@ -214,8 +307,10 @@ def _stack_caches(per_period: list[Params]) -> Params:
 
 
 def _num_periods(stage: Params) -> int:
-    """Periods of a stage, from its parameters (every block kind has norm1)."""
-    return stage["blocks"][0]["norm1"]["scale"].shape[0]
+    """Periods of a stage, from its parameters (every block has a pre-norm:
+    ``norm1`` in an attention block, ``norm`` in a recurrent one)."""
+    block = stage["blocks"][0]
+    return block["norm1" if "norm1" in block else "norm"]["scale"].shape[0]
 
 
 def _run_stage(
@@ -268,8 +363,20 @@ def decode_stage_ragged(params: Params, stage_idx: int, x: torch.Tensor, caches,
     return _decode_stage(params["stages"][stage_idx - 1], x, caches, cfg, ragged=True)
 
 
+def min_cached_prompt_len(cfg: ArchConfig) -> int:
+    """The shortest prompt whose prefill caches a whole conv tail: Mamba and
+    mLSTM blocks keep the last ``conv_kernel - 1`` pre-conv features, and a
+    shorter prompt leaves fewer rows than their decode step reads (the
+    reference's cached serve and ``monolithic_generate`` fail on it)."""
+    kernels = [getattr(cfg, _STATE_KINDS[k].dims).conv_kernel for k in ("mamba", "mlstm")
+               if k in cfg.period]
+    return max(kernels, default=2) - 1
+
+
 def validate_slot_layout(cfg: ArchConfig, stage_idx: int, max_len: int) -> None:
     """Reject configs the slot-resident cache layout cannot represent."""
+    if not cfg.uses_attention or cfg.mla is not None:
+        return
     w = cfg.attn_dims().sliding_window
     if w is not None and w < max_len:
         raise ValueError(
@@ -278,10 +385,16 @@ def validate_slot_layout(cfg: ArchConfig, stage_idx: int, max_len: int) -> None:
         )
 
 
-def _block_cache(cfg: ArchConfig, n: int, batch: int, max_len: int, device) -> Params:
-    """Zeroed sequence leaves of one attention kind's cache, stacked over
-    ``n`` periods: ``k``/``v`` ``[n, batch, max_len, kv, hd]``, or MLA's
-    ``c_kv``/``k_pe`` ``[n, batch, max_len, lora or rope_dim]``."""
+def _block_cache(kind: str, cfg: ArchConfig, n: int, batch: int, max_len: int, device) -> Params:
+    """One kind's empty cache leaves (all but ``pos``), stacked over ``n``
+    periods: an attention kind's zeroed sequence leaves, ``k``/``v`` ``[n,
+    batch, max_len, kv, hd]`` or MLA's ``c_kv``/``k_pe`` ``[n, batch,
+    max_len, lora or rope_dim]``; a recurrent kind's state ``[n, batch,
+    ...]`` as its cache maker builds it (``m`` at -1e30)."""
+    if kind in _STATE_KINDS:
+        sk = _STATE_KINDS[kind]
+        one = sk.make_cache(batch, getattr(cfg, sk.dims), device=device)
+        return {key: t.expand(n, *t.shape).clone() for key, t in one.items() if key != "pos"}
     if cfg.mla is not None:
         one = attention.make_mla_cache(batch, max_len, cfg.mla, device="meta")
     else:
@@ -299,14 +412,15 @@ def init_stage_slot_caches(
     validate_slot_layout(cfg, stage_idx, max_len)
     n = cfg.stage_periods()[stage_idx - 1]
     return tuple(
-        dict(_block_cache(cfg, n, num_slots, max_len, device),
+        dict(_block_cache(kind, cfg, n, num_slots, max_len, device),
              pos=torch.zeros((n, num_slots), dtype=torch.int32, device=device))
-        for _ in cfg.period
+        for kind in cfg.period
     )
 
 
 # cache leaves with a ``max_len`` sequence dimension: the only ones the paged
-# layout moves into the block pool (``pos`` stays slot-indexed)
+# layout moves into the block pool (``pos`` and the recurrent kinds' state
+# stay slot-indexed)
 PAGED_CACHE_LEAVES = ("k", "v", "c_kv", "k_pe")
 
 
@@ -321,20 +435,24 @@ def init_stage_paged_caches(
 ):
     """Zeroed PAGED caches for one stage's replica: ``(pool, state)``.
 
-    ``pool`` holds the sequence leaves (``k``/``v``, or MLA's ``c_kv``/
-    ``k_pe``) as physical block pools ``[n_periods, num_blocks, block_size,
-    ...]`` addressed through per-request block tables; ``state`` keeps
-    ``pos`` per slot, ``[n_periods, num_slots]``, as the dense layout does.
-    Both counts INCLUDE their trailing trash row (padded batch rows write
-    there).
+    ``pool`` holds an attention kind's sequence leaves (``k``/``v``, or
+    MLA's ``c_kv``/``k_pe``) as physical block pools ``[n_periods,
+    num_blocks, block_size, ...]`` addressed through per-request block
+    tables (a recurrent kind's pool dict is empty); ``state`` keeps ``pos``
+    and any recurrent state per slot, ``[n_periods, num_slots, ...]``, as
+    the dense layout does.  Both counts INCLUDE their trailing trash row
+    (padded batch rows write there).
     """
     validate_slot_layout(cfg, stage_idx, max_len)
     n = cfg.stage_periods()[stage_idx - 1]
-    pool = tuple(_block_cache(cfg, n, num_blocks, block_size, device) for _ in cfg.period)
-    state = tuple(
-        {"pos": torch.zeros((n, num_slots), dtype=torch.int32, device=device)} for _ in cfg.period
-    )
-    return pool, state
+    pool, state = [], []
+    for kind in cfg.period:
+        recurrent = kind in _STATE_KINDS
+        pool.append({} if recurrent else _block_cache(kind, cfg, n, num_blocks, block_size, device))
+        st = _block_cache(kind, cfg, n, num_slots, max_len, device) if recurrent else {}
+        st["pos"] = torch.zeros((n, num_slots), dtype=torch.int32, device=device)
+        state.append(st)
+    return tuple(pool), tuple(state)
 
 
 def decode_stage_paged(
@@ -352,12 +470,14 @@ def decode_stage_paged(
 
     ``pool_caches``: per-period pool dicts ``[n_periods, num_blocks, bs,
     ...]``, updated in place; ``state_rows``: the batch's gathered per-slot
-    rows ``[n_periods, B]`` (``pos``).  Returns ``(x_out, new_caches)`` with
-    each period's dict holding the pools, the table and the advanced ``pos``.
+    rows ``[n_periods, B, ...]`` (``pos`` and any recurrent state, updated
+    in place).  Returns ``(x_out, new_caches)`` with each period's dict
+    holding the pools, the table (attention kinds) and the advanced ``pos``.
     """
     n_periods = cfg.stage_periods()[stage_idx - 1]
+    table = {"table": tables[None].expand(n_periods, *tables.shape)}
     caches = tuple(
-        dict(state_d, **pool_d, table=tables[None].expand(n_periods, *tables.shape))
+        dict(state_d, **pool_d, **(table if pool_d else {}))
         for pool_d, state_d in zip(pool_caches, state_rows)
     )
     return _decode_stage(

@@ -433,6 +433,14 @@ class CollaborativeEngine:
         cached = decode_mode == "cached"
         if any(int(p.shape[0]) < 1 for p in prompts):
             raise ValueError("prompts must be non-empty")
+        min_len = model_lib.min_cached_prompt_len(self.cfg)
+        if cached and any(int(p.shape[0]) < min_len for p in prompts):
+            raise ValueError(
+                f"config {self.cfg.name!r}: cached decode needs prompts of at least {min_len} "
+                f"tokens (conv_kernel - 1: the conv tail a Mamba or mLSTM block caches at "
+                f"prefill; the reference fails on a shorter prompt too); got "
+                f"{min(int(p.shape[0]) for p in prompts)}.  Stateless decode takes it."
+            )
         if batch_policy not in ("fifo", "threshold"):
             raise ValueError("batch_policy must be 'fifo' or 'threshold'")
         if controller is not None and telemetry is None:

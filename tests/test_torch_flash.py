@@ -50,6 +50,7 @@ SWEEP = [
     (2, 256, 256, 8, 2, 64),  # GQA 4:1
     (1, 192, 192, 4, 1, 32),  # MQA, ragged seq vs block
     (2, 128, 384, 4, 4, 128),  # cross: kv longer than q
+    (2, 104, 104, 8, 8, 80),  # zamba2-2.7b's head dim
 ]
 
 
@@ -76,6 +77,7 @@ def test_flash_ref_window_and_non_causal_match_jax_oracle(causal, window):
 @pytest.mark.parametrize("B,Sq,Sk,Hq,KVH,hd,block", [
     (2, 128, 128, 8, 2, 64, 64),  # GQA 4:1
     (1, 64, 192, 4, 4, 32, 64),  # kv longer than q
+    (1, 128, 128, 4, 4, 80, 64),  # zamba2-2.7b's head dim
 ])
 def test_ops_flash_matches_pallas_interpret(dtype, B, Sq, Sk, Hq, KVH, hd, block):
     """The port's op on the CPU against the Pallas kernel in interpret mode

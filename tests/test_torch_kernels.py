@@ -46,6 +46,7 @@ DECODE_CASES = [
     (2, 300, 4, 4, 32),
     (2, 300, 10, 2, 128),  # G 5: qwen2.5-32b's 40 query heads over 8
     (2, 300, 12, 2, 128),  # G 6: internlm2-20b's 48 over 8
+    (2, 300, 8, 8, 80),  # zamba2-2.7b's head dim, G 1
 ]
 
 
@@ -64,7 +65,8 @@ def test_decode_attention_matches_jax(dtype, B, S, Hq, KVH, hd):
 
 
 @pytest.mark.parametrize("B,S,Hq,KVH,hd,block", [(2, 300, 8, 2, 64, 64), (1, 256, 4, 4, 32, 128),
-                                                (2, 300, 10, 2, 128, 64), (1, 256, 12, 2, 128, 128)])
+                                                (2, 300, 10, 2, 128, 64), (1, 256, 12, 2, 128, 128),
+                                                (2, 300, 8, 8, 80, 64)])
 def test_decode_attention_matches_pallas_body(B, S, Hq, KVH, hd, block):
     """The plain version against the Pallas kernel body (interpret mode)."""
     rng = np.random.default_rng(1)
@@ -273,16 +275,21 @@ def test_split_groups_with_the_plain_launcher_matches_one_call(G):
     assert len(seen) == 1 and seen[0] is q16
 
 
-@pytest.mark.parametrize("arch", ["qwen2.5-32b", "internlm2-20b", "glm4-9b", "stablelm-1.6b"])
+@pytest.mark.parametrize("arch", ["qwen2.5-32b", "internlm2-20b", "glm4-9b", "stablelm-1.6b",
+                                  "zamba2-2.7b"])
 def test_registry_attention_fits_the_decode_wrappers(arch):
-    """The GQA configs of the JAX registry (G 5, 6, 16 and 1, all hd 128 or
-    64) are shapes both decode wrappers take in one launch of the walk."""
+    """The GQA configs of the JAX registry (G 5, 6, 16 and 1, at hd 128, 64
+    and zamba2-2.7b's 80) are shapes both decode wrappers take in one launch
+    of the walk, and the prefill flash kernel takes their head dim."""
     from repro.configs import get_config
+
+    from repro_torch.kernels import flash_attention as tflash
 
     cfg = get_config(arch)
     assert cfg.num_heads % cfg.num_kv_heads == 0
     assert 1 <= cfg.num_heads // cfg.num_kv_heads <= tdec.MMA_G
     assert cfg.head_dim in tdec.HEAD_DIMS
+    assert cfg.head_dim in tflash.HEAD_DIMS
 
 
 def test_every_probe_variant_finds_its_marked_lines():

@@ -63,6 +63,8 @@ def _randn(shape, gen, dev, dtype=torch.bfloat16):
         (2, 300, 8, 1, 32),  # MQA, G = 8
         (4, 130, 8, 4, 128),  # G = 2
         (8, 130, 32, 2, 128),  # glm4-9b: G = 16, two CTAs per KV head
+        (8, 200, 32, 32, 80),  # zamba2-2.7b's attention: hd 80, G = 1
+        (2, 700, 8, 2, 80),  # hd 80 over two splits, G = 4
     ],
 )
 def test_decode_attention_matches_plain(cuda, B, S, Hq, KVH, hd):
@@ -121,10 +123,10 @@ def test_decode_attention_rejects_what_it_cannot_take(cuda):
     for heads in (34, 64):  # G = 17, 32: past the walk's 16 rows, launched in chunks
         qg = torch.zeros((1, heads, 64), dtype=torch.bfloat16, device=cuda)
         assert tdec.decode_attention(qg, k, k, one).shape == qg.shape
-    with pytest.raises(ValueError, match="hd in"):
-        tdec.decode_attention(torch.zeros((1, 2, 80), dtype=torch.bfloat16, device=cuda),
-                              torch.zeros((1, 8, 2, 80), dtype=torch.bfloat16, device=cuda),
-                              torch.zeros((1, 8, 2, 80), dtype=torch.bfloat16, device=cuda), one)
+    with pytest.raises(ValueError, match="hd in"):  # hd 96: no instance
+        tdec.decode_attention(torch.zeros((1, 2, 96), dtype=torch.bfloat16, device=cuda),
+                              torch.zeros((1, 8, 2, 96), dtype=torch.bfloat16, device=cuda),
+                              torch.zeros((1, 8, 2, 96), dtype=torch.bfloat16, device=cuda), one)
     with pytest.raises(TypeError):
         tdec.decode_attention(q.float(), k.float(), k.float(),
                               torch.ones(1, dtype=torch.int32, device=cuda))
@@ -187,6 +189,9 @@ def _assert_paged_gates(q, k_pool, v_pool, table, lengths, seq_len):
         (8, 1, 32, 4, [999, 513]),  # G = 8
         (8, 4, 128, 16, [130, 7, 16, 33]),  # G = 2
         (32, 2, 128, 16, [104, 112, 97, 120, 1, 64, 110, 88]),  # glm4-9b: G = 16
+        (32, 32, 80, 16, [68, 87, 88, 55, 112, 70, 60, 106]),  # zamba2-2.7b: hd 80
+        (32, 32, 80, 1, [68, 87, 88, 55, 112, 70, 60, 106]),
+        (8, 2, 80, 3, [700, 17, 1, 513]),  # hd 80, G = 4, two splits
     ],
 )
 def test_paged_decode_attention_matches_plain_and_dense(cuda, Hq, KVH, hd, bs, lengths):
@@ -265,7 +270,7 @@ def _assert_split_gates(got, q, k, v, lengths):
 
 
 @pytest.mark.parametrize("G", range(1, tdec.MMA_G + 1))
-@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("hd", [32, 64, 80, 128])
 def test_decode_attention_g16_split_edges_match_plain(cuda, hd, G):
     """Lengths 0, 1, either side of the 32-key warp tile and of the split
     size, and a whole 4096-key cache: one split and no combine, two splits,
@@ -484,6 +489,10 @@ FLASH_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
         (1, 256, 256, 4, 4, 64, True, 100, torch.bfloat16),  # sliding window
         (2, 1, 50, 8, 2, 32, True, None, torch.bfloat16),  # Sq = 1
         (3, 77, 77, 8, 2, 32, True, None, torch.bfloat16),  # S not a multiple of 64
+        (8, 104, 104, 32, 32, 80, True, None, torch.bfloat16),  # zamba2-2.7b's heads: hd 80
+        (1, 2048, 2048, 32, 32, 80, True, None, torch.bfloat16),
+        (2, 128, 384, 4, 4, 80, True, None, torch.bfloat16),
+        (1, 256, 256, 4, 4, 80, True, 100, torch.bfloat16),
         # tests/test_kernels.py's sweep in f32
         (1, 128, 128, 4, 4, 64, True, None, torch.float32),
         (2, 256, 256, 8, 2, 64, True, None, torch.float32),
@@ -491,6 +500,7 @@ FLASH_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
         (2, 128, 384, 4, 4, 128, True, None, torch.float32),
         (1, 256, 256, 4, 4, 64, True, 32, torch.float32),
         (1, 128, 128, 2, 2, 64, False, None, torch.float32),
+        (2, 200, 200, 8, 2, 80, True, None, torch.float32),
     ],
 )
 def test_flash_attention_matches_plain(cuda, B, Sq, Sk, Hq, KVH, hd, causal, window, dtype):
@@ -515,6 +525,10 @@ def test_flash_attention_matches_plain(cuda, B, Sq, Sk, Hq, KVH, hd, causal, win
         (2, 200, 200, 8, 2, 32, True, None),
         (2, 200, 200, 8, 2, 64, True, None),
         (2, 200, 200, 8, 2, 128, True, None),
+        (2, 129, 129, 4, 4, 80, True, None),
+        (2, 200, 200, 8, 2, 80, True, None),
+        (1, 300, 300, 4, 4, 80, True, 130),
+        (1, 200, 600, 4, 4, 80, False, 130),
         # Sk > Sq, top-left positions
         (2, 129, 400, 4, 4, 64, True, None),
         (1, 200, 600, 4, 4, 128, True, None),

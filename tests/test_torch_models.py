@@ -35,9 +35,11 @@ from torch_port_common import F32_ATOL, as_np, assert_bf16_close, bridged_params
 S, B, MAX_LEN = 10, 3, 16
 # reduced: stablelm-1.6b MHA, hd 32, LayerNorm; glm4-9b G 2, hd 32, RMSNorm;
 # internlm2-20b and qwen2.5-32b 4 query heads over 4 KV heads (qwen with
-# QKV bias); deepseek-v2-lite-16b MLA attention and an MoE FFN of 8 experts
+# QKV bias); deepseek-v2-lite-16b MLA attention and an MoE FFN of 8 experts;
+# zamba2-2.7b five Mamba2 blocks and a dense attention block per period;
+# xlstm-350m an mLSTM and an sLSTM block per period
 GQA_ARCHS = ("stablelm-1.6b", "glm4-9b", "internlm2-20b", "qwen2.5-32b")
-ARCHS = GQA_ARCHS + ("deepseek-v2-lite-16b",)
+ARCHS = GQA_ARCHS + ("deepseek-v2-lite-16b", "zamba2-2.7b", "xlstm-350m")
 
 
 @pytest.fixture
@@ -57,8 +59,58 @@ def gqa_bridged(request):
 
 
 def _seq_leaf(caches) -> str:
-    """The first sequence leaf of a stage's caches: ``k``, or MLA's ``c_kv``."""
-    return "k" if "k" in caches[0] else "c_kv"
+    """The first cache leaf of a stage's first block: ``k``, MLA's ``c_kv``,
+    or a recurrent block's state (Mamba's ``ssd``, mLSTM's ``C``)."""
+    return next(k for k in ("k", "c_kv", "ssd", "C") if k in caches[0])
+
+
+XLSTM_NORM_TOL = 2.0 ** -8
+
+
+def _norm_gap(got, want) -> float:
+    g, w = as_np(got), as_np(want)
+    return float(np.linalg.norm(g - w) / np.linalg.norm(w))
+
+
+def _assert_stage_close(cfg, got, want):
+    """A stage output or cache leaf after several layers: at the bf16
+    tolerance, or, for xLSTM (``slstm`` in the period), norm-wise at 2^-8.
+    There the two frameworks' f32 sums in another order flip single bf16
+    roundings (each block alone agrees element-wise on fresh inputs,
+    ``test_torch_ssm.py``), and the random-weight sLSTM recurrence
+    amplifies such a flip (``r_gates`` at std 1/sqrt(H) = 0.5 over P = 32
+    inputs: the recurrent product's std is 2.8 times h's).  Measured: the
+    sound port reads 2.1e-3 and 2.4e-3 on stage 2's outputs and at most
+    3.1e-3 on the monolithic check's state leaf; the control, ``r_gates``
+    rounded to bf16, reads 4.0e-3, 4.8e-3 and 4.7e-3 / 7.4e-3 there
+    (``test_xlstm_stage_tolerance_rejects_r_gates_in_bf16``)."""
+    if "slstm" not in cfg.period:
+        assert_bf16_close(got, want)
+        return
+    assert _norm_gap(got, want) <= XLSTM_NORM_TOL
+
+
+def _caches_to_torch(caches):
+    """A JAX cache tree as the port's: bf16, f32 and int32 leaves kept."""
+    dtypes = {jnp.bfloat16: torch.bfloat16, jnp.float32: torch.float32, jnp.int32: torch.int32}
+
+    def leaf(a):
+        a = jnp.asarray(a)
+        return torch.from_numpy(np.array(a.astype(jnp.float32))).to(dtypes[a.dtype.type])
+
+    return [tuple({k: leaf(v) for k, v in c.items()} for c in stage) for stage in caches]
+
+
+def _glu(block):
+    """A block's GLU FFN: an attention block's, an MoE block's shared
+    experts, or an sLSTM block's; None for a block without one."""
+    for path in (("ffn",), ("moe", "shared"), ("slstm", "ffn")):
+        sub = block
+        for key in path:
+            sub = sub.get(key) if isinstance(sub, dict) else None
+        if sub is not None:
+            return sub
+    return None
 
 
 def _block(tree, i=0):
@@ -86,7 +138,7 @@ def test_config_matches_reference(reduced, arch):
     if reduced:
         jcfg, tcfg = jcfg.reduced(vocab_size=128), tcfg.reduced(vocab_size=128)
     for f in dataclasses.fields(tcfg):
-        if f.name in ("moe", "mla"):  # the port's own dims classes
+        if f.name in ("moe", "mla", "mamba", "xlstm"):  # the port's own dims classes
             want, got = getattr(jcfg, f.name), getattr(tcfg, f.name)
             assert (got is None) == (want is None), f.name
             if got is not None:
@@ -106,6 +158,8 @@ def test_config_matches_reference(reduced, arch):
     ("deepseek-v2-lite-16b", 15.5e9, 16.5e9),
     ("internlm2-20b", 19e9, 21e9),
     ("qwen2.5-32b", 31e9, 34e9),
+    ("zamba2-2.7b", 2.4e9, 3.2e9),
+    ("xlstm-350m", 0.3e9, 0.5e9),
 ])
 def test_param_counts_match_claimed_scale(arch, lo, hi):
     """The port's analogue of ``tests/test_models_smoke.py``'s scale check,
@@ -141,11 +195,26 @@ def test_stage_profiles_match_reference(arch):
     {"frontend": "embeds"},
 ], ids=lambda c: "-".join(f"{k}={v}" for k, v in c.items()))
 def test_unported_kinds_raise(change):
-    """The kinds and options the port does not run yet raise, naming what
-    is missing; an unknown kind is a ValueError as in the reference."""
+    """The options the port does not run yet raise NotImplementedError,
+    naming what is missing.  The recurrent kinds and ``dense_attn`` are
+    ported: they build with their dims (those of zamba2-2.7b and
+    xlstm-350m), and a recurrent period without its dims is a ValueError
+    naming them, as a ``moe_attn`` period without moe dims is."""
     cfg = tconfigs.get_config("stablelm-1.6b")
-    with pytest.raises(NotImplementedError):
-        dataclasses.replace(cfg, **change)
+    period = change.get("period")
+    if period is None:
+        with pytest.raises(NotImplementedError):
+            dataclasses.replace(cfg, **change)
+        return
+    dims = {"mamba": tconfigs.get_config("zamba2-2.7b").mamba,
+            "xlstm": tconfigs.get_config("xlstm-350m").xlstm}
+    need = {"mamba": "mamba", "mlstm": "xlstm", "slstm": "xlstm"}
+    wanted = {need[k] for k in period if k in need}
+    built = dataclasses.replace(cfg, period=period, **{k: dims[k] for k in wanted})
+    assert built.period == period
+    for k in wanted:
+        with pytest.raises(ValueError, match=f"needs {k} dims"):
+            dataclasses.replace(cfg, period=period, **{o: dims[o] for o in wanted - {k}})
 
 
 def test_unknown_kind_and_moe_without_dims_raise():
@@ -178,10 +247,10 @@ def test_init_params_tree_matches_reference(bridged):
 
 def test_bridge_casts_weights_once(bridged):
     jparams, tparams, _, _ = bridged
-    w = jparams["stages"][1]["blocks"][0]["attn"]["w_q"]
-    np.testing.assert_array_equal(
-        as_np(tparams["stages"][1]["blocks"][0]["attn"]["w_q"]), as_np(w.astype(jnp.bfloat16))
-    )
+    jblk, tblk = jparams["stages"][1]["blocks"][0], tparams["stages"][1]["blocks"][0]
+    sub, name = next((s, n) for s, n in (("attn", "w_q"), ("mamba", "in_proj"), ("mlstm", "up_proj"))
+                     if s in jblk)
+    np.testing.assert_array_equal(as_np(tblk[sub][name]), as_np(jblk[sub][name].astype(jnp.bfloat16)))
     np.testing.assert_array_equal(
         tparams["final_norm"]["scale"].numpy(), np.asarray(jparams["final_norm"]["scale"])
     )
@@ -228,9 +297,10 @@ def test_silu_glu_embed_matmul_match(bridged):
     rng = np.random.default_rng(2)
     jx, tx = _x(rng, (3, 5, 128))
     assert_bf16_close(tlayers.silu(tx), jax.nn.silu(jx))
-    jblk = _block(jparams["stages"][0]["blocks"][0])
-    tblk = tmodel._period(tparams["stages"][0]["blocks"][0], 0)
-    jffn, tffn = (blk["ffn"] if "ffn" in blk else blk["moe"]["shared"] for blk in (jblk, tblk))
+    j = next(j for j, b in enumerate(jparams["stages"][0]["blocks"]) if _glu(b) is not None)
+    jblk = _block(jparams["stages"][0]["blocks"][j])
+    tblk = tmodel._period(tparams["stages"][0]["blocks"][j], 0)
+    jffn, tffn = _glu(jblk), _glu(tblk)
     assert_bf16_close(tlayers.glu_ffn(tffn, tx), jlayers.glu_ffn(jffn, jx))
     assert_bf16_close(tlayers.matmul(tx, tffn["w_up"]), jlayers.matmul(jx, jffn["w_up"]))
     toks = rng.integers(0, 128, (2, 6)).astype(np.int32)
@@ -314,20 +384,20 @@ def test_prefill_and_ragged_decode_stage_match(bridged, op_by_op):
     for stage in (2,):
         jout, jcaches = jmodel.prefill_stage(jparams, stage, jx, jcfg, MAX_LEN)
         tout, tcaches = tmodel.prefill_stage(tparams, stage, tx, tcfg, MAX_LEN)
-        assert_bf16_close(tout, jout)
+        _assert_stage_close(tcfg, tout, jout)
         leaf = _seq_leaf(tcaches)
-        assert_bf16_close(tcaches[0][leaf], jcaches[0][leaf])
+        _assert_stage_close(tcfg, tcaches[0][leaf], jcaches[0][leaf])
         np.testing.assert_array_equal(tcaches[0]["pos"].numpy(), np.asarray(jcaches[0]["pos"]))
         # one ragged token against the prefilled caches, per-row positions
         jstep, tstep = _x(rng, (B, 1, jcfg.d_model))
         P = jcaches[0]["pos"].shape[0]
         pos = np.broadcast_to(np.array([S, S, S], np.int32), (P, B)).copy()
-        jc = (dict(jcaches[0], pos=jnp.asarray(pos)),)
-        tc = (dict(tcaches[0], pos=torch.from_numpy(pos)),)
+        jc = tuple(dict(c, pos=jnp.asarray(pos)) for c in jcaches)
+        tc = tuple(dict(c, pos=torch.from_numpy(pos)) for c in tcaches)
         jy, jnew = jmodel.decode_stage_ragged(jparams, stage, jstep, jc, jcfg)
         ty, tnew = tmodel.decode_stage_ragged(tparams, stage, tstep, tc, tcfg)
-        assert_bf16_close(ty, jy)
-        assert_bf16_close(tnew[0][leaf], jnew[0][leaf])
+        _assert_stage_close(tcfg, ty, jy)
+        _assert_stage_close(tcfg, tnew[0][leaf], jnew[0][leaf])
         np.testing.assert_array_equal(tnew[0]["pos"].numpy(), np.asarray(jnew[0]["pos"]))
 
 
@@ -346,21 +416,55 @@ def test_heads_match(bridged):
     np.testing.assert_array_equal(tt.numpy(), np.asarray(jt))
 
 
-def test_monolithic_prefill_and_decode_step_match(bridged, op_by_op):
-    jparams, tparams, jcfg, tcfg = bridged
+def _monolithic_steps(jparams, tparams, jcfg, tcfg):
+    """Prefill and two decode steps of both packages on one seeded token
+    batch, yielding (port, JAX) of (next tokens, head tokens, confidences,
+    caches) per call; read each before the next (the port's decode updates
+    its caches in place).  For xLSTM each decode step starts from the reference's
+    caches, so that one step's differences are held, not the amplified ones
+    of the steps before (``_assert_stage_close``)."""
     rng = np.random.default_rng(8)
     toks = rng.integers(0, 128, (B, S)).astype(np.int32)
-    jn, jconf, jtok, jcaches = jmodel.prefill(jparams, {"tokens": jnp.asarray(toks)}, jcfg, MAX_LEN)
-    tn, tconf, ttok, tcaches = tmodel.prefill(tparams, torch.from_numpy(toks).long(), tcfg, MAX_LEN)
-    np.testing.assert_array_equal(tn.numpy(), np.asarray(jn))
-    np.testing.assert_array_equal(ttok.numpy(), np.asarray(jtok))
-    assert_bf16_close(tconf, jconf)
+    j = jmodel.prefill(jparams, {"tokens": jnp.asarray(toks)}, jcfg, MAX_LEN)
+    t = tmodel.prefill(tparams, torch.from_numpy(toks).long(), tcfg, MAX_LEN)
+    yield t, j
     for _ in range(2):
-        step = np.array(jn)[:, None]
-        jn, jconf, jtok, jcaches = jmodel.decode_step(jparams, {"tokens": jnp.asarray(step)}, jcaches, jcfg)
-        tn, tconf, ttok, tcaches = tmodel.decode_step(tparams, torch.from_numpy(step).long(), tcaches, tcfg)
+        tcaches = _caches_to_torch(j[3]) if "slstm" in tcfg.period else t[3]
+        step = np.array(j[0])[:, None]
+        j = jmodel.decode_step(jparams, {"tokens": jnp.asarray(step)}, j[3], jcfg)
+        t = tmodel.decode_step(tparams, torch.from_numpy(step).long(), tcaches, tcfg)
+        yield t, j
+
+
+def test_monolithic_prefill_and_decode_step_match(bridged, op_by_op):
+    jparams, tparams, jcfg, tcfg = bridged
+    for n, (t, j) in enumerate(_monolithic_steps(jparams, tparams, jcfg, tcfg)):
+        (tn, tconf, ttok, tcaches), (jn, jconf, jtok, jcaches) = t, j
         np.testing.assert_array_equal(tn.numpy(), np.asarray(jn))
         np.testing.assert_array_equal(ttok.numpy(), np.asarray(jtok))
         assert_bf16_close(tconf, jconf)
-        leaf = _seq_leaf(tcaches[3])
-        assert_bf16_close(tcaches[3][0][leaf], jcaches[3][0][leaf])
+        if n:
+            leaf = _seq_leaf(tcaches[3])
+            _assert_stage_close(tcfg, tcaches[3][0][leaf], jcaches[3][0][leaf])
+
+
+def test_xlstm_stage_tolerance_rejects_r_gates_in_bf16(op_by_op):
+    """The control for ``_assert_stage_close``'s xLSTM limit: the port's
+    sLSTM recurrent weights rounded to bf16 (the reference keeps them f32
+    and casts them to the f32 state's dtype, ``ssm.py:523``) move the
+    monolithic check's state leaf past 2^-8."""
+    jparams, tparams, jcfg, tcfg = bridged_params(0, "xlstm-350m")
+
+    def rounded(tree):
+        if isinstance(tree, dict):
+            return {k: (v.bfloat16().float() if k == "r_gates" else rounded(v)) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(rounded(v) for v in tree)
+        return tree
+
+    gaps = []
+    for n, (t, j) in enumerate(_monolithic_steps(jparams, rounded(tparams), jcfg, tcfg)):
+        if n:
+            leaf = _seq_leaf(t[3][3])
+            gaps.append(_norm_gap(t[3][3][0][leaf], j[3][3][0][leaf]))
+    assert max(gaps) > XLSTM_NORM_TOL, gaps
