@@ -27,6 +27,15 @@ exits non-zero without the final result line:
      f64 check); the exit head at zamba2-2.7b's (d 2560, V 32000) and
      xlstm-350m's (d 1024, V 50304) LM heads at B 1, 8 and 32 (these from
      a generator of their own, so every earlier gate keeps its inputs);
+     from another generator of their own: flash at phi-3-vision-4.2b's
+     head dim 96 (32 heads over 32; B 8, S 104 and a 2048-token prompt,
+     with the f64 check, and in f32 at B 2, S 512), flash at mixtral-8x7b's
+     heads (32 over 8 of 128) under its 4096-key window at 4160 and 8192
+     tokens, both decode kernels at mixtral's G 4, hd 128 (dense and paged
+     at bs 16, 3 and 1) at its serve's lengths and on the 4096-key cache,
+     and the exit head at the LM heads of mixtral-8x7b (d 4096, V 32000),
+     phi-3-vision-4.2b (d 3072, V 32064) and musicgen-medium (d 1536, V
+     2048) at B 1, 8 and 32;
      each gate must also reject faults planted on the same inputs;
      the paged kernel is also held bit for bit to the dense kernel on the
      gathered cache;
@@ -84,7 +93,22 @@ exits non-zero without the final result line:
      tokens each, dense and paged, a short serve of each profiled, and one
      full-width period of each one's recurrent blocks (zamba2's first Mamba2
      block; xlstm's mLSTM and sLSTM blocks) on the card and on the CPU with
-     the same weights, norm-wise within 2^-7;
+     the same weights, norm-wise within 2^-7; then the three configs of
+     the batched steps (``serving.steps.make_prefill_step`` /
+     ``make_decode_step``), one at a time: full-width phi-3-vision-4.2b (32
+     layers, hd 96; embeddings [4, 512, 3072]) and musicgen-medium (48
+     layers, 5 stages; LayerNorm and the tanh-gelu MLP; embeddings [8, 256,
+     1536]), each a prefill and 8 decode steps (flash once per layer of the
+     prefill, the exit head once per head call, no decode kernel: the
+     steps' one-token decode is the reference's plain attention), and one
+     full-width block of each prefilled on the card and on the CPU,
+     norm-wise within 2^-7; mixtral-8x7b at full width and half depth (16
+     layers, ~23.5 B parameters) served dense and paged through the engine
+     (16 requests of 8 tokens; paged == dense), then one 4160-token prompt
+     through the steps, whose prefill leaves a ring of the window's 4096
+     slots that 8 decode steps wrap, held to a witness with full caches
+     under the window mask (tokens equal, the last hidden norm-wise within
+     2^-7);
   8. times  — each kernel at the serve's shapes (device time from the
      profiler, cold L2) beside its bound, its plain version and one library
      yardstick (none computes the paged function in one call; the exit head
@@ -99,7 +123,10 @@ exits non-zero without the final result line:
      xlstm-350m's LM heads; all three attention kernels at zamba2-2.7b's
      heads (hd 80): both decode kernels at its serve's lengths and on the
      4096-key cache, flash at its prefill batch (in turns with SDPA) and at
-     a 2048-token prompt.
+     a 2048-token prompt; the same at phi-3-vision's heads (hd 96), flash
+     under mixtral's window at 4160 and 8192 tokens (SDPA given the band as
+     a mask), both decode kernels at mixtral's G 4, and the exit head at the
+     three new LM heads.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits 2.
@@ -107,6 +134,7 @@ The line before the last is ``{"kernels": [...]}``; the last line is
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 import json
 import math
@@ -151,6 +179,22 @@ ZAMBA_FLASH = (
     ("zamba2-2.7b's prefill batch", 8, 104, 32, 32, 80),
     ("one 2048-token prompt at zamba2-2.7b's heads", 1, 2048, 32, 32, 80),
 )
+# flash_attention at phi-3-vision-4.2b's heads (hd 96): (label, B, S, Hq, KVH, hd)
+PHI_FLASH = (
+    ("phi-3-vision-4.2b's prefill batch", 8, 104, 32, 32, 96),
+    ("one 2048-token prompt at phi-3-vision-4.2b's heads", 1, 2048, 32, 32, 96),
+)
+# flash_attention at mixtral-8x7b's heads (G 4, hd 128) under its 4096-key
+# window, which bites past 4096 tokens: (label, B, S, Hq, KVH, hd, window)
+MIXTRAL_FLASH = (
+    ("one 4160-token prompt at mixtral-8x7b's heads, window 4096", 1, 4160, 32, 8, 128, 4096),
+    ("one 8192-token prompt at mixtral-8x7b's heads, window 4096", 1, 8192, 32, 8, 128, 4096),
+)
+MIXTRAL_LAYERS = 16  # mixtral-8x7b cut to half depth: ~23.5 B parameters, one H100
+MIXTRAL_REQUESTS, MIXTRAL_GEN = 16, 8  # its engine serves
+MIXTRAL_PROMPT, STEPS_DECODE = 4160, 8  # its batched steps: one prompt past the window
+# the embeds configs' batched steps: (B, prompt length) of random embeddings
+EMBEDS_STEPS = {"phi-3-vision-4.2b": (4, 512), "musicgen-medium": (8, 256)}
 
 
 _START = time.perf_counter()
@@ -801,13 +845,33 @@ def main() -> None:
         diff = (out.float() - want.float()).abs()
         return bool(diff.max() <= 2e-2), float(diff.max()), float((diff > 2e-2).float().mean())
 
+    def flash_rows_gate(out, want):
+        """(every query row, over its heads, within 2^-6 norm-wise, the
+        largest row's rel err).  Under a window of thousands of keys an
+        output's rms is ~sqrt(e / W) (0.026 at W 4096), near atol 2e-2,
+        while a band cut or grown by r keys moves a row by ~sqrt(r / W)
+        norm-wise (0.18 for one 128-key tile at W 4096)."""
+        d = torch.linalg.vector_norm((out.float() - want.float()).flatten(2), dim=-1)
+        rel = d / torch.linalg.vector_norm(want.float().flatten(2), dim=-1)
+        return bool(rel.max() <= 2**-6), float(rel.max())
+
     def flash_f64(q, k, v, causal, window):
-        """The plain version's masks and positions, every step in f64."""
+        """The plain version's masks and positions, every step in f64; past
+        2048 queries in chunks of 1024 query rows (each row's softmax is its
+        own), so the f64 scores of an 8192-token prompt stay a few GB."""
+        B, Sq, Hq, hd_ = q.shape
+        if Sq > 2048:
+            return torch.cat([flash_f64_rows(q[:, i:i + 1024], k, v, causal, window, i)
+                              for i in range(0, Sq, 1024)], dim=1)
+        return flash_f64_rows(q, k, v, causal, window)
+
+    def flash_f64_rows(q, k, v, causal, window, q0=0):
         B, Sq, Hq, hd_ = q.shape
         Sk, kvh = k.shape[1], k.shape[2]
         s = torch.einsum("bqkgd,bskd->bkgqs", q.double().reshape(B, Sq, kvh, Hq // kvh, hd_),
                          k.double()) / math.sqrt(hd_)
-        q_pos, k_pos = torch.arange(Sq, device=dev)[:, None], torch.arange(Sk, device=dev)[None, :]
+        q_pos = torch.arange(q0, q0 + Sq, device=dev)[:, None]
+        k_pos = torch.arange(Sk, device=dev)[None, :]
         keep = torch.ones((Sq, Sk), dtype=torch.bool, device=dev)
         if causal:
             keep &= q_pos >= k_pos
@@ -825,22 +889,38 @@ def main() -> None:
         ("Sq = 1", (2, 1, 50, 8, 2, 32), True, None),
         ("S not a multiple of 64", (3, 77, 77, 8, 2, 32), True, None),
     ]
-    def flash_case(label, shape, causal=True, window=None, g=gen):
+    def flash_case(label, shape, causal=True, window=None, g=gen, f32_scores=False):
         """The kernel against the plain version at atol 2e-2 and, since the
         plain version rounds the scores to bf16 as the reference does and
         the kernel keeps them in f32, no farther than it from the f64
-        answer.  Returns (q, k, v, the plain version's output, max|err|)."""
+        answer.  Returns (q, k, v, the plain version's output, max|err|).
+        With ``f32_scores`` the element-wise gate's plain version runs on
+        the inputs in f32 (its scores, probabilities and mix in f32, within
+        1e-6 of the f64 answer), that output is returned, and every query
+        row is also held to it at 2^-6 norm-wise (``flash_rows_gate``):
+        over a band of thousands of keys the bf16 scores alone move an
+        output by up to 0.02 (1000- and 4096-key windows on an H100: the
+        bf16-score plain version 0.013-0.021 from f64, the kernel
+        0.008-0.009), about an output's own size."""
         q, k, v = flash_inputs(*shape, g)
         o = kflash.flash_attention(q, k, v, causal=causal, window=window)
-        want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+        plain = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+        want = (ref.flash_attention_ref(q.float(), k.float(), v.float(), causal=causal, window=window)
+                if f32_scores else plain)
         ok, err, out_share = flash_gate(o, want)
         B, Sq, Sk, hq, kvh, hd_ = shape
         check(f"flash_attention {label} B={B} Sq={Sq} Sk={Sk} Hq={hq} KVH={kvh} hd={hd_}", ok,
-              f"max|err| {err:.3g} (atol 2e-2), {out_share:.2%} of elements outside")
+              f"max|err| {err:.3g} (atol 2e-2) to the {'f32-score ' if f32_scores else ''}plain "
+              f"version, {out_share:.2%} of elements outside")
+        if f32_scores:
+            ok_r, rel_r = flash_rows_gate(o, want)
+            check(f"flash_attention {label}: every query row within 2^-6 norm-wise of the f32-score "
+                  "plain version", ok_r, f"max row rel err {rel_r:.3g} (tol 2^-6 = {2**-6:.3g})")
         exact = flash_f64(q, k, v, causal, window)
-        err_k, err_p = (float((x.double() - exact).abs().max()) for x in (o, want))
+        err_k, err_p = (float((x.double() - exact).abs().max()) for x in (o, plain))
         check(f"flash_attention {label}: no farther from the f64 answer than the plain version",
               err_k <= err_p, f"max|kernel - f64| {err_k:.3g}, max|plain - f64| {err_p:.3g}")
+        del plain, exact
         return q, k, v, want, err
 
     for label, shape, causal, window in flash_cases:
@@ -911,6 +991,116 @@ def main() -> None:
         d_, V_ = acfg.d_model, acfg.vocab_size
         for B in (1, BATCH, 32):
             h, w = head_inputs(B, d_, V_, gen80)
+            c, i = kexit.exit_confidence(h, w)
+            cr, ir = ref.exit_confidence_ref(h, w)
+            ok, err, rel = conf_close(c, cr)
+            check(f"exit_confidence {arch}'s head B={B} d={d_} V={V_} ({kexit.grid_ctas(V_, kexit._ctas(dev))} "
+                  f"CTAs over {-(-V_ // kexit.UNIT)} units)", ok and torch.equal(i, ir),
+                  f"conf max|err| {err:.3g} (atol 1e-3), max rel err {rel:.3g} (rtol 1e-4), argmax "
+                  f"equal {torch.equal(i, ir)}")
+            max_err[f"exit_confidence {arch}"] = max(max_err.get(f"exit_confidence {arch}", 0.0), err)
+        c_f, _ = kexit.exit_confidence(h, w[:, : V_ - 256].contiguous())
+        ok, err, rel = conf_close(c_f, cr)
+        check(f"exit_confidence gate rejects a dropped vocab tile at d={d_} V={V_}", not ok,
+              f"conf max|err| {err:.3g}, max rel err {rel:.3g}")
+        del h, w, c_f
+
+    # The kernels of the three configs served through the batched steps
+    # (mixtral-8x7b, phi-3-vision-4.2b, musicgen-medium), from a generator of
+    # their own, so that every gate above and every later phase keeps its
+    # inputs:
+    # - flash at phi-3-vision's heads (32 over 32 of 96) at a prefill batch
+    #   of B 8, S 104 and a 2048-token prompt, with the f64 check, and in f32
+    #   at B 2, S 512 (atol 2e-5);
+    # - flash at the prefill shapes the later phases give it: the embeds
+    #   configs' batched steps and mixtral's first engine prefill batch;
+    # - flash at mixtral's heads (32 over 8 of 128, G 4) under its 4096-key
+    #   window at 4160 and 8192 tokens, where the window bites, held to the
+    #   f32-score plain version element-wise and row by row norm-wise
+    #   (``flash_case``), and to the f64 answer;
+    # - both decode kernels at mixtral's G 4, hd 128 (the engine serve's
+    #   shape) at its serve's lengths and on the 4096-key cache, paged at bs
+    #   16, 3 and 1;
+    # - the exit head at the three LM heads, B 1, 8 and 32 and the batched
+    #   steps' B.
+    # Each gate is shown to reject a planted fault on its inputs.
+    xcfg_full, pcfg, gcfg = (get_config(a) for a in ("mixtral-8x7b", "phi-3-vision-4.2b",
+                                                     "musicgen-medium"))
+    gen96 = torch.Generator(device=dev).manual_seed(SEED + 3)
+    for n_shape, (label, B, S, hq, kvh, hd_) in enumerate(PHI_FLASH):
+        q, k, v, want, err = flash_case(label, (B, S, S, hq, kvh, hd_), g=gen96)
+        if n_shape == 0:
+            max_err["flash_attention hd 96"] = err
+            fault, kf, vf = ("K/V shifted by one position", torch.roll(k, -1, dims=1),
+                             torch.roll(v, -1, dims=1))
+        else:
+            fault, kf, vf = ("the last key tile dropped", k[:, :-128].contiguous(),
+                             v[:, :-128].contiguous())
+        ok, err, out_share = flash_gate(kflash.flash_attention(q, kf, vf), want)
+        check(f"flash_attention hd={hd_} {label} gate rejects a planted fault: {fault}", not ok,
+              f"max|err| {err:.3g}, {out_share:.2%} of elements outside")
+        del q, k, v, kf, vf, want
+    # flash at the prefill shapes of the main path's new runs, not at a
+    # gate above: the embeds configs' batched steps (phi-3-vision B 4, S 512,
+    # 32 heads of 96; musicgen B 8, S 256, 24 heads of 64) and mixtral's
+    # first engine prefill batch (G 4 under the window, which does not bite)
+    x_heads = (xcfg_full.num_heads, xcfg_full.num_kv_heads, xcfg_full.head_dim)
+    x_prompts = [tok for _, tok in poisson_requests(xcfg_full, rcfg, duration=60.0)][:MIXTRAL_REQUESTS]
+    x_first = max(map(len, x_prompts[:BATCH]))
+    path_flash = [(f"{arch}'s batched-steps prefill", (B_, S_, S_, c.num_heads, c.num_kv_heads,
+                                                       c.head_dim), None)
+                  for arch, (B_, S_) in EMBEDS_STEPS.items() for c in (get_config(arch),)]
+    path_flash.append(("mixtral-8x7b's first engine prefill batch",
+                       (BATCH, x_first, x_first, *x_heads), xcfg_full.sliding_window))
+    for label, shape, window in path_flash:
+        q, k, v, want, err = flash_case(label, shape, True, window, g=gen96)
+        ok, err_f, out_share = flash_gate(kflash.flash_attention(q, torch.roll(k, -1, dims=1),
+                                                                 torch.roll(v, -1, dims=1),
+                                                                 window=window), want)
+        check(f"flash_attention {label} gate rejects a planted fault: K/V shifted by one position",
+              not ok, f"max|err| {err_f:.3g}, {out_share:.2%} of elements outside")
+        del q, k, v, want
+    q, k, v = (t.float() for t in flash_inputs(2, 512, 512, 32, 32, 96, gen96))
+    want = ref.flash_attention_ref(q, k, v)
+    err = float((kflash.flash_attention(q, k, v) - want).abs().max())
+    err_f = float((kflash.flash_attention(q, torch.roll(k, -1, dims=1), torch.roll(v, -1, dims=1))
+                   - want).abs().max())
+    check("flash_attention f32 hd=96 B=2 S=512 Hq=32 KVH=32 (CUDA cores)", err <= 2e-5 < err_f,
+          f"max|err| {err:.3g} (atol 2e-5); K/V shifted by one position: max|err| {err_f:.3g}, "
+          f"rejected {err_f > 2e-5}")
+    del q, k, v, want
+    for n_shape, (label, B, S, hq, kvh, hd_, window) in enumerate(MIXTRAL_FLASH):
+        q, k, v, want, err = flash_case(label, (B, S, S, hq, kvh, hd_), True, window, g=gen96,
+                                        f32_scores=True)
+        if n_shape == 0:
+            max_err["flash_attention window"] = err
+        # the planted faults: the band one 128-key tile short or long (at
+        # 4160 tokens the long one reaches key 0, as no window would)
+        for fault, w_f in (("the window one 128-key tile short", window - 128),
+                           ("the window one 128-key tile long", window + 128)):
+            o_f = kflash.flash_attention(q, k, v, window=w_f)
+            ok, err_f, out_share = flash_gate(o_f, want)
+            ok_r, rel_r = flash_rows_gate(o_f, want)
+            check(f"flash_attention {label} gate rejects a planted fault: {fault}", not (ok and ok_r),
+                  f"max|err| {err_f:.3g}, {out_share:.2%} of elements outside; max row rel err "
+                  f"{rel_r:.3g}")
+            del o_f
+        del q, k, v, want
+    x_max_len = max(map(len, x_prompts)) + MIXTRAL_GEN
+    x_lengths = [len(p) + MIXTRAL_GEN // 2 for p in x_prompts[:BATCH]]
+    x_decode = (("serve lengths", x_max_len, x_lengths), ("long cache", LONG_S, LONG_LENGTHS))
+    for label, S, lengths in x_decode:
+        faults = (((DROP_TOKEN,), (NEIGHBOUR,)) if label == "serve lengths" else
+                  ((DROP_SPLIT, SKIP_COMBINE), (SKIP_COMBINE_PAGED,)))
+        errs = decode_gate(f"mixtral-8x7b {label}", x_heads, S, lengths, gen96, (BLOCK, 3, 1), *faults)
+        if label == "serve lengths":
+            max_err["decode_attention G 4"], max_err["paged_decode_attention G 4"] = errs
+    for arch, acfg in (("mixtral-8x7b", xcfg_full), ("phi-3-vision-4.2b", pcfg),
+                       ("musicgen-medium", gcfg)):
+        d_, V_ = acfg.d_model, acfg.vocab_size
+        # B 1, 8 and 32, and the batched steps' B
+        for B in sorted({1, BATCH, 32, EMBEDS_STEPS.get(arch, (1,))[0]}):
+            h, w = head_inputs(B, d_, V_, gen96)
             c, i = kexit.exit_confidence(h, w)
             cr, ir = ref.exit_confidence_ref(h, w)
             ok, err, rel = conf_close(c, cr)
@@ -1764,6 +1954,209 @@ def main() -> None:
         del m_engine, m_params
         free(arch)
 
+    # The three configs served through the batched prefill / decode steps
+    # (``serving.steps.make_prefill_step`` / ``make_decode_step``), each at
+    # full width, one at a time.  Each run's kernel launches are counted
+    # (the counts set to 0 just before it, read just after): flash once per
+    # layer in a prefill, the exit head once per head call (every call under
+    # 64 rows), and neither decode kernel (the steps' one-token decode is
+    # the reference's plain attention).
+    from repro_torch.serving import make_decode_step, make_prefill_step
+
+    step_counts = {}  # model -> the kernels' launches in its steps run
+    steps_gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+
+    def run_steps(mcfg, m_params, batch, next_batch, max_len, label):
+        """``make_prefill_step`` on ``batch``, then ``STEPS_DECODE``
+        ``make_decode_step`` calls on ``next_batch(out)``; checks the
+        launches, that every cache position advanced and that every output is
+        finite and in range.  Returns (outputs per call, counts, wall); the
+        prefill's output also holds ``slot_pos_after_prefill``, a copy of its
+        first ring's slot positions (None without a ring), since the decode
+        steps update the caches in place."""
+        thr = torch.full((len(mcfg.exit_stages),), 0.5, device=dev)
+        prefill, decode = make_prefill_step(mcfg, max_len), make_decode_step(mcfg)
+        zero_counts()
+        outs = []
+        with head_calls() as rows:
+            t0 = time.perf_counter()
+            out = prefill(m_params, batch, thr)
+            torch.cuda.synchronize()
+            t_pre = time.perf_counter() - t0
+            ring = out["caches"][0][0].get("slot_pos")
+            outs.append(dict(out, slot_pos_after_prefill=None if ring is None else ring.clone()))
+            steps_s = []
+            for _ in range(STEPS_DECODE):
+                t1 = time.perf_counter()
+                out = decode(m_params, next_batch(out), out["caches"], thr)
+                torch.cuda.synchronize()
+                steps_s.append(time.perf_counter() - t1)
+                outs.append(out)
+            wall = time.perf_counter() - t0
+        counts = read_counts()
+        B, n_calls = outs[0]["token"].shape[0], 1 + STEPS_DECODE
+        n_heads = len(mcfg.exit_stages) + 1
+        print(f"{label} batched steps: prefill {t_pre:.3f} s, {STEPS_DECODE} decode steps "
+              f"{wall - t_pre:.3f} s (the first {steps_s[0] * 1e3:.1f} ms, the median "
+              f"{float(np.median(steps_s)) * 1e3:.1f} ms), "
+              f"{B * n_calls} tokens in {wall:.3f} s ({B * n_calls / wall:.1f} tokens/s); peak device "
+              f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; kernel launches {counts}; "
+              f"exit stages of the last call {outs[-1]['exit_stage'].tolist()}", flush=True)
+        check(f"{label} steps launched flash once per layer of the prefill",
+              counts["flash_attention"] == mcfg.num_layers, f"{counts['flash_attention']} launches")
+        check(f"{label} steps launched no decode kernel (the plain one-token attention)",
+              counts["decode_attention"] == counts["paged_decode_attention"] == 0, f"{counts}")
+        check_head_passes(f"{label} steps", rows, counts["exit_confidence"])
+        check(f"{label} steps: every head of every call ran", len(rows) == n_calls * n_heads,
+              f"{len(rows)} head calls for {n_calls} calls x {n_heads} heads")
+        S = batch["embeds" if "embeds" in batch else "tokens"].shape[1]
+        pos_ok = all(bool(torch.all(c["pos"] == S + STEPS_DECODE))
+                     for stage in outs[-1]["caches"] for c in stage)
+        fine = all(bool(torch.isfinite(o["exit_conf"]).all()) and bool(((o["exit_conf"] >= 0)
+                   & (o["exit_conf"] <= 1)).all()) and bool(((o["token"] >= 0)
+                   & (o["token"] < mcfg.vocab_size)).all()) for o in outs)
+        check(f"{label} steps: outputs finite and in range, every cache at position {S + STEPS_DECODE}",
+              pos_ok and fine, f"positions advanced {pos_ok}; conf in [0, 1] and tokens in the vocab "
+              f"{fine}")
+        step_counts[label] = counts
+        return outs, counts, wall
+
+    def block_card_vs_cpu(mcfg, m_params, label):
+        """Stage 1's first block (attention + FFN) prefilled on the card with
+        the kernels (flash) and on the CPU with the plain versions, same
+        weights and input (B 2, S 160: two 128-row query tiles), norm-wise
+        at 2^-7 on the output and on the K cache."""
+        blk = model_lib._period(m_params["stages"][0]["blocks"][0], 0)
+        x = torch.randn((2, 160, mcfg.d_model), generator=steps_gen, device=dev).bfloat16()
+        pos = torch.arange(160, dtype=torch.int32, device=dev)
+        t0 = time.perf_counter()
+        n0 = kflash.flash_attention.launches
+        y_c, c_c = model_lib._block_apply("attn", blk, x, mcfg, pos, "prefill", 161)
+        torch.cuda.synchronize()
+        n_flash = kflash.flash_attention.launches - n0
+        y_h, c_h = model_lib._block_apply("attn", model_lib.params_to(blk, "cpu"), x.cpu(), mcfg,
+                                          pos.cpu(), "prefill", 161)
+        rel_y, rel_k = rel_norm(y_c.cpu(), y_h), rel_norm(c_c["k"].cpu(), c_h["k"])
+        check(f"{label} one full-width block ({mcfg.norm}, {mcfg.num_heads} heads of "
+              f"{mcfg.head_dim}, {mcfg.ffn} FFN with {mcfg.act}), card (flash) vs CPU (plain), "
+              f"prefill B 2 S 160 ({time.perf_counter() - t0:.1f} s)",
+              rel_y <= 2**-7 and rel_k <= 2**-7 and n_flash == 1,
+              f"norm-wise rel output {rel_y:.3g}, K cache {rel_k:.3g} (tol 2^-7 = {2**-7:.3g}); "
+              f"flash launches on the card {n_flash}")
+
+    for arch, (B_, S_) in EMBEDS_STEPS.items():
+        phase(f"{arch} through the batched steps")
+        mcfg = get_config(arch)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        m_params = model_lib.init_params(mcfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+        torch.cuda.synchronize()
+        n = sum(t.numel() for t in torch.utils._pytree.tree_leaves(m_params))
+        print(f"{arch} full width: {mcfg.num_layers} layers, {mcfg.num_stages} stages (exits after "
+              f"{mcfg.exit_stages}), d {mcfg.d_model}, {mcfg.num_heads} heads of {mcfg.head_dim}, "
+              f"{mcfg.norm}, {mcfg.ffn} FFN d_ff {mcfg.d_ff} ({mcfg.act}), vocab {mcfg.vocab_size}, "
+              f"embeddings in; {n / 1e9:.3f} B params ({n * 2 / 1e9:.1f} GB in bf16); set-up "
+              f"{time.perf_counter() - t0:.1f} s; batch B {B_}, S {S_}", flush=True)
+
+        def embeds(s_len, B=B_, d_=mcfg.d_model):
+            return {"embeds": (torch.randn((B, s_len, d_), generator=steps_gen, device=dev) * 0.1)
+                    .bfloat16()}
+
+        run_steps(mcfg, m_params, embeds(S_), lambda out: embeds(1), S_ + STEPS_DECODE, arch)
+        block_card_vs_cpu(mcfg, m_params, arch)
+        heads[arch] = m_params["lm_head"]
+        del m_params
+        free(arch)
+
+    # mixtral-8x7b at full width and half depth (16 layers, 4 periods per
+    # stage; the full 32 layers need ~93 GB): served dense and paged through
+    # the engine (full caches: max_len lies far within the window), then one
+    # 4160-token prompt through the batched steps, whose prefill leaves a
+    # ring of the window's 4096 slots (positions 64..4159) that the 8 decode
+    # steps wrap.  Witness, block by block: each decode block's attention
+    # (``attention.gqa_decode``) on the ring run's input to it, against a
+    # full max_len cache of the prefill's keys and values under the window
+    # mask (the reference's other branch), carried through the 8 steps.
+    # The ring keeps its keys in slot order, a rotation of the positions, so
+    # P V sums the same terms in another order: the outputs are held to the
+    # ring's at the bf16 tolerance and at 2^-7 norm-wise, and the gate is
+    # shown to reject the witness's window one 128-key tile short.
+    phase("mixtral-8x7b (16 layers) serve and batched steps")
+    xcfg = dataclasses.replace(xcfg_full, num_layers=MIXTRAL_LAYERS)
+    x_engine, x_params, _ = serve_model(xcfg, MIXTRAL_REQUESTS, MIXTRAL_GEN,
+                                        ("exit_confidence", "decode_attention", "flash_attention"),
+                                        ("paged_decode_attention", "flash_attention"))
+    del x_engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    x_tokens = torch.randint(0, xcfg.vocab_size, (1, MIXTRAL_PROMPT), generator=steps_gen, device=dev)
+    from repro_torch.models import attention as attention_lib
+
+    real_cache, real_attn = model_lib._cache_from_kv, attention_lib.gqa_decode
+    prefill_kv, ring_attn = [], []  # per layer (k, v, dims); per decode block (params, x, dims, out)
+
+    def recording_cache(k_, v_, dims, len_):
+        prefill_kv.append((k_.clone(), v_.clone(), dims))
+        return real_cache(k_, v_, dims, len_)
+
+    def recording_attn(p_, x_, cache_, dims):
+        out_, c_ = real_attn(p_, x_, cache_, dims)
+        ring_attn.append((p_, x_.clone(), dims, out_.clone()))
+        return out_, c_
+
+    model_lib._cache_from_kv, attention_lib.gqa_decode = recording_cache, recording_attn
+    try:
+        ring_outs, _, _ = run_steps(xcfg, x_params, {"tokens": x_tokens},
+                                    lambda out: {"tokens": out["token"][:, None]},
+                                    MIXTRAL_PROMPT + STEPS_DECODE, "mixtral-8x7b")
+    finally:
+        model_lib._cache_from_kv, attention_lib.gqa_decode = real_cache, real_attn
+    x_len, x_W, n_layers = MIXTRAL_PROMPT + STEPS_DECODE, xcfg.sliding_window, xcfg.num_layers
+    attn_rel, attn_close, fault = [], True, None
+    for layer, (k_, v_, dims) in enumerate(prefill_kv):
+        full = real_cache(k_, v_, dataclasses.replace(dims, sliding_window=None), x_len)
+        for t in range(STEPS_DECODE):
+            p_, x_, dims_, out_ring = ring_attn[t * n_layers + layer]
+            if layer == 0 and t == STEPS_DECODE - 1:
+                short = dict(full, k=full["k"].clone(), v=full["v"].clone())
+                o_f, _ = real_attn(p_, x_, short,
+                                   dataclasses.replace(dims_, sliding_window=x_W - 128))
+                fault = (bf16_close(o_f, out_ring)[0] and rel_norm(o_f, out_ring) <= 2**-7,
+                         rel_norm(o_f, out_ring))
+                del short, o_f
+            out_w, full = real_attn(p_, x_, full, dims_)
+            attn_close &= bf16_close(out_w, out_ring)[0]
+            attn_rel.append(rel_norm(out_w, out_ring))
+        witness_k = tuple(full["k"].shape)
+        del full
+    ring_c = ring_outs[-1]["caches"][0][0]
+    slot_pos = ring_outs[0]["slot_pos_after_prefill"]
+    check("mixtral-8x7b steps: the prefill left a ring of the window's slots, wrapped by decode",
+          tuple(ring_c["k"].shape[2:3]) == (x_W,) and witness_k[1] == x_len
+          and bool(torch.equal(torch.sort(slot_pos[0]).values,
+                               torch.arange(MIXTRAL_PROMPT - x_W, MIXTRAL_PROMPT, device=dev,
+                                            dtype=torch.int32)))
+          and bool(torch.equal(torch.sort(ring_c["slot_pos"][0]).values,
+                               torch.arange(x_len - x_W, x_len, device=dev, dtype=torch.int32))),
+          f"ring k {tuple(ring_c['k'].shape)}, after prefill positions "
+          f"{int(slot_pos[0].min())}..{int(slot_pos[0].max())}, after decode "
+          f"{int(ring_c['slot_pos'][0].min())}..{int(ring_c['slot_pos'][0].max())}; witness k "
+          f"{witness_k}")
+    n_blocks = STEPS_DECODE * n_layers
+    check("mixtral-8x7b steps: each decode block's ring attention against the full-cache witness "
+          "under the window mask, on the ring run's inputs",
+          len(prefill_kv) == n_layers and len(ring_attn) == len(attn_rel) == n_blocks and attn_close
+          and max(attn_rel) <= 2**-7,
+          f"{len(attn_rel)} of {n_blocks} blocks, max norm-wise rel {max(attn_rel):.3g} (tol 2^-7), "
+          f"all at the bf16 tolerance element-wise {attn_close}")
+    check("mixtral-8x7b steps: the witness gate rejects a planted fault: the window one 128-key "
+          "tile short (layer 0, the last step)", fault is not None and not fault[0],
+          f"norm-wise rel {fault[1]:.3g}" if fault else "not run")
+    heads["mixtral-8x7b"] = x_params["lm_head"]
+    del x_params, ring_outs, ring_c, prefill_kv, ring_attn
+    free("mixtral-8x7b")
+
     # -- 8. times -------------------------------------------------------------
     phase("times (device time from the profiler, cold L2, mean over launches)")
     flush = L2Flush(dev)
@@ -1807,16 +2200,18 @@ def main() -> None:
         return t_k, t_p, t_l, bound, "bytes" if b_bytes >= b_ops else "operations"
 
     # every LM head at B 1, 8 and 32, medians of 4 in turns.  The entries:
-    # stablelm-1.6b's head (launches in its serve), and the heads of
-    # zamba2-2.7b and xlstm-350m (launches in their dense serves)
+    # stablelm-1.6b's head (launches in its serve), the heads of zamba2-2.7b,
+    # xlstm-350m and mixtral-8x7b (launches in their dense serves), and those
+    # of phi-3-vision-4.2b and musicgen-medium (launches in their steps runs)
     head_entries = {"stablelm-1.6b": ("exit_confidence", launches["exit_confidence"],
                                       max_err["exit_confidence"])}
-    for arch, tag in (("zamba2-2.7b", "zamba2"), ("xlstm-350m", "xlstm")):
-        head_entries[arch] = (f"exit_confidence_{tag}_head",
-                              serve_counts[arch]["dense"]["exit_confidence"],
+    for arch, tag in (("zamba2-2.7b", "zamba2"), ("xlstm-350m", "xlstm"), ("mixtral-8x7b", "mixtral"),
+                      ("phi-3-vision-4.2b", "phi3"), ("musicgen-medium", "musicgen")):
+        counts = serve_counts[arch]["dense"] if arch in serve_counts else step_counts[arch]
+        head_entries[arch] = (f"exit_confidence_{tag}_head", counts["exit_confidence"],
                               max_err[f"exit_confidence {arch}"])
     for arch in ("stablelm-1.6b", "glm4-9b", "deepseek-v2-lite-16b", "internlm2-20b", "qwen2.5-32b",
-                 "zamba2-2.7b", "xlstm-350m"):
+                 "zamba2-2.7b", "xlstm-350m", "mixtral-8x7b", "phi-3-vision-4.2b", "musicgen-medium"):
         print(f"{arch}'s LM head:")
         w_lm = heads.pop(arch)
         for B in (1, BATCH, 32):
@@ -1973,53 +2368,93 @@ def main() -> None:
                 "bound_by": t["paged_bound_by"], "library_ms": None,
             }]
 
+    # mixtral-8x7b's attention at G 4, hd 128: both decode kernels at its
+    # engine serve's lengths (the entries) and on the long cache.  Launches:
+    # the mixtral serves' (dense for decode, paged for paged decode).
+    x_counts = serve_counts["mixtral-8x7b"]
+    for label, S, lengths in x_decode:
+        t = time_decode(f"mixtral-8x7b {label}", x_heads, S, lengths, gen96)
+        if label == "serve lengths":
+            kernels_out += [{
+                "name": "decode_attention_g4", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+                "replaces": "src/repro/kernels/decode_attention.py:124",
+                "launches": x_counts["dense"]["decode_attention"],
+                "max_abs_err": max_err["decode_attention G 4"], "ms": t["ms"],
+                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                "library_ms": t["library_ms"],
+            }, {
+                "name": "paged_decode_attention_g4", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/paged_decode_attention.cu",
+                "replaces": "src/repro/kernels/paged_decode_attention.py:148",
+                "launches": x_counts["paged"]["paged_decode_attention"],
+                "max_abs_err": max_err["paged_decode_attention G 4"], "ms": t["paged_ms"],
+                "plain_ms": t["paged_plain_ms"], "bound_ms": t["paged_bound_ms"],
+                "bound_by": t["paged_bound_by"], "library_ms": None,
+            }]
+
     # prefill flash attention at every timed shape, stablelm's and glm4's
-    # heads, then zamba2's at hd 80; the first of each is its entry.  At the
-    # B 8 shapes the kernel and SDPA are timed in turns (medians of 4), each
-    # reading printed with its launches' spread: one reading in a run has
-    # come out 2x off before.
-    def time_flash(label, B, S, hq, kvh, hd_, g=gen):
+    # heads, then zamba2's at hd 80, phi-3-vision's at hd 96 and mixtral's
+    # under its window; the first of each is its entry.  At the shapes of
+    # more than one batch row the kernel and SDPA are timed in turns
+    # (medians of 4), each reading printed with its launches' spread: one
+    # reading in a run has come out 2x off before.  Under a window, SDPA
+    # takes the band as a boolean mask, and the bound counts the band's
+    # (row, key) pairs.
+    def time_flash(label, B, S, hq, kvh, hd_, g=gen, window=None):
         q, k, v = flash_inputs(B, S, S, hq, kvh, hd_, g)
+        band = None
+        if window is not None:
+            pos = torch.arange(S, device=dev)
+            band = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
 
         def library_flash():
             return F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                                  v.transpose(1, 2), is_causal=True, enable_gqa=True)
+                                                  v.transpose(1, 2), attn_mask=band,
+                                                  is_causal=band is None, enable_gqa=True)
 
         def kernel_flash():
-            return kflash.flash_attention(q, k, v)
+            return kflash.flash_attention(q, k, v, window=window)
 
         lib_err = float((library_flash().transpose(1, 2).float()
-                         - ref.flash_attention_ref(q, k, v).float()).abs().max())
+                         - ref.flash_attention_ref(q, k, v, window=window).float()).abs().max())
         turns = [("kernel", kernel_flash), ("library", library_flash)]
-        if B == BATCH:
+        if B > 1:
             turns = (turns + turns[::-1]) * 2
         readings = {"kernel": [], "library": []}
         for tag, fn in turns:
             st = {}
             readings[tag].append((time_cold(fn, 100, flush, stats=st), launch_summary(st)))
         t_k, t_l = (float(np.median([ms for ms, _ in readings[tag]])) for tag in ("kernel", "library"))
-        t_p = time_cold(lambda: ref.flash_attention_ref(q, k, v), 10, flush)
+        t_p = time_cold(lambda: ref.flash_attention_ref(q, k, v, window=window), 10, flush)
         bytes_ = 2 * q.numel() * 2 + 2 * k.numel() * 2  # q and out, k and v
-        flops = 4 * B * hq * hd_ * (S * (S + 1) // 2)  # QK^T and PV over the causal triangle
+        # (row, key) pairs of the causal triangle, or of the window's band
+        pairs = S * (S + 1) // 2 if window is None else sum(min(i + 1, window) for i in range(S))
+        flops = 4 * B * hq * hd_ * pairs  # QK^T and PV over them
         b_bytes, b_ops = bytes_ / HBM_BW * 1e3, flops / PEAK_FLOPS_BF16 * 1e3
         by = "bytes" if b_bytes >= b_ops else "operations"
-        print(f"flash_attention {label} B={B} S={S} Hq={hq} KVH={kvh} hd={hd_}: kernel {t_k:.4f} ms, "
-              f"plain {t_p:.4f} ms, library (SDPA, is_causal, enable_gqa; max|diff| vs plain "
+        print(f"flash_attention {label} B={B} S={S} Hq={hq} KVH={kvh} hd={hd_} window={window}: kernel "
+              f"{t_k:.4f} ms, plain {t_p:.4f} ms, library (SDPA, {'is_causal' if band is None else 'band mask'}, "
+              f"enable_gqa; max|diff| vs plain "
               f"{lib_err:.3g}) {t_l:.4f} ms, bound {max(b_bytes, b_ops):.5f} ms ({by}: "
               f"{bytes_ / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)")
         for tag, rs in readings.items():
             for ms, summary in rs:
                 print(f"  {tag} {ms:.5f} ms: {summary}")
-        del q, k, v
+        del q, k, v, band
         return {"ms": t_k, "plain_ms": t_p, "bound_ms": max(b_bytes, b_ops), "bound_by": by,
                 "library_ms": t_l}
 
     for entry, shapes, g, n_launch, err_key in (
             ("flash_attention", FLASH_SHAPES, gen, launches["flash_attention"], "flash_attention"),
             ("flash_attention_hd80", ZAMBA_FLASH, gen80, z_counts["dense"]["flash_attention"],
-             "flash_attention hd 80")):
+             "flash_attention hd 80"),
+            ("flash_attention_hd96", PHI_FLASH, gen96, step_counts["phi-3-vision-4.2b"]["flash_attention"],
+             "flash_attention hd 96"),
+            ("flash_attention_window", MIXTRAL_FLASH, gen96,
+             step_counts["mixtral-8x7b"]["flash_attention"], "flash_attention window")):
         for n_shape, shape in enumerate(shapes):
-            t = time_flash(*shape, g)
+            t = time_flash(*shape[:6], g, *shape[6:])
             if n_shape == 0:
                 kernels_out.append({
                     "name": entry, "route": "cuda",

@@ -10,9 +10,12 @@ GLU FFN (``"attn"``, and zamba2's ``"dense_attn"``, which runs as ``"attn"``
 does) or a mixture-of-experts FFN (``"moe_attn"``), each with GQA or, where
 ``mla`` is set, DeepSeek's multi-head latent attention; Mamba2 blocks
 (``"mamba"``, with ``mamba`` dims); and xLSTM's ``"mlstm"`` and ``"slstm"``
-blocks (with ``xlstm`` dims).  Sliding-window caches, the two-matmul MLP FFN
-and the embeds frontend arrive with their modules (ROADMAP queue 1, item 7),
-and this class rejects them until then.
+blocks (with ``xlstm`` dims).  Attention may take a sliding window
+(``sliding_window``: the monolithic steps then keep a ring cache of that
+many keys), the FFN may be the two-matmul ``"mlp"`` (with ``act="gelu"``,
+the tanh approximation), and ``frontend="embeds"`` feeds precomputed
+embeddings ``[B, S, d_model]`` instead of tokens (the model then has no
+embedding table).
 """
 from __future__ import annotations
 
@@ -71,21 +74,6 @@ class ArchConfig:
             dims = _KIND_DIMS.get(kind)
             if dims is not None and getattr(self, dims) is None:
                 raise ValueError(f"{self.name}: a {kind!r} period needs {dims} dims")
-        if self.sliding_window is not None:
-            raise NotImplementedError(
-                "sliding-window ring caches are not ported yet (ROADMAP queue 1, item 7); "
-                "the port serves full-attention caches only"
-            )
-        if self.ffn != "glu":
-            raise NotImplementedError(
-                "the two-matmul MLP FFN with the tanh gelu is not ported yet (ROADMAP queue 1, "
-                "item 7); the port runs the GLU FFN"
-            )
-        if self.frontend != "tokens":
-            raise NotImplementedError(
-                "the embeds frontend is not ported yet (ROADMAP queue 1, item 7); the port "
-                "embeds tokens"
-            )
         if self.num_layers % len(self.period) != 0:
             raise ValueError(
                 f"{self.name}: num_layers={self.num_layers} not divisible by "
@@ -137,6 +125,7 @@ class ArchConfig:
             d_ff=256 if self.d_ff else 0,
             vocab_size=512,
             head_dim=32,
+            sliding_window=32 if self.sliding_window else None,
             q_chunk=64,
         )
         if self.moe is not None:

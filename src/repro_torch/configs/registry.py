@@ -1,9 +1,6 @@
 """Architecture registry of the port: ``--arch <id>`` -> ArchConfig.
 
-It holds only the architectures the port can run.  The JAX package's others
-(mixtral-8x7b: sliding window rings; musicgen-medium: the tanh-gelu MLP and
-the embeds frontend; phi-3-vision-4.2b: the embeds frontend) arrive with
-their modules (ROADMAP queue 1, item 7).
+Every architecture of ``repro.configs.registry`` (the same ten ids).
 """
 from __future__ import annotations
 
@@ -20,6 +17,9 @@ _MODULES: dict[str, str] = {
     "deepseek-v2-lite-16b": "repro_torch.configs.deepseek_v2_lite_16b",
     "zamba2-2.7b": "repro_torch.configs.zamba2_2_7b",
     "xlstm-350m": "repro_torch.configs.xlstm_350m",
+    "mixtral-8x7b": "repro_torch.configs.mixtral_8x7b",
+    "phi-3-vision-4.2b": "repro_torch.configs.phi_3_vision_4_2b",
+    "musicgen-medium": "repro_torch.configs.musicgen_medium",
 }
 
 

@@ -23,7 +23,8 @@ from repro_torch.models import moe as moe_lib
 def stage_param_counts(cfg: ArchConfig) -> list[int]:
     """Approximate active parameters per stage (MoE counts top-k experts),
     as ``repro.core.profiles.stage_param_counts`` counts them: the Mamba
-    block by its projections and conv, each xLSTM block as 6 d^2."""
+    block by its projections and conv, each xLSTM block as 6 d^2, the FFN
+    as 3 d d_ff (GLU) or 2 d d_ff (MLP)."""
     d = cfg.d_model
     per_block: dict[str, int] = {}
     for kind in set(cfg.period):
@@ -44,6 +45,8 @@ def stage_param_counts(cfg: ArchConfig) -> list[int]:
             attn = d * a.q_dim + 2 * d * a.kv_dim + a.q_dim * d
         if kind == "moe_attn":
             ffn = moe_lib.moe_active_params(cfg.moe)
+        elif cfg.ffn == "mlp":
+            ffn = 2 * d * cfg.d_ff  # two-matmul MLP
         else:
             ffn = 3 * d * cfg.d_ff  # GLU FFN
         per_block[kind] = attn + ffn

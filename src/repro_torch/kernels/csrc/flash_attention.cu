@@ -20,7 +20,12 @@
 //     BYTES: 0.0041 ms at 3.35 TB/s (the FLOPs take 0.0004 ms at 989 TFLOP/s);
 //   * one 2048-token prompt, 32 heads of 64: 17.2 GFLOP against 33.6 MB, so
 //     OPERATIONS: 0.0174 ms (the bytes take 0.0100 ms); at glm4-9b's heads
-//     (32 over 2 KV heads of 128) 34.4 GFLOP, 0.0347 ms.
+//     (32 over 2 KV heads of 128) 34.4 GFLOP, 0.0347 ms;
+//   * phi-3-vision-4.2b's heads (32 over 32 of 96), a prompt batch of B 4,
+//     S 512: 50.3 MB against 6.5 GFLOP, so BYTES: 0.015 ms;
+//   * mixtral-8x7b's heads (32 over 8 of 128) with its 4096-key window, one
+//     8192-token prompt: 25.2 M (row, key) pairs in the band, 412 GFLOP
+//     against 168 MB, so OPERATIONS: 0.417 ms.
 //
 // Design (bf16, `flash_wgmma_kernel`, the FA3 shape):
 //   * Work tiles of (128 query rows, query head, batch row), the last
@@ -32,7 +37,7 @@
 //     VMEM, becomes a loop inside the CTA.  Warpgroup 0 is the producer:
 //     one thread issues TMA loads of each work tile's Q (into one of two
 //     slots) and of its K and V tiles into a ring of STAGES stages (3 at
-//     hd <= 80, 2 at hd 128) in dynamic shared memory, each completing on
+//     hd <= 96, 2 at hd 128) in dynamic shared memory, each completing on
 //     its own mbarrier, and waits on a slot's or a stage's "empty" barrier
 //     before reusing it (K and V of a stage are released apart, so K
 //     reloads while the stage's P V still runs); the ring runs on across
@@ -43,7 +48,7 @@
 //     `setmaxnreg` moves registers from the producer (24) to the consumers
 //     (240).
 //   * Tiles: 128 query rows per work tile, FA_N = 128 keys per K/V tile at every
-//     hd (32, 64, 80, 128): the S accumulator is 64 f32 per thread, the output
+//     hd (32, 64, 80, 96, 128): the S accumulator is 64 f32 per thread, the output
 //     accumulator hd / 2.  TMA maps are 4-D over [B, S, H, hd]; a box is one
 //     head's rows of at most 64 columns (128 bytes, the 128-byte swizzle's
 //     span), so hd 128 loads as two 64-column boxes and the descriptors walk
@@ -53,7 +58,11 @@
 //     each k-step of Q K^T reads one box (K-major, 8-row groups 256 bytes
 //     apart), and P V's B operand (MN-major) steps from box to box by the
 //     descriptor's leading offset, as hd 128's two boxes do; P V is one
-//     wgmma m64n80k16 per 16 keys.  The boxes' out-of-range fill gives
+//     wgmma m64n80k16 per 16 keys.  hd 96's 192-byte rows load as three
+//     32-column boxes of 64-byte rows under the 64-byte swizzle (hd 32's
+//     box), 24 KB tiles on 1 KB bounds: a k-step of Q K^T reads half a box,
+//     P V steps over the three boxes by the leading offset and is one wgmma
+//     m64n96k16 per 16 keys.  The boxes' out-of-range fill gives
 //     zeros past Sq and Sk, so nothing is padded.
 //   * S = Q K^T: wgmma m64n128k16, both operands in shared memory (K-major),
 //     hd / 16 steps.  Softmax in registers: the scores are masked, and
@@ -135,7 +144,7 @@ constexpr int CONSUMER_WARPS = 8;
 
 template <int HD>
 struct FaSmem {
-  // columns per TMA box: 64 (hd 64, 128), 32 (hd 32) or 16 (hd 80)
+  // columns per TMA box: 64 (hd 64, 128), 32 (hd 32, 96) or 16 (hd 80)
   static constexpr int BOX = HD % 64 == 0 ? 64 : HD % 32 == 0 ? 32 : 16;
   static constexpr int NBOX = HD / BOX;
   static constexpr int ROW = BOX * 2;  // bytes per shared row: the swizzle span
@@ -149,7 +158,8 @@ struct FaSmem {
   static constexpr int BAR_OFF = V_OFF + STAGES * KV_BYTES;
   // Q full and empty per slot; K full, V full, K empty and V empty per stage
   static constexpr int BYTES = BAR_OFF + 8 * (4 + 4 * STAGES) + 1024;  // + alignment slack
-  static_assert(HD == 32 || HD == 64 || HD == 80 || HD == 128, "hd 32, 64, 80 or 128");
+  static_assert(HD == 32 || HD == 64 || HD == 80 || HD == 96 || HD == 128,
+                "hd 32, 64, 80, 96 or 128");
   static_assert(Q_BYTES % 1024 == 0 && KV_BYTES % 1024 == 0, "tiles on swizzle-atom bounds");
   static_assert(BYTES <= 232448, "fits an SM's shared memory");
 };
@@ -287,12 +297,33 @@ __device__ __forceinline__ void wgmma_rs_n80(float (&d)[40], const uint32_t (&a)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
 }
 
+// D[64 x 96] (+)= A[64 x 16] . B[16 x 96]; A from registers, B from shared memory,
+// MN-major (the transpose bit)
+__device__ __forceinline__ void wgmma_rs_n96(float (&d)[48], const uint32_t (&a)[4],
+                                             uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+      "}, {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      : WG_F8(d, 0),
+        WG_F8(d, 8),
+        WG_F8(d, 16),
+        WG_F8(d, 24),
+        WG_F8(d, 32),
+        WG_F8(d, 40)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
 template <int HD>
 __device__ __forceinline__ void wgmma_pv(float (&o)[HD / 2], const uint32_t (&a)[4],
                                          uint64_t desc_v) {
   if constexpr (HD == 32) wgmma_rs_n32(o, a, desc_v, 1);
   else if constexpr (HD == 64) wgmma_rs_n64(o, a, desc_v, 1);
   else if constexpr (HD == 80) wgmma_rs_n80(o, a, desc_v, 1);
+  else if constexpr (HD == 96) wgmma_rs_n96(o, a, desc_v, 1);
   else wgmma_rs_n128(o, a, desc_v, 1);
 }
 
@@ -506,8 +537,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,  // [B, Sq, Hq, HD
 #pragma unroll
         for (int kk = 0; kk < FA_N / 16; ++kk) {
           // keys [16 kk, 16 kk + 16): two 8-row groups 8 rows apart (SBO); the
-          // boxes of a row (hd 128's two of 64 columns, hd 80's five of 16)
-          // lie FA_N rows apart (LBO)
+          // boxes of a row (hd 128's two of 64 columns, hd 96's three of 32,
+          // hd 80's five of 16) lie FA_N rows apart (LBO)
           const uint64_t dv = wg_desc(vs + kk * 16 * L::ROW, FA_N * L::ROW, 8 * L::ROW, L::LAYOUT);
           wgmma_pv<HD>(o, pa[kk], dv);
         }
@@ -710,6 +741,7 @@ extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v,
     case 32: return launch_bf16<32>(q, k, v, out, B, Sq, Sk, Hq, KVH, causal, window, sm_scale, s);
     case 64: return launch_bf16<64>(q, k, v, out, B, Sq, Sk, Hq, KVH, causal, window, sm_scale, s);
     case 80: return launch_bf16<80>(q, k, v, out, B, Sq, Sk, Hq, KVH, causal, window, sm_scale, s);
+    case 96: return launch_bf16<96>(q, k, v, out, B, Sq, Sk, Hq, KVH, causal, window, sm_scale, s);
     case 128:
       return launch_bf16<128>(q, k, v, out, B, Sq, Sk, Hq, KVH, causal, window, sm_scale, s);
     default: return cudaErrorInvalidValue;
@@ -724,6 +756,7 @@ extern "C" int flash_attention_f32(const void* q, const void* k, const void* v, 
     case 32: return launch_f32<32>(q, k, v, out, B, Sq, Sk, Hq, KVH, causal, window, sm_scale, s);
     case 64: return launch_f32<64>(q, k, v, out, B, Sq, Sk, Hq, KVH, causal, window, sm_scale, s);
     case 80: return launch_f32<80>(q, k, v, out, B, Sq, Sk, Hq, KVH, causal, window, sm_scale, s);
+    case 96: return launch_f32<96>(q, k, v, out, B, Sq, Sk, Hq, KVH, causal, window, sm_scale, s);
     case 128: return launch_f32<128>(q, k, v, out, B, Sq, Sk, Hq, KVH, causal, window, sm_scale, s);
     default: return cudaErrorInvalidValue;
   }

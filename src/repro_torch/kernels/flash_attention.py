@@ -22,7 +22,7 @@ import torch
 
 from repro_torch.kernels import build, ref
 
-HEAD_DIMS = (32, 64, 80, 128)
+HEAD_DIMS = (32, 64, 80, 96, 128)
 _ENTRY = {torch.bfloat16: "flash_attention_bf16", torch.float32: "flash_attention_f32"}
 
 

@@ -17,16 +17,19 @@ MLA has no kernel in the reference: its prefill is the plain
 absorbed-latent ``einsum`` math, so both are plain torch on every device.
 
 Caches are plain dicts of tensors:
-  full  : {"k": [B,S,kv,hd], "v": [B,S,kv,hd], "pos": int32 [] or [B]}
-  paged : {"k": [NB,bs,kv,hd], "v": [NB,bs,kv,hd], "pos": int32 [B],
-           "table": int32 [B, n_logical]}
-  mla   : {"c_kv": [B,S,lora], "k_pe": [B,S,rope_dim], "pos": int32 [] or [B]},
-          paged as {"c_kv": [NB,bs,lora], "k_pe": [NB,bs,rope_dim], ...}
+  full   : {"k": [B,S,kv,hd], "v": [B,S,kv,hd], "pos": int32 [] or [B]}
+  window : the same with S == window, a ring indexed by pos % window, plus
+           "slot_pos": int32 [window], each slot's global position (-1 ==
+           empty); the monolithic steps' cache when the window is shorter
+           than ``max_len``
+  paged  : {"k": [NB,bs,kv,hd], "v": [NB,bs,kv,hd], "pos": int32 [B],
+            "table": int32 [B, n_logical]}
+  mla    : {"c_kv": [B,S,lora], "k_pe": [B,S,rope_dim], "pos": int32 [] or [B]},
+           paged as {"c_kv": [NB,bs,lora], "k_pe": [NB,bs,rope_dim], ...}
 
 Unlike the JAX package, cache writes here are in place (``index_put_``):
 a decode step updates the cache tensors it is given and returns a dict
-holding the same tensors.  Sliding-window caches are not ported yet
-(ROADMAP queue 1, item 7).
+holding the same tensors.
 """
 from __future__ import annotations
 
@@ -90,14 +93,18 @@ def _attend_block(
     q_pos: torch.Tensor,  # [Cq] global positions of the queries
     k_pos: torch.Tensor,  # [Sk] global positions of the keys (-1 == invalid)
     groups: int,
+    window: int | None = None,
 ) -> torch.Tensor:
-    """Masked softmax attention for one q-chunk (grouped heads)."""
+    """Masked softmax attention for one q-chunk (grouped heads); a key is
+    seen when causal, valid and, with a ``window``, within it."""
     B, Cq, Hq, hd = q.shape
     kvh = k.shape[2]
     qg = q.reshape(B, Cq, kvh, groups, hd)
     scale = 1.0 / math.sqrt(hd)
     scores = torch.einsum("bqkgd,bskd->bkgqs", qg, k).float() * scale  # [B, kv, g, Cq, Sk]
     mask = (q_pos[:, None] >= k_pos[None, :]) & (k_pos[None, :] >= 0)
+    if window is not None:
+        mask = mask & (k_pos[None, :] > q_pos[:, None] - window)
     scores = torch.where(mask[None, None, None], scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     out = torch.einsum("bkgqs,bskd->bqkgd", probs, v)
@@ -111,16 +118,19 @@ def chunked_attention(
     q_positions: torch.Tensor,  # [Sq]
     k_positions: torch.Tensor,  # [Sk]
     groups: int,
+    window: int | None = None,
     q_chunk: int = 1024,
 ) -> torch.Tensor:
-    """Causal attention, q chunked so scores stay [B, kv, g, Cq, Sk]."""
+    """Causal attention (optionally within a sliding ``window``), q chunked
+    so scores stay [B, kv, g, Cq, Sk]."""
     Sq = q.shape[1]
     q_chunk = min(q_chunk, Sq)
     if Sq % q_chunk != 0:  # one block for ragged tiny shapes, as the reference
         q_chunk = Sq
     outs = [
         _attend_block(
-            q[:, i : i + q_chunk], k, v, q_positions[i : i + q_chunk], k_positions, groups
+            q[:, i : i + q_chunk], k, v, q_positions[i : i + q_chunk], k_positions, groups,
+            window,
         )
         for i in range(0, Sq, q_chunk)
     ]
@@ -152,7 +162,8 @@ def gqa_forward(
     if kernel_ops.uses_kernel(q):
         out = kernel_ops.flash_attention(q, k, v, causal=True, window=dims.sliding_window)
     else:
-        out = chunked_attention(q, k, v, positions, positions, dims.groups, q_chunk)
+        out = chunked_attention(q, k, v, positions, positions, dims.groups, dims.sliding_window,
+                                q_chunk)
     out = matmul(out.reshape(B, S, dims.q_dim), params["w_o"])
     if return_kv:
         return out, (k, v)
@@ -173,6 +184,16 @@ def make_kv_cache(
         "v": torch.zeros(shape, dtype=dtype, device=device),
         "pos": torch.zeros((), dtype=torch.int32, device=device),
     }
+
+
+def make_window_cache(batch: int, dims: AttnDims, dtype=torch.bfloat16, device=None) -> Params:
+    """A ring of ``dims.sliding_window`` slots, every slot empty."""
+    w = dims.sliding_window
+    if w is None:
+        raise ValueError("make_window_cache needs dims.sliding_window")
+    cache = make_kv_cache(batch, w, dims, dtype, device)
+    cache["slot_pos"] = torch.full((w,), -1, dtype=torch.int32, device=device)
+    return cache
 
 
 def prefill_into_cache(cache: Params, k: torch.Tensor, v: torch.Tensor) -> Params:
@@ -295,7 +316,14 @@ def gqa_decode(
     cache: Params,
     dims: AttnDims,
 ):
-    """One decode step against a full cache with one shared (scalar) position."""
+    """One decode step with one shared (scalar) position, against a full
+    cache or a window ring (``"slot_pos"`` in the cache).
+
+    A ring writes the token at slot ``pos % W`` and records ``pos`` there;
+    its keys are masked by ``slot_pos`` alone (the ring already bounds the
+    window).  A full cache writes at ``pos`` (clamped to the last slot, as
+    the reference's masked write) and masks by position and
+    ``dims.sliding_window``."""
     B = x.shape[0]
     pos = cache["pos"]  # int32 []
     q, k_new, v_new = _project_qkv(params, x, dims)
@@ -303,13 +331,19 @@ def gqa_decode(
     q = apply_rope(q, pos_b, dims.rope_theta)
     k_new = apply_rope(k_new, pos_b, dims.rope_theta)
     S_cache = cache["k"].shape[1]
-    slot = pos.clamp(max=S_cache - 1).long()
+    windowed = "slot_pos" in cache
+    slot = (pos % S_cache if windowed else pos.clamp(max=S_cache - 1)).long()
     cache["k"][:, slot] = k_new[:, 0].to(cache["k"].dtype)
     cache["v"][:, slot] = v_new[:, 0].to(cache["v"].dtype)
     new_cache = dict(cache, pos=pos + 1)
-    arange = torch.arange(S_cache, dtype=torch.int32, device=x.device)
-    k_positions = torch.where(arange <= pos, arange, -1)
-    out = _attend_block(q, cache["k"], cache["v"], pos.reshape(1), k_positions, dims.groups)
+    if windowed:
+        cache["slot_pos"][slot] = pos
+        k_positions, window = cache["slot_pos"], None
+    else:
+        arange = torch.arange(S_cache, dtype=torch.int32, device=x.device)
+        k_positions, window = torch.where(arange <= pos, arange, -1), dims.sliding_window
+    out = _attend_block(q, cache["k"], cache["v"], pos.reshape(1), k_positions, dims.groups,
+                        window)
     out = matmul(out.reshape(B, 1, dims.q_dim), params["w_o"])
     return out, new_cache
 
@@ -391,7 +425,7 @@ def mla_forward(
     v = matmul(c_kv, params["w_uv"]).reshape(B, S, H, dims.v_head_dim)
     q = torch.cat([q_nope, q_pe], dim=-1)
     k = torch.cat([k_nope, k_pe[:, :, None, :].expand(B, S, H, dims.qk_rope_head_dim)], dim=-1)
-    out = chunked_attention(q, k, v, positions, positions, 1, q_chunk)
+    out = chunked_attention(q, k, v, positions, positions, 1, q_chunk=q_chunk)
     out = matmul(out.reshape(B, S, H * dims.v_head_dim), params["w_o"])
     if return_latent:
         return out, (c_kv, k_pe)

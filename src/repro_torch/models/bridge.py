@@ -10,7 +10,9 @@ QKV biases stay f32.  The tree is walked by leaf name, so the MoE
 the recurrent blocks' projections and conv kernels become bf16 like every
 other name in ``BF16_LEAVES``, and MLA's ``norm_ckv`` scale, the recurrent
 blocks' decay, skip, bias and gate leaves and sLSTM's ``r_gates`` (cast to
-its f32 state's dtype in the reference) stay f32.
+its f32 state's dtype in the reference) stay f32.  An embeds config's tree
+(no ``embed`` table) and the MLP FFN's ``w_up``/``w_down`` need nothing of
+their own.
 """
 from __future__ import annotations
 

@@ -8,6 +8,7 @@ cast where the reference casts them.
 """
 from __future__ import annotations
 
+import math
 from typing import Any
 
 import torch
@@ -88,7 +89,22 @@ def log_sigmoid(x: torch.Tensor) -> torch.Tensor:
     return -softplus(-x)
 
 
-_ACTS = {"silu": silu}
+_SQRT_2_OVER_PI = math.sqrt(2.0 / math.pi)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """The tanh approximation, ``jax.nn.gelu``'s default (``F.gelu(x,
+    approximate="tanh")``'s function; torch's default is the exact erf
+    form): ``x * 0.5 (1 + tanh(sqrt(2/pi) (x + 0.044715 x^3)))`` op for op
+    in the input dtype, as ``jax.nn.gelu`` lowers: both constants are
+    rounded to the input dtype first (JAX's weak typing) and each step
+    rounds to bf16 on a bf16 input, as the reference's does (the fused
+    ``F.gelu`` rounds once and parts from it on ~40% of bf16 values)."""
+    c, a = (torch.tensor(v, dtype=x.dtype, device=x.device) for v in (_SQRT_2_OVER_PI, 0.044715))
+    return x * (0.5 * (1.0 + torch.tanh(c * (x + a * (x**3)))))
+
+
+_ACTS = {"silu": silu, "gelu": gelu}
 
 
 def activation(name: str):
@@ -144,3 +160,13 @@ def glu_ffn(params: Params, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
     g = activation(act)(matmul(x, params["w_gate"]))
     u = matmul(x, params["w_up"])
     return matmul(g * u, params["w_down"])
+
+
+def mlp_ffn_init(dense, d: int, d_ff: int) -> Params:
+    """The two-matmul MLP FFN's weights (``dense`` as in ``glu_ffn_init``)."""
+    return {"w_up": dense((d, d_ff)), "w_down": dense((d_ff, d))}
+
+
+def mlp_ffn(params: Params, x: torch.Tensor, act: str = "gelu") -> torch.Tensor:
+    """Classic FFN: down(act(up(x)))."""
+    return matmul(activation(act)(matmul(x, params["w_up"])), params["w_down"])

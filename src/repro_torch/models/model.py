@@ -1,7 +1,9 @@
 """Staged decoder with early-exit heads — ``repro.models.model``'s block
 kinds: attention (``"attn"``, ``"dense_attn"`` and ``"moe_attn"``, each with
-GQA or MLA attention), Mamba2 (``"mamba"``) and xLSTM (``"mlstm"``,
-``"slstm"``).
+GQA or MLA attention, GQA optionally within a sliding window; a GLU or
+two-matmul MLP FFN, or an MoE), Mamba2 (``"mamba"``) and xLSTM
+(``"mlstm"``, ``"slstm"``).  The input is tokens through the embedding
+table, or, under ``frontend="embeds"``, precomputed embeddings.
 
 A model is ``num_stages`` pipeline stages; each stage runs its block
 periods in order.  Early-exit branches hang off the stages in
@@ -15,7 +17,9 @@ periods.  Caches mirror it too: a stage's caches are a tuple of dicts with
 leaves ``[n_periods, B, ...]``: an attention kind's K/V (or MLA's latent
 rows) over the sequence, a recurrent kind's state (Mamba's conv tail and SSD
 state, mLSTM's conv tail and ``C``/``n``/``m``, sLSTM's ``c``/``n``/``h``/
-``m``), and ``pos``.  The reference's ``lax.scan`` over periods is a Python
+``m``), and ``pos``; the monolithic steps' attention cache is a ring of
+``sliding_window`` slots with its ``slot_pos`` when the window is shorter
+than ``max_len``.  The reference's ``lax.scan`` over periods is a Python
 loop here.
 """
 from __future__ import annotations
@@ -118,8 +122,8 @@ def _state_block_init(kind: str, cfg: ArchConfig, n: int, generator: torch.Gener
 def _block_init(kind: str, cfg: ArchConfig, n: int, generator: torch.Generator | None,
                 device) -> Params:
     """One block of ``kind``, stacked over ``n`` periods: an attention block
-    (GQA or MLA attention; a GLU FFN or, for ``"moe_attn"``, a mixture of
-    experts), or a recurrent one (``_state_block_init``)."""
+    (GQA or MLA attention; a GLU or MLP FFN or, for ``"moe_attn"``, a
+    mixture of experts), or a recurrent one (``_state_block_init``)."""
     if kind in _STATE_KINDS:
         return _state_block_init(kind, cfg, n, generator, device)
     d = cfg.d_model
@@ -147,6 +151,8 @@ def _block_init(kind: str, cfg: ArchConfig, n: int, generator: torch.Generator |
     }
     if kind == "moe_attn":
         p["moe"] = moe.moe_init(cfg.moe, dense)
+    elif cfg.ffn == "mlp":
+        p["ffn"] = layers.mlp_ffn_init(dense, d, cfg.d_ff)
     else:
         p["ffn"] = layers.glu_ffn_init(dense, d, cfg.d_ff)
     return p
@@ -158,15 +164,18 @@ def init_params(cfg: ArchConfig, generator: torch.Generator | None, device="cuda
     ``generator`` must live on ``device``.  The values differ from
     ``repro.models.model.init_params`` (another generator); tests that need
     equal weights bridge the JAX tree with ``models.bridge``.  On the
-    ``"meta"`` device (``generator`` None) it builds the shapes alone.
+    ``"meta"`` device (``generator`` None) it builds the shapes alone.  An
+    ``"embeds"`` frontend has no embedding table.
     """
     d = cfg.d_model
-    params: Params = {
-        "embed": {"embed": _dense((cfg.vocab_size, d), generator, device)},
+    params: Params = {}
+    if cfg.frontend == "tokens":
+        params["embed"] = {"embed": _dense((cfg.vocab_size, d), generator, device)}
+    params.update({
         "lm_head": _dense((d, cfg.vocab_size), generator, device),
         "final_norm": _norm_init(cfg.norm, d, device),
         "exit_norms": {f"exit_{h}": _norm_init(cfg.norm, d, device) for h in cfg.exit_stages},
-    }
+    })
     params["stages"] = [
         {"blocks": tuple(_block_init(kind, cfg, n, generator, device) for kind in cfg.period)}
         for n in cfg.stage_periods()
@@ -197,10 +206,12 @@ def _period(tree: Params, i: int) -> Params:
 
 
 def _ffn(kind: str, p: Params, h2: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    """The block's FFN on the normed residual: the GLU, or the MoE (whose
-    load-balance loss only training reads)."""
+    """The block's FFN on the normed residual: the GLU or the MLP, or the
+    MoE (whose load-balance loss only training reads)."""
     if kind == "moe_attn":
         return moe.moe_forward(p["moe"], h2, cfg.moe)[0]
+    if cfg.ffn == "mlp":
+        return layers.mlp_ffn(p["ffn"], h2, cfg.act)
     return layers.glu_ffn(p["ffn"], h2, cfg.act)
 
 
@@ -232,6 +243,28 @@ def _state_block_apply(kind: str, p: Params, x: torch.Tensor, cfg: ArchConfig, m
     return x + out, cache
 
 
+def _cache_from_kv(k: torch.Tensor, v: torch.Tensor, dims: attention.AttnDims,
+                   max_len: int) -> Params:
+    """A prefill's GQA cache: a full ``max_len`` cache holding the prompt,
+    or, when ``dims.sliding_window`` is shorter than ``max_len``, a ring of
+    that many slots holding the prompt's last ``min(S, W)`` keys at slots
+    ``position % W``, each slot's position in ``slot_pos`` (-1 == empty)."""
+    B, S = k.shape[:2]
+    W = dims.sliding_window
+    if W is None or W >= max_len:
+        cache = attention.make_kv_cache(B, max_len, dims, device=k.device)
+        return attention.prefill_into_cache(cache, k, v)
+    cache = attention.make_window_cache(B, dims, device=k.device)
+    start = S - min(S, W)
+    pos_tail = torch.arange(start, S, dtype=torch.int32, device=k.device)
+    slots = (pos_tail % W).long()
+    cache["k"][:, slots] = k[:, start:].to(cache["k"].dtype)
+    cache["v"][:, slots] = v[:, start:].to(cache["v"].dtype)
+    cache["slot_pos"][slots] = pos_tail
+    cache["pos"] = torch.tensor(S, dtype=torch.int32, device=k.device)
+    return cache
+
+
 def _block_apply(
     kind: str,
     p: Params,
@@ -260,8 +293,7 @@ def _block_apply(
         if mode == "prefill":
             out, (k, v) = attention.gqa_forward(p["attn"], h, dims, positions, cfg.q_chunk,
                                                 return_kv=True)
-            cache = attention.make_kv_cache(x.shape[0], max_len, dims, device=x.device)
-            cache = attention.prefill_into_cache(cache, k, v)
+            cache = _cache_from_kv(k, v, dims, max_len)
         else:
             out = attention.gqa_forward(p["attn"], h, dims, positions, cfg.q_chunk)
     x = x + out
@@ -512,8 +544,38 @@ def final_confidence(params: Params, hidden: torch.Tensor, cfg: ArchConfig):
 # ---------------------------------------------------------------------------
 
 
-def embed_inputs(params: Params, tokens: torch.Tensor) -> torch.Tensor:
-    return layers.embed(params["embed"], tokens)
+def init_caches(cfg: ArchConfig, batch: int, max_len: int, device="cuda") -> list:
+    """Zeroed caches of the monolithic steps, mirroring the stage / period
+    structure: per stage a tuple (one dict per period kind) of leaves
+    ``[n_periods, ...]`` (``pos`` ``[n_periods]``).  A GQA kind whose
+    sliding window is shorter than ``max_len`` gets a ring of the window's
+    slots (``slot_pos`` at -1), as ``repro.models.model._block_cache``."""
+
+    def one(kind: str) -> Params:
+        if kind in _STATE_KINDS:
+            sk = _STATE_KINDS[kind]
+            return sk.make_cache(batch, getattr(cfg, sk.dims), device=device)
+        if cfg.mla is not None:
+            return attention.make_mla_cache(batch, max_len, cfg.mla, device=device)
+        dims = cfg.attn_dims()
+        if dims.sliding_window is not None and dims.sliding_window < max_len:
+            return attention.make_window_cache(batch, dims, device=device)
+        return attention.make_kv_cache(batch, max_len, dims, device=device)
+
+    return [
+        tuple({key: t.expand(n, *t.shape).clone() for key, t in one(kind).items()}
+              for kind in cfg.period)
+        for n in cfg.stage_periods()
+    ]
+
+
+def embed_inputs(params: Params, batch: dict, cfg: ArchConfig) -> torch.Tensor:
+    """The residual stream ``[B, S, d]`` of a batch: ``{"tokens": [B, S]}``
+    through the embedding table, or, under ``frontend="embeds"``,
+    ``{"embeds": [B, S, d]}`` cast to the compute dtype."""
+    if cfg.frontend == "embeds":
+        return batch["embeds"].to(cfg.dtype)
+    return layers.embed(params["embed"], batch["tokens"])
 
 
 def _stack_heads(confs: list, toks: list, B: int, device):
@@ -525,9 +587,11 @@ def _stack_heads(confs: list, toks: list, B: int, device):
     return torch.stack(confs, dim=1), torch.stack(toks, dim=1)
 
 
-def prefill(params: Params, tokens: torch.Tensor, cfg: ArchConfig, max_len: int):
-    """Returns (next_token [B], exit_conf [B, n_exits], exit_token [B, n_exits], caches)."""
-    x = embed_inputs(params, tokens)
+def prefill(params: Params, batch: dict, cfg: ArchConfig, max_len: int):
+    """The whole model over a batch (``embed_inputs``), building the decode
+    caches (a window ring where the window is shorter than ``max_len``).
+    Returns (next_token [B], exit_conf [B, n_exits], exit_token [B, n_exits], caches)."""
+    x = embed_inputs(params, batch, cfg)
     B, S = x.shape[0], x.shape[1]
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
     caches, confs, toks = [], [], []
@@ -543,10 +607,11 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ArchConfig, max_len: int)
     return next_token, exit_conf, exit_tok, caches
 
 
-def decode_step(params: Params, tokens: torch.Tensor, caches: list, cfg: ArchConfig):
-    """One token for every sequence (shared scalar position); returns
-    (next_token, exit_conf, exit_token, caches').  Updates ``caches`` in place."""
-    x = embed_inputs(params, tokens)
+def decode_step(params: Params, batch: dict, caches: list, cfg: ArchConfig):
+    """One token for every sequence (a batch of one position, shared scalar
+    position); returns (next_token, exit_conf, exit_token, caches').
+    Updates ``caches`` in place."""
+    x = embed_inputs(params, batch, cfg)
     B = x.shape[0]
     new_caches, confs, toks = [], [], []
     for si, (stage, stage_cache) in enumerate(zip(params["stages"], caches), start=1):

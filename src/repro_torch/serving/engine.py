@@ -117,7 +117,7 @@ class StagePrograms:
 
     def embed(self, tokens: np.ndarray) -> torch.Tensor:
         toks = torch.as_tensor(np.asarray(tokens, np.int64), device=self.device)
-        return steps.embed_step(self.params, toks)
+        return steps.embed_step(self.params, toks, self.cfg)
 
     def run_stage(self, stage_idx: int, x: torch.Tensor) -> torch.Tensor:
         """Forward hidden states through stage ``stage_idx`` (1-indexed)."""
@@ -431,6 +431,16 @@ class CollaborativeEngine:
         if paged and block_size < 1:
             raise ValueError("block_size must be >= 1")
         cached = decode_mode == "cached"
+        if gen_len > 1 and self.cfg.frontend != "tokens":
+            raise ValueError("autoregressive decode needs a token frontend")
+        if self.cfg.frontend != "tokens":
+            # the reference gets this far and fails in its embed step
+            # (KeyError 'embeds'); its staged engine embeds tokens only
+            raise ValueError(
+                f"config {self.cfg.name!r} has frontend={self.cfg.frontend!r}, but the staged "
+                "engine embeds tokens; serve it through serving.steps.make_prefill_step and "
+                "make_decode_step"
+            )
         if any(int(p.shape[0]) < 1 for p in prompts):
             raise ValueError("prompts must be non-empty")
         min_len = model_lib.min_cached_prompt_len(self.cfg)

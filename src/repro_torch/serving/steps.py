@@ -14,7 +14,11 @@ store tensors:
     flash-decode kernel), scatter the rows back;
   * ``paged_slot_write`` / ``paged_stage_decode`` / ``block_copy`` — the
     same for the paged layout, whose sequence leaves (K/V, or MLA's latent
-    rows) live in a pool of blocks reached through per-request block tables.
+    rows) live in a pool of blocks reached through per-request block tables;
+  * ``make_prefill_step`` / ``make_decode_step`` — the batched monolithic
+    steps (every stage, the exit rule applied) over a batch dict of tokens
+    or embeddings, with window rings where a sliding window is shorter than
+    ``max_len``: the path the ``frontend="embeds"`` configs serve on.
 """
 from __future__ import annotations
 
@@ -27,9 +31,9 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import model as model_lib
 
 
-def embed_step(params: Any, tokens: torch.Tensor) -> torch.Tensor:
+def embed_step(params: Any, tokens: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     """tokens [B, S] -> embedded residual stream [B, S, d]."""
-    return model_lib.embed_inputs(params, tokens)
+    return model_lib.embed_inputs(params, {"tokens": tokens}, cfg)
 
 
 def stage_forward(params: Any, x: torch.Tensor, cfg: ArchConfig, stage_idx: int) -> torch.Tensor:
@@ -166,6 +170,36 @@ def select_exit(
     return token, stage_idx
 
 
+def make_prefill_step(cfg: ArchConfig, max_len: int):
+    """The batched prefill step: ``prefill_step(params, batch, thresholds)``
+    runs ``model.prefill`` over ``batch`` (``{"tokens": [B, S]}`` or, under
+    ``frontend="embeds"``, ``{"embeds": [B, S, d]}``) and applies the exit
+    rule.  Returns ``{"token", "exit_stage", "exit_conf", "caches"}``, the
+    caches sized ``max_len`` (a window ring where the window is shorter)."""
+
+    def prefill_step(params: Any, batch: dict, thresholds: torch.Tensor) -> dict:
+        next_token, exit_conf, exit_tok, caches = model_lib.prefill(params, batch, cfg, max_len)
+        token, stage_idx = select_exit(next_token, exit_conf, exit_tok, thresholds)
+        return {"token": token, "exit_stage": stage_idx, "exit_conf": exit_conf, "caches": caches}
+
+    return prefill_step
+
+
+def make_decode_step(cfg: ArchConfig):
+    """The batched decode step: ``decode_step(params, batch, caches,
+    thresholds)`` runs ``model.decode_step`` (one position for every row,
+    the caches updated in place) and applies the exit rule; returns as
+    ``make_prefill_step``'s step does."""
+
+    def decode_step(params: Any, batch: dict, caches: list, thresholds: torch.Tensor) -> dict:
+        next_token, exit_conf, exit_tok, new_caches = model_lib.decode_step(params, batch, caches, cfg)
+        token, stage_idx = select_exit(next_token, exit_conf, exit_tok, thresholds)
+        return {"token": token, "exit_stage": stage_idx, "exit_conf": exit_conf,
+                "caches": new_caches}
+
+    return decode_step
+
+
 def monolithic_generate(
     params: Any,
     cfg: ArchConfig,
@@ -197,12 +231,12 @@ def monolithic_generate(
         return int(final_tok[0]), H
 
     tokens_in = torch.as_tensor(np.asarray(prompt, np.int32)[None], device=device)
-    next_tok, conf, etok, caches = model_lib.prefill(params, tokens_in, cfg, max_len)
+    next_tok, conf, etok, caches = model_lib.prefill(params, {"tokens": tokens_in}, cfg, max_len)
     token, stage = pick(conf, etok, next_tok)
     tokens = [token]
     while stage == H and len(tokens) < gen_len:
         step = torch.tensor([[tokens[-1]]], dtype=torch.int32, device=device)
-        next_tok, conf, etok, caches = model_lib.decode_step(params, step, caches, cfg)
+        next_tok, conf, etok, caches = model_lib.decode_step(params, {"tokens": step}, caches, cfg)
         token, stage = pick(conf, etok, next_tok)
         tokens.append(token)
     return tokens, stage

@@ -66,9 +66,14 @@ def test_grid_keeps_the_slowest_cta_and_idles_fewer(V, n_sm):
 def test_grid_at_the_registry_heads():
     """132 SMs: deepseek-v2-lite-16b's 1600 units go to 124 CTAs of at most
     13 (12 slots idle at the end, against 116 on 132 CTAs); qwen2.5-32b's
-    2376 fill 132 exactly; glm4-9b and internlm2-20b keep 132."""
+    2376 fill 132 exactly; glm4-9b and internlm2-20b keep 132.  The heads
+    served since: mixtral-8x7b's 500 units on 125 CTAs of 4, phi-3-vision's
+    501 on 126 (at most 4 each), and musicgen-medium's 32 units on the
+    floor of 119 CTAs (87 of them with an empty range)."""
     assert [texit.grid_ctas(V, 132) for V in (102400, 152064, 151552, 92544, 100352)] == [
         124, 132, 132, 132, 131]
+    assert [texit.grid_ctas(V, 132) for V in (32000, 32064, 2048)] == [125, 126, 119]
+    assert sum(hi > lo for lo, hi in texit.vocab_ranges(2048, 119)) == 32
 
 
 @pytest.mark.parametrize("B", [1, 8, 32, 63, 64, 65, 128, 129, 200])

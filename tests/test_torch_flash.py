@@ -101,7 +101,7 @@ def test_flash_plain_matches_chunked_attention_at_arange(B, S, Hq, KVH, hd, q_ch
     1/sqrt(hd) differ by an ulp at most."""
     _, (tq, tk, tv) = _qkv(3, B, S, S, Hq, KVH, hd, "float32")
     pos = torch.arange(S, dtype=torch.int32)
-    want = tattn.chunked_attention(tq, tk, tv, pos, pos, Hq // KVH, q_chunk)
+    want = tattn.chunked_attention(tq, tk, tv, pos, pos, Hq // KVH, q_chunk=q_chunk)
     got = ops.flash_attention(tq, tk, tv, causal=True)
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=TOL["float32"])
 
@@ -121,7 +121,7 @@ def _gqa_forward_before(p, x, dims, q_chunk):
     q, k, v = tattn._project_qkv(p, x, dims)
     q = apply_rope(q, pos[None, :], dims.rope_theta)
     k = apply_rope(k, pos[None, :], dims.rope_theta)
-    out = tattn.chunked_attention(q, k, v, pos, pos, dims.groups, q_chunk)
+    out = tattn.chunked_attention(q, k, v, pos, pos, dims.groups, q_chunk=q_chunk)
     return matmul(out.reshape(B, S, dims.q_dim), p["w_o"]), k, v
 
 

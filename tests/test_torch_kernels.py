@@ -276,11 +276,12 @@ def test_split_groups_with_the_plain_launcher_matches_one_call(G):
 
 
 @pytest.mark.parametrize("arch", ["qwen2.5-32b", "internlm2-20b", "glm4-9b", "stablelm-1.6b",
-                                  "zamba2-2.7b"])
+                                  "zamba2-2.7b", "mixtral-8x7b"])
 def test_registry_attention_fits_the_decode_wrappers(arch):
-    """The GQA configs of the JAX registry (G 5, 6, 16 and 1, at hd 128, 64
-    and zamba2-2.7b's 80) are shapes both decode wrappers take in one launch
-    of the walk, and the prefill flash kernel takes their head dim."""
+    """The GQA configs of the JAX registry that the staged engine serves (G
+    5, 6, 16, 1 and mixtral-8x7b's 4, at hd 128, 64 and zamba2-2.7b's 80)
+    are shapes both decode wrappers take in one launch of the walk, and the
+    prefill flash kernel takes their head dim."""
     from repro.configs import get_config
 
     from repro_torch.kernels import flash_attention as tflash
@@ -290,6 +291,24 @@ def test_registry_attention_fits_the_decode_wrappers(arch):
     assert 1 <= cfg.num_heads // cfg.num_kv_heads <= tdec.MMA_G
     assert cfg.head_dim in tdec.HEAD_DIMS
     assert cfg.head_dim in tflash.HEAD_DIMS
+
+
+@pytest.mark.parametrize("arch", ["phi-3-vision-4.2b", "musicgen-medium"])
+def test_embeds_configs_attention_fits_the_flash_kernel(arch):
+    """The ``frontend="embeds"`` configs reach attention kernels only through
+    the batched prefill (the staged engine refuses them and the monolithic
+    decode is plain attention): the flash kernel takes their head dim
+    (phi-3-vision's 96, musicgen's 64), and hd 96 is in no decode
+    wrapper."""
+    from repro.configs import get_config
+
+    from repro_torch.kernels import flash_attention as tflash
+
+    cfg = get_config(arch)
+    assert cfg.head_dim == {"phi-3-vision-4.2b": 96, "musicgen-medium": 64}[arch]
+    assert cfg.num_heads == cfg.num_kv_heads  # MHA
+    assert cfg.head_dim in tflash.HEAD_DIMS
+    assert 96 not in tdec.HEAD_DIMS
 
 
 def test_every_probe_variant_finds_its_marked_lines():

@@ -65,6 +65,8 @@ def _randn(shape, gen, dev, dtype=torch.bfloat16):
         (8, 130, 32, 2, 128),  # glm4-9b: G = 16, two CTAs per KV head
         (8, 200, 32, 32, 80),  # zamba2-2.7b's attention: hd 80, G = 1
         (2, 700, 8, 2, 80),  # hd 80 over two splits, G = 4
+        (8, 120, 32, 8, 128),  # mixtral-8x7b's engine serve: G = 4, hd 128
+        (2, 4096, 32, 8, 128),  # ... on a 4096-key cache
     ],
 )
 def test_decode_attention_matches_plain(cuda, B, S, Hq, KVH, hd):
@@ -192,6 +194,8 @@ def _assert_paged_gates(q, k_pool, v_pool, table, lengths, seq_len):
         (32, 32, 80, 16, [68, 87, 88, 55, 112, 70, 60, 106]),  # zamba2-2.7b: hd 80
         (32, 32, 80, 1, [68, 87, 88, 55, 112, 70, 60, 106]),
         (8, 2, 80, 3, [700, 17, 1, 513]),  # hd 80, G = 4, two splits
+        (32, 8, 128, 16, [68, 87, 88, 55, 112, 70, 60, 106]),  # mixtral-8x7b: G = 4
+        (32, 8, 128, 1, [68, 87, 88, 55, 112, 70, 60, 106]),
     ],
 )
 def test_paged_decode_attention_matches_plain_and_dense(cuda, Hq, KVH, hd, bs, lengths):
@@ -378,8 +382,10 @@ def _assert_conf_close(conf, cref):
 # 256-column tile; the five LM heads of the registry at B 1 and 8; B 16-65
 # at stablelm-1.6b's head (65: two passes over w); d 16384 and d 100 (not a
 # multiple of 8: an aligned, zero-padded copy of h); V 120 and 136, fewer
-# columns than a 64-column unit per CTA
-LM_HEADS = [(2048, 100352), (4096, 151552), (2048, 102400), (6144, 92544), (5120, 152064)]
+# columns than a 64-column unit per CTA; the LM heads of mixtral-8x7b,
+# phi-3-vision-4.2b and musicgen-medium (32 units over 119 CTAs)
+LM_HEADS = [(2048, 100352), (4096, 151552), (2048, 102400), (6144, 92544), (5120, 152064),
+            (4096, 32000), (3072, 32064), (1536, 2048)]
 
 
 @pytest.mark.parametrize(
@@ -493,6 +499,12 @@ FLASH_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
         (1, 2048, 2048, 32, 32, 80, True, None, torch.bfloat16),
         (2, 128, 384, 4, 4, 80, True, None, torch.bfloat16),
         (1, 256, 256, 4, 4, 80, True, 100, torch.bfloat16),
+        (4, 512, 512, 32, 32, 96, True, None, torch.bfloat16),  # phi-3-vision's heads: hd 96
+        (8, 104, 104, 32, 32, 96, True, None, torch.bfloat16),
+        (1, 2048, 2048, 32, 32, 96, True, None, torch.bfloat16),
+        (1, 256, 256, 4, 4, 96, True, 100, torch.bfloat16),
+        # mixtral-8x7b's heads (G 4, hd 128) with its 4096-key window past it
+        (1, 4160, 4160, 32, 8, 128, True, 4096, torch.bfloat16),
         # tests/test_kernels.py's sweep in f32
         (1, 128, 128, 4, 4, 64, True, None, torch.float32),
         (2, 256, 256, 8, 2, 64, True, None, torch.float32),
@@ -501,6 +513,8 @@ FLASH_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
         (1, 256, 256, 4, 4, 64, True, 32, torch.float32),
         (1, 128, 128, 2, 2, 64, False, None, torch.float32),
         (2, 200, 200, 8, 2, 80, True, None, torch.float32),
+        (2, 200, 200, 8, 2, 96, True, None, torch.float32),
+        (1, 300, 300, 4, 4, 96, True, 130, torch.float32),
     ],
 )
 def test_flash_attention_matches_plain(cuda, B, Sq, Sk, Hq, KVH, hd, causal, window, dtype):
@@ -529,6 +543,12 @@ def test_flash_attention_matches_plain(cuda, B, Sq, Sk, Hq, KVH, hd, causal, win
         (2, 200, 200, 8, 2, 80, True, None),
         (1, 300, 300, 4, 4, 80, True, 130),
         (1, 200, 600, 4, 4, 80, False, 130),
+        (2, 129, 129, 4, 4, 96, True, None),
+        (2, 200, 200, 8, 2, 96, True, None),
+        (1, 300, 300, 4, 4, 96, True, 130),
+        (1, 200, 600, 4, 4, 96, False, 130),
+        # mixtral-8x7b's window at G 4 over several 128-key tiles of band
+        (1, 1100, 1100, 8, 2, 128, True, 500),
         # Sk > Sq, top-left positions
         (2, 129, 400, 4, 4, 64, True, None),
         (1, 200, 600, 4, 4, 128, True, None),
@@ -589,8 +609,8 @@ def test_flash_attention_rows_do_not_depend_on_batch_or_length(cuda):
 def test_flash_attention_rejects_what_it_cannot_take(cuda):
     q = torch.zeros((1, 8, 4, 64), dtype=torch.bfloat16, device=cuda)
     kv = torch.zeros((1, 8, 2, 64), dtype=torch.bfloat16, device=cuda)
-    with pytest.raises(ValueError):  # hd 96
-        tflash.flash_attention(*(torch.zeros((1, 8, 2, 96), dtype=torch.bfloat16, device=cuda),) * 3)
+    with pytest.raises(ValueError):  # hd 48 (96 is taken since phi-3-vision-4.2b)
+        tflash.flash_attention(*(torch.zeros((1, 8, 2, 48), dtype=torch.bfloat16, device=cuda),) * 3)
     with pytest.raises(TypeError):
         tflash.flash_attention(q, kv.float(), kv)
     with pytest.raises(ValueError):  # not contiguous

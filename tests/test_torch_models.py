@@ -30,16 +30,20 @@ from repro_torch.models import attention as tattn
 from repro_torch.models import layers as tlayers
 from repro_torch.models import model as tmodel
 
-from torch_port_common import F32_ATOL, as_np, assert_bf16_close, bridged_params
+from torch_port_common import F32_ATOL, as_np, assert_bf16_close, bridged_params, step_batch
 
 S, B, MAX_LEN = 10, 3, 16
 # reduced: stablelm-1.6b MHA, hd 32, LayerNorm; glm4-9b G 2, hd 32, RMSNorm;
 # internlm2-20b and qwen2.5-32b 4 query heads over 4 KV heads (qwen with
 # QKV bias); deepseek-v2-lite-16b MLA attention and an MoE FFN of 8 experts;
 # zamba2-2.7b five Mamba2 blocks and a dense attention block per period;
-# xlstm-350m an mLSTM and an sLSTM block per period
+# xlstm-350m an mLSTM and an sLSTM block per period; mixtral-8x7b an MoE of
+# 8 experts top-2 and a sliding window of 32 (beyond MAX_LEN: full caches
+# here, the ring in test_torch_batched_steps.py); phi-3-vision-4.2b and
+# musicgen-medium embeddings in (musicgen: LayerNorm, the tanh-gelu MLP)
 GQA_ARCHS = ("stablelm-1.6b", "glm4-9b", "internlm2-20b", "qwen2.5-32b")
-ARCHS = GQA_ARCHS + ("deepseek-v2-lite-16b", "zamba2-2.7b", "xlstm-350m")
+ARCHS = GQA_ARCHS + ("deepseek-v2-lite-16b", "zamba2-2.7b", "xlstm-350m", "mixtral-8x7b",
+                     "phi-3-vision-4.2b", "musicgen-medium")
 
 
 @pytest.fixture
@@ -102,8 +106,9 @@ def _caches_to_torch(caches):
 
 
 def _glu(block):
-    """A block's GLU FFN: an attention block's, an MoE block's shared
-    experts, or an sLSTM block's; None for a block without one."""
+    """A block's GLU FFN (or MLP FFN, under ``ffn="mlp"``): an attention
+    block's, an MoE block's shared experts, or an sLSTM block's; None for a
+    block without one."""
     for path in (("ffn",), ("moe", "shared"), ("slstm", "ffn")):
         sub = block
         for key in path:
@@ -155,6 +160,9 @@ def test_config_matches_reference(reduced, arch):
 
 
 @pytest.mark.parametrize("arch,lo,hi", [
+    ("mixtral-8x7b", 45e9, 48e9),
+    ("phi-3-vision-4.2b", 3.5e9, 4.5e9),
+    ("musicgen-medium", 1.2e9, 1.7e9),
     ("deepseek-v2-lite-16b", 15.5e9, 16.5e9),
     ("internlm2-20b", 19e9, 21e9),
     ("qwen2.5-32b", 31e9, 34e9),
@@ -195,16 +203,37 @@ def test_stage_profiles_match_reference(arch):
     {"frontend": "embeds"},
 ], ids=lambda c: "-".join(f"{k}={v}" for k, v in c.items()))
 def test_unported_kinds_raise(change):
-    """The options the port does not run yet raise NotImplementedError,
-    naming what is missing.  The recurrent kinds and ``dense_attn`` are
-    ported: they build with their dims (those of zamba2-2.7b and
-    xlstm-350m), and a recurrent period without its dims is a ValueError
-    naming them, as a ``moe_attn`` period without moe dims is."""
+    """Every option of the reference builds in the port (none raises
+    NotImplementedError any more).  The recurrent kinds and ``dense_attn``
+    build with their dims (those of zamba2-2.7b and xlstm-350m), and a
+    recurrent period without its dims is a ValueError naming them, as a
+    ``moe_attn`` period without moe dims is.  A sliding window, the MLP FFN
+    (``act="gelu"``) and the embeds frontend each build, and one reduced
+    prefill runs with it: the window leaves a ring of its 32 slots past
+    ``max_len``, the MLP block holds ``w_up``/``w_down`` alone, and the
+    embeds model has no table and takes ``{"embeds": [B, S, d]}``."""
     cfg = tconfigs.get_config("stablelm-1.6b")
     period = change.get("period")
     if period is None:
-        with pytest.raises(NotImplementedError):
-            dataclasses.replace(cfg, **change)
+        if change.get("ffn") == "mlp":
+            change = dict(change, act="gelu")
+        built = dataclasses.replace(cfg, **change).reduced(vocab_size=128)
+        params = tmodel.init_params(built, torch.Generator().manual_seed(0), device="cpu")
+        rng = np.random.default_rng(0)
+        _, batch = step_batch(built, rng, 2, 40)
+        max_len = 48
+        tok, conf, etok, caches = tmodel.prefill(params, batch, built, max_len)
+        assert tok.shape == (2,) and conf.shape == (2, len(built.exit_stages))
+        assert bool(torch.all((conf >= 0) & (conf <= 1)))
+        cache = caches[0][0]
+        if "sliding_window" in change:
+            assert built.sliding_window == 32 and cache["k"].shape[2] == 32
+            assert sorted(cache["slot_pos"][0].tolist()) == list(range(8, 40))
+        else:
+            assert "slot_pos" not in cache and cache["k"].shape[2] == max_len
+        if "ffn" in change:
+            assert set(params["stages"][0]["blocks"][0]["ffn"]) == {"w_up", "w_down"}
+        assert ("embed" in params) == ("frontend" not in change)
         return
     dims = {"mamba": tconfigs.get_config("zamba2-2.7b").mamba,
             "xlstm": tconfigs.get_config("xlstm-350m").xlstm}
@@ -292,17 +321,29 @@ def test_rope_matches(dtype):
 
 
 def test_silu_glu_embed_matmul_match(bridged):
-    """The GLU FFN (an MoE block's shared experts under deepseek)."""
-    jparams, tparams, _, _ = bridged
+    """The FFN: the GLU (an MoE block's shared experts under deepseek; an
+    MoE without shared experts, mixtral's, has none here), or the tanh-gelu
+    MLP under ``ffn="mlp"`` (musicgen); the embedding table where the
+    frontend has one."""
+    jparams, tparams, jcfg, _ = bridged
     rng = np.random.default_rng(2)
     jx, tx = _x(rng, (3, 5, 128))
     assert_bf16_close(tlayers.silu(tx), jax.nn.silu(jx))
-    j = next(j for j, b in enumerate(jparams["stages"][0]["blocks"]) if _glu(b) is not None)
-    jblk = _block(jparams["stages"][0]["blocks"][j])
-    tblk = tmodel._period(tparams["stages"][0]["blocks"][j], 0)
-    jffn, tffn = _glu(jblk), _glu(tblk)
-    assert_bf16_close(tlayers.glu_ffn(tffn, tx), jlayers.glu_ffn(jffn, jx))
-    assert_bf16_close(tlayers.matmul(tx, tffn["w_up"]), jlayers.matmul(jx, jffn["w_up"]))
+    j = next((j for j, b in enumerate(jparams["stages"][0]["blocks"]) if _glu(b) is not None), None)
+    if j is not None:
+        jblk = _block(jparams["stages"][0]["blocks"][j])
+        tblk = tmodel._period(tparams["stages"][0]["blocks"][j], 0)
+        jffn, tffn = _glu(jblk), _glu(tblk)
+        if jcfg.ffn == "mlp":
+            assert_bf16_close(tlayers.mlp_ffn(tffn, tx, jcfg.act), jlayers.mlp_ffn(jffn, jx, jcfg.act))
+        else:
+            assert_bf16_close(tlayers.glu_ffn(tffn, tx), jlayers.glu_ffn(jffn, jx))
+        assert_bf16_close(tlayers.matmul(tx, tffn["w_up"]), jlayers.matmul(jx, jffn["w_up"]))
+    else:
+        assert jcfg.moe is not None and jcfg.moe.num_shared == 0
+    if jcfg.frontend != "tokens":
+        assert "embed" not in jparams and "embed" not in tparams
+        return
     toks = rng.integers(0, 128, (2, 6)).astype(np.int32)
     np.testing.assert_array_equal(
         as_np(tlayers.embed(tparams["embed"], torch.from_numpy(toks).long())),
@@ -417,22 +458,22 @@ def test_heads_match(bridged):
 
 
 def _monolithic_steps(jparams, tparams, jcfg, tcfg):
-    """Prefill and two decode steps of both packages on one seeded token
-    batch, yielding (port, JAX) of (next tokens, head tokens, confidences,
+    """Prefill and two decode steps of both packages on one seeded batch
+    (tokens, or embeddings under ``frontend="embeds"``), yielding (port, JAX) of (next tokens, head tokens, confidences,
     caches) per call; read each before the next (the port's decode updates
     its caches in place).  For xLSTM each decode step starts from the reference's
     caches, so that one step's differences are held, not the amplified ones
     of the steps before (``_assert_stage_close``)."""
     rng = np.random.default_rng(8)
-    toks = rng.integers(0, 128, (B, S)).astype(np.int32)
-    j = jmodel.prefill(jparams, {"tokens": jnp.asarray(toks)}, jcfg, MAX_LEN)
-    t = tmodel.prefill(tparams, torch.from_numpy(toks).long(), tcfg, MAX_LEN)
+    jbatch, tbatch = step_batch(jcfg, rng, B, S)
+    j = jmodel.prefill(jparams, jbatch, jcfg, MAX_LEN)
+    t = tmodel.prefill(tparams, tbatch, tcfg, MAX_LEN)
     yield t, j
     for _ in range(2):
         tcaches = _caches_to_torch(j[3]) if "slstm" in tcfg.period else t[3]
-        step = np.array(j[0])[:, None]
-        j = jmodel.decode_step(jparams, {"tokens": jnp.asarray(step)}, j[3], jcfg)
-        t = tmodel.decode_step(tparams, torch.from_numpy(step).long(), tcaches, tcfg)
+        jbatch, tbatch = step_batch(jcfg, rng, B, 1, np.array(j[0])[:, None])
+        j = jmodel.decode_step(jparams, jbatch, j[3], jcfg)
+        t = tmodel.decode_step(tparams, tbatch, tcaches, tcfg)
         yield t, j
 
 

@@ -48,6 +48,21 @@ def as_np(x) -> np.ndarray:
     return np.asarray(jax.numpy.asarray(x).astype(jax.numpy.float32))
 
 
+def step_batch(cfg, rng: np.random.Generator, B: int, S: int, tokens=None):
+    """One batch for both packages' batched steps, as ``(jax batch, port
+    batch)``: for a token frontend ``tokens`` [B, S] (drawn when None); for
+    ``frontend="embeds"`` embeddings ``N(0, 1) * 0.1`` in bf16, as
+    ``tests/test_models_smoke.py``'s ``_batch``."""
+    if cfg.frontend == "embeds":
+        e = (rng.standard_normal((B, S, cfg.d_model)) * 0.1).astype(np.float32)
+        return ({"embeds": jax.numpy.asarray(e, jax.numpy.bfloat16)},
+                {"embeds": torch.from_numpy(e).bfloat16()})
+    if tokens is None:
+        tokens = rng.integers(0, cfg.vocab_size, (B, S))
+    tokens = np.array(tokens, np.int32)  # a writable copy
+    return {"tokens": jax.numpy.asarray(tokens)}, {"tokens": torch.from_numpy(tokens).long()}
+
+
 def assert_bf16_close(got, want):
     np.testing.assert_allclose(as_np(got), as_np(want), rtol=BF16_RTOL, atol=BF16_ATOL)
 
