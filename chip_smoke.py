@@ -126,7 +126,16 @@ exits non-zero without the final result line:
      a 2048-token prompt; the same at phi-3-vision's heads (hd 96), flash
      under mixtral's window at 4160 and 8192 tokens (SDPA given the band as
      a mask), both decode kernels at mixtral's G 4, and the exit head at the
-     three new LM heads.
+     three new LM heads;
+  9. train  — full-width stablelm-1.6b trained for 6 steps through
+     ``training.make_train_step`` (f32 masters, B 8 x S 512, AdamW;
+     ``train_phase``): finite losses and gradients, a nonzero gradient in
+     every stage's Q/K/V projections (Q, K and V detached rejected), no
+     kernel launched over the steps nor in a profiled 7th, one full-width
+     period's gradients on the card against the CPU at 2^-7 (a zeroed
+     gradient rejected), and step 6's state through ``CheckpointManager``
+     bit for bit; prints the step's wall, tokens/s, peak memory and FLOP
+     share.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits 2.
@@ -140,6 +149,7 @@ import json
 import math
 from collections import Counter
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -195,6 +205,13 @@ MIXTRAL_REQUESTS, MIXTRAL_GEN = 16, 8  # its engine serves
 MIXTRAL_PROMPT, STEPS_DECODE = 4160, 8  # its batched steps: one prompt past the window
 # the embeds configs' batched steps: (B, prompt length) of random embeddings
 EMBEDS_STEPS = {"phi-3-vision-4.2b": (4, 512), "musicgen-medium": (8, 256)}
+# the train phase: full-width stablelm-1.6b, f32 masters, AdamW
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 8, 512, 6
+TRAIN_PERIOD_B, TRAIN_PERIOD_S = 2, 256  # the period held card vs CPU
+# the device functions of the port's kernels, as the profiler names them
+KERNEL_FUNCTIONS = ("exit_tile_kernel", "exit_combine_kernel", "flash_wgmma_kernel",
+                    "flash_simple_kernel", "decode_attention_kernel",
+                    "paged_decode_attention_kernel", "combine_kernel")
 
 
 _START = time.perf_counter()
@@ -1814,7 +1831,7 @@ def main() -> None:
         moe_lib.router_probs = recording
         try:
             pos = torch.arange(16, dtype=torch.int32, device=x_.device)
-            y, cache = model_lib._block_apply("moe_attn", p_, x_, dcfg, pos, "prefill", 17)
+            y, cache, _ = model_lib._block_apply("moe_attn", p_, x_, dcfg, pos, "prefill", 17)
             cache = dict(cache, pos=torch.full((2,), 16, dtype=torch.int32, device=x_.device))
             yd, _ = model_lib._block_decode("moe_attn", p_, xd_, cache, dcfg, ragged=True)
         finally:
@@ -1879,7 +1896,7 @@ def main() -> None:
         prefilled cache.  Returns (y, yd, its own prefilled cache)."""
         d_ = p_["norm"]["scale"].device
         pos = torch.arange(16, dtype=torch.int32, device=d_)
-        y, own = model_lib._block_apply(kind, p_, x_.to(d_), mcfg, pos, "prefill", 17)
+        y, own, _ = model_lib._block_apply(kind, p_, x_.to(d_), mcfg, pos, "prefill", 17)
         c = {key: t.to(d_).clone() for key, t in (own if cache is None else cache).items()}
         c["pos"] = torch.full((2,), 16, dtype=torch.int32, device=d_)
         yd, _ = model_lib._block_decode(kind, p_, xd_.to(d_), c, mcfg, ragged=True)
@@ -2031,11 +2048,11 @@ def main() -> None:
         pos = torch.arange(160, dtype=torch.int32, device=dev)
         t0 = time.perf_counter()
         n0 = kflash.flash_attention.launches
-        y_c, c_c = model_lib._block_apply("attn", blk, x, mcfg, pos, "prefill", 161)
+        y_c, c_c, _ = model_lib._block_apply("attn", blk, x, mcfg, pos, "prefill", 161)
         torch.cuda.synchronize()
         n_flash = kflash.flash_attention.launches - n0
-        y_h, c_h = model_lib._block_apply("attn", model_lib.params_to(blk, "cpu"), x.cpu(), mcfg,
-                                          pos.cpu(), "prefill", 161)
+        y_h, c_h, _ = model_lib._block_apply("attn", model_lib.params_to(blk, "cpu"), x.cpu(),
+                                             mcfg, pos.cpu(), "prefill", 161)
         rel_y, rel_k = rel_norm(y_c.cpu(), y_h), rel_norm(c_c["k"].cpu(), c_h["k"])
         check(f"{label} one full-width block ({mcfg.norm}, {mcfg.num_heads} heads of "
               f"{mcfg.head_dim}, {mcfg.ffn} FFN with {mcfg.act}), card (flash) vs CPU (plain), "
@@ -2463,10 +2480,229 @@ def main() -> None:
                     "launches": n_launch, "max_abs_err": max_err[err_key], **t,
                 })
 
+    del heads
+    train_phase(dev, read_counts, zero_counts)
+
     print(f"nvidia-smi: {nvidia_smi()}")
     print(json.dumps({"kernels": kernels_out}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_kind,
                                              "count": torch.cuda.device_count()}}))
+
+
+def train_phase(dev, read_counts, zero_counts) -> None:
+    """Phase 9: full-width stablelm-1.6b trained for ``TRAIN_STEPS`` steps
+    through ``training.make_train_step`` (f32 masters from the seed, the
+    token stream at B 8, S 512, default AdamW with a warmup as long as the
+    run), with five gates, each also shown rejecting a planted fault where
+    one is named:
+
+      (a) every step's loss and grad norm are finite (a non-finite grad
+          element makes the norm non-finite), and step 1's every grad leaf;
+      (b) step 1's Q, K and V projections have a nonzero gradient in every
+          stage; planted: Q, K and V detached before attention, the cut a
+          forward-only kernel makes;
+      (c) no kernel launch counter moves over the steps, and a profiled
+          step (a 7th) shows none of the kernels' device functions;
+      (d) one full-width period (B 2, S 256) on the card against the CPU
+          (same f32 weights and inputs): its output, and the gradient of
+          every leaf and of the input for a seeded cotangent, norm-wise at
+          2^-7 (the loss, ``sum(y * ct)``, is then held too: by
+          Cauchy-Schwarz its gap is at most the output's relative gap times
+          |y| |ct|); planted: one leaf's gradient zeroed;
+      (e) ``CheckpointManager`` save and restore of step 6's (params,
+          optimizer state), bit for bit.
+
+    Prints each step's metrics, the median synchronized wall time of steps
+    2-6, tokens/s, the peak device memory and the step's model FLOPs
+    against the bf16 peak."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, token_stream
+    from repro_torch.models import attention as attention_lib
+    from repro_torch.models import model as model_lib
+    from repro_torch.roofline.constants import PEAK_FLOPS_BF16
+    from repro_torch.runtime import CheckpointManager
+    from repro_torch.training import AdamWConfig, make_train_step
+    from repro_torch.training import optimizer as opt_lib
+    from repro_torch.training import train_step as train_step_lib
+
+    phase("train: full-width stablelm-1.6b, f32 masters, AdamW")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    leaves = torch.utils._pytree.tree_leaves
+    t0 = time.perf_counter()
+    cfg = get_config("stablelm-1.6b")
+    params = model_lib.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), dev,
+                                   master=True)
+    opt_state = opt_lib.init_opt_state(params)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in leaves(params))
+    print(f"stablelm-1.6b full width: {cfg.num_layers} layers, d {cfg.d_model}, vocab "
+          f"{cfg.vocab_size}; {n_params / 1e9:.4f} B params in f32 ({n_params * 4 / 1e9:.1f} GB, "
+          f"m and v {n_params * 8 / 1e9:.1f} GB); set-up {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    step_fn = make_train_step(cfg, AdamWConfig(total_steps=TRAIN_STEPS, warmup_steps=TRAIN_STEPS))
+    stream = token_stream(cfg, DataConfig(batch_size=TRAIN_B, seq_len=TRAIN_S, seed=0), device=dev)
+    batches = [next(stream) for _ in range(TRAIN_STEPS + 1)]
+
+    def qkv_norms(grads):
+        """|dW| of Q, K and V for each period of each stage."""
+        return [[[float(torch.linalg.vector_norm(st["blocks"][0]["attn"][w][i]))
+                  for w in ("w_q", "w_k", "w_v")]
+                 for i in range(st["blocks"][0]["attn"]["w_q"].shape[0])] for st in grads["stages"]]
+
+    def reached(norms):
+        return all(n > 0 for st in norms for period in st for n in period)
+
+    def show(norms):  # per stage, its periods' smallest |dW_q|, |dW_k|, |dW_v|
+        return "; ".join("/".join(f"{min(per[j] for per in st):.3g}" for j in range(3))
+                         for st in norms)
+
+    def loss_of(p_, b_):
+        return model_lib.loss_fn(p_, b_, cfg)
+
+    # (a) and (b): step 1's gradients, from the step's own loss on its batch
+    _, _, grads = train_step_lib.value_and_grad(loss_of, params, batches[0])
+    finite1 = all(bool(torch.isfinite(g).all()) for g in leaves(grads))
+    qkv = qkv_norms(grads)
+    del grads
+
+    zero_counts()
+    losses, walls, finite = [], [], True
+    for i, batch in enumerate(batches[:TRAIN_STEPS]):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        params, opt_state, metrics = step_fn(params, opt_state, batch)
+        vals = {k: float(v) for k, v in metrics.items()}  # synchronizes
+        walls.append(time.perf_counter() - t1)
+        finite &= all(math.isfinite(v) for v in vals.values())
+        losses.append(vals["loss"])
+        print(f"  step {i + 1}: " + ", ".join(f"{k} {v:.5g}" for k, v in sorted(vals.items()))
+              + f"; wall {walls[-1] * 1e3:.1f} ms", flush=True)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    tokens = TRAIN_B * TRAIN_S
+    wall = float(np.median(walls[1:]))
+    # model FLOPs: 6 N T over the blocks' matmuls and the final head, the
+    # remat forward of the blocks (2 N_blocks T) and the two exit heads'
+    # forward and backward (6 d V T each); attention's score and value
+    # products besides, forward, remat and backward
+    n_head = cfg.d_model * cfg.vocab_size
+    n_blocks = sum(t.numel() for t in leaves(params["stages"]) if t.ndim == 3)
+    model_flops = (6 * (n_blocks + n_head) + 2 * n_blocks + 6 * n_head * len(cfg.exit_stages)) * tokens
+    attn_flops = 4 * 4 * TRAIN_B * TRAIN_S * TRAIN_S * cfg.d_model * cfg.num_layers
+    bound_ms = (model_flops + attn_flops) / PEAK_FLOPS_BF16 * 1e3
+    print(f"train: {TRAIN_STEPS} steps of B {TRAIN_B} x S {TRAIN_S}; median wall of steps 2-"
+          f"{TRAIN_STEPS} {wall * 1e3:.1f} ms (step 1 {walls[0] * 1e3:.1f} ms); {tokens / wall:.0f} tokens/s; peak device memory {peak:.2f} GiB; model FLOPs "
+          f"{model_flops:.4g} + attention {attn_flops:.4g} a step: bound {bound_ms:.1f} ms at the "
+          f"bf16 peak, {bound_ms / (wall * 1e3):.1%} of it reached; card {nvidia_smi()}", flush=True)
+    check("train (a): every step's loss and grad norm finite, and every grad leaf of step 1",
+          finite and finite1, f"losses {[round(x, 4) for x in losses]}")
+    check("train (b): every period's Q, K and V projections got a nonzero gradient at step 1",
+          reached(qkv), "per stage, the smallest over its periods of |dW_q|, |dW_k|, |dW_v| "
+          + show(qkv))
+    check("train (c): no kernel launched over the train steps", sum(counts.values()) == 0,
+          f"launch counts {counts}")
+
+    # (b)'s planted fault: Q, K and V detached before attention
+    real_chunked = attention_lib.chunked_attention
+
+    def cut(q, k, v, *args, **kw):
+        return real_chunked(q.detach(), k.detach(), v.detach(), *args, **kw)
+
+    attention_lib.chunked_attention = cut
+    try:
+        _, _, g_cut = train_step_lib.value_and_grad(loss_of, params, batches[0])
+    finally:
+        attention_lib.chunked_attention = real_chunked
+    qkv_cut = qkv_norms(g_cut)
+    del g_cut
+    check("train (b) rejects a planted fault: Q, K and V detached before attention",
+          not reached(qkv_cut), "per stage " + show(qkv_cut))
+
+    # (e): the step-6 state through a checkpoint, bit for bit
+    ckpt_root = Path(__file__).resolve().parent / "_train_ckpt"
+    t1 = time.perf_counter()
+    try:
+        mgr = CheckpointManager(str(ckpt_root), keep=1)
+        path = mgr.save(TRAIN_STEPS, (params, opt_state), {"arch": cfg.name})
+        t_save = time.perf_counter() - t1
+        restored, manifest = mgr.restore((params, opt_state))
+        same = all(torch.equal(a, b) for a, b in zip(leaves((params, opt_state)), leaves(restored)))
+        t_all = time.perf_counter() - t1
+        n_leaves = manifest["num_leaves"]
+        del restored
+    finally:
+        shutil.rmtree(ckpt_root, ignore_errors=True)
+    check("train (e): the step-6 (params, optimizer state) through CheckpointManager, bit for bit",
+          same and manifest["step"] == TRAIN_STEPS,
+          f"{n_leaves} leaves, {(n_params * 12 + 4) / 1e9:.1f} GB; save {t_save:.1f} s, restore "
+          f"{t_all - t_save:.1f} s ({path})")
+
+    # (c): a 7th step under the profiler
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    names = device_launches(lambda: step_fn(params, opt_state, batches[TRAIN_STEPS]))
+    t_prof = time.perf_counter() - t1
+    found = sorted({kernel_name(k) for k in names} & set(KERNEL_FUNCTIONS))
+    n_dev = sum(len(v) for v in names.values())
+    busy = {k: sum(v) / 1e3 for k, v in names.items()}  # ms
+    top = sorted(busy.items(), key=lambda kv: -kv[1])[:10]
+    print(f"train: a profiled step: {n_dev} device launches, device busy {sum(busy.values()):.1f} ms "
+          f"of {t_prof * 1e3:.1f} ms wall (the profiler's overhead in the wall); by kernel: "
+          + "; ".join(f"{kernel_name(k)[:48]} x{len(names[k])} {ms:.1f} ms" for k, ms in top),
+          flush=True)
+    check("train (c): a profiled step launches none of the kernels' device functions",
+          n_dev > 0 and not found and sum(read_counts().values()) == 0,
+          f"{n_dev} device launches recorded, of the kernels' {found}")
+    del opt_state, batches
+
+    # (d): one full-width period, card vs CPU
+    blk = model_lib._period(params["stages"][0]["blocks"][0], 0)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    g = torch.Generator(device=dev).manual_seed(SEED + 9)
+    x = torch.randn((TRAIN_PERIOD_B, TRAIN_PERIOD_S, cfg.d_model), generator=g, device=dev)
+    x = x.bfloat16()
+    ct = torch.randn((TRAIN_PERIOD_B, TRAIN_PERIOD_S, cfg.d_model), generator=g, device=dev)
+
+    def period_grads(p_, x_, ct_):
+        ps = [t.detach().clone().requires_grad_(True) for t in leaves(p_)]
+        tree = torch.utils._pytree.tree_unflatten(ps, torch.utils._pytree.tree_structure(p_))
+        x_ = x_.detach().clone().requires_grad_(True)
+        pos = torch.arange(x_.shape[1], dtype=torch.int32, device=x_.device)
+        y, _, _ = model_lib._block_apply("attn", tree, x_, cfg, pos, "train")
+        return y.detach(), torch.autograd.grad(torch.sum(y.float() * ct_), [x_] + ps)
+
+    t1 = time.perf_counter()
+    y_c, g_c = period_grads(blk, x, ct)
+    y_h, g_h = period_grads(model_lib.params_to(blk, "cpu"), x.cpu(), ct.cpu())
+    names_d = ["x"] + ["/".join(str(k.key) for k in path)
+                       for path, _ in torch.utils._pytree.tree_flatten_with_path(blk)[0]]
+
+    def rel(a, b):
+        return float(torch.linalg.vector_norm(a.float().cpu() - b.float())
+                     / torch.linalg.vector_norm(b.float()))
+
+    rels = [rel(a, b) for a, b in zip(g_c, g_h)]
+    rel_y = rel(y_c, y_h)
+    worst = max(range(len(rels)), key=rels.__getitem__)
+    check(f"train (d): one full-width period (B {TRAIN_PERIOD_B}, S {TRAIN_PERIOD_S}) card vs CPU: "
+          f"output and every gradient ({time.perf_counter() - t1:.1f} s)",
+          rel_y <= 2**-7 and max(rels) <= 2**-7,
+          f"output norm-wise rel {rel_y:.3g}; {len(rels)} gradients, worst norm-wise rel "
+          f"{rels[worst]:.3g} ({names_d[worst]}, {rels[worst] / 2**-7:.0%} of the tol 2^-7 = "
+          f"{2**-7:.3g}); " + ", ".join(f"{n} {r:.2g}" for n, r in zip(names_d, rels)))
+    faulty = list(g_c)
+    k = names_d.index("attn/w_k")
+    faulty[k] = torch.zeros_like(faulty[k])
+    rels_f = [rel(a, b) for a, b in zip(faulty, g_h)]
+    check("train (d) rejects a planted fault: the card's W_k gradient zeroed",
+          max(rels_f) > 2**-7, f"worst norm-wise rel {max(rels_f):.3g}")
+    del blk, g_c, g_h, y_c, y_h, faulty
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

@@ -1,3 +1,3 @@
-from repro_torch.data.pipeline import RequestConfig, poisson_requests
+from repro_torch.data.pipeline import DataConfig, RequestConfig, poisson_requests, token_stream
 
-__all__ = ["RequestConfig", "poisson_requests"]
+__all__ = ["DataConfig", "RequestConfig", "poisson_requests", "token_stream"]

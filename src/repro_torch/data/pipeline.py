@@ -1,12 +1,59 @@
-"""Serving request streams: the serving half of ``repro.data.pipeline``
-(pure numpy, copied).  The training token pipeline is not ported yet."""
+"""Synthetic data: the counterpart of ``repro.data.pipeline`` (its numpy,
+copied).
+
+Training: an infinite deterministic token stream, seeded by ``(seed,
+step)``, so a resumed run sees bit for bit the batches it would have seen
+(the checkpoint records the step; no cursor state is stored).  Batches are
+made on the host and copied to ``device``.  The reference's ``mesh``
+argument (batches arriving sharded) waits for the port's device mesh.
+
+Serving: Poisson arrivals of prompts with lognormal lengths.
+"""
 from __future__ import annotations
 
 import dataclasses
+from typing import Iterator
 
 import numpy as np
+import torch
 
 from repro_torch.configs.base import ArchConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    batch_size: int = 8
+    seq_len: int = 512
+    seed: int = 0
+
+
+def _batch_for_step(cfg: ArchConfig, dcfg: DataConfig, step: int) -> dict:
+    """Deterministic synthetic LM batch for a given step (host-side numpy)."""
+    rng = np.random.default_rng((dcfg.seed, step))
+    B, S = dcfg.batch_size, dcfg.seq_len
+    if cfg.frontend == "embeds":
+        embeds = rng.standard_normal((B, S, cfg.d_model)).astype(np.float32) * 0.02
+        labels = rng.integers(0, cfg.vocab_size, size=(B, S)).astype(np.int32)
+        return {"embeds": embeds, "labels": labels}
+    # Markov-ish stream so the LM loss has learnable structure
+    base = rng.integers(0, cfg.vocab_size, size=(B, S)).astype(np.int32)
+    shifted = np.roll(base, 1, axis=1)
+    mix = rng.random((B, S)) < 0.5
+    tokens = np.where(mix, base, (shifted * 31 + 7) % cfg.vocab_size).astype(np.int32)
+    labels = np.roll(tokens, -1, axis=1).astype(np.int32)
+    labels[:, -1] = -1  # mask the wrap-around position
+    return {"tokens": tokens, "labels": labels}
+
+
+def token_stream(cfg: ArchConfig, dcfg: DataConfig, start_step: int = 0,
+                 device="cuda") -> Iterator[dict]:
+    """Infinite stream of batches from ``start_step`` on, as tensors on
+    ``device`` (tokens and labels int32, embeddings f32)."""
+    step = start_step
+    while True:
+        host = _batch_for_step(cfg, dcfg, step)
+        yield {k: torch.from_numpy(v).to(device) for k, v in host.items()}
+        step += 1
 
 
 @dataclasses.dataclass(frozen=True)

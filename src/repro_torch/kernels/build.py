@@ -21,6 +21,8 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = (
@@ -104,3 +106,20 @@ def load(name: str) -> ctypes.CDLL:
         build_all([name])
         lib = _libs[name] = ctypes.CDLL(str(_target(name)))
     return lib
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise where autograd would need a gradient through kernel ``name``.
+
+    The kernels are forward-only ctypes calls: their outputs carry no
+    ``grad_fn``, so a backward pass would silently stop at them.  Training
+    computes attention with the plain ``chunked_attention`` and never calls
+    a kernel; this turns a call that would cut the gradient into an error,
+    before any build or launch.
+    """
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward, and an input requires grad; "
+            "compute with the plain version (training's attention is chunked_attention), "
+            "or call it under torch.no_grad()"
+        )

@@ -97,6 +97,7 @@ def decode_attention(
 ) -> torch.Tensor:
     if q.device.type == "cpu":
         return ref.decode_attention_ref(q, k, v, lengths)
+    build.refuse_grad("decode_attention", q, k, v)
     dev = q.device
     if dev.type != "cuda" or any(t.device != dev for t in (k, v, lengths)):
         raise ValueError("decode_attention: q, k, v and lengths must share one CUDA device")

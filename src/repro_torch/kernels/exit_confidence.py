@@ -78,6 +78,7 @@ def exit_confidence(h: torch.Tensor, w: torch.Tensor) -> tuple[torch.Tensor, tor
     """h [B, d], w [d, V] -> (conf [B] f32, argmax [B] i32)."""
     if h.device.type == "cpu":
         return ref.exit_confidence_ref(h, w)
+    build.refuse_grad("exit_confidence", h, w)
     if h.device.type != "cuda" or w.device != h.device:
         raise ValueError(f"exit_confidence: h on {h.device}, w on {w.device}")
     if h.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:

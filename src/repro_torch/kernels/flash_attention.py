@@ -43,6 +43,7 @@ def flash_attention(
 ) -> torch.Tensor:
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    build.refuse_grad("flash_attention", q, k, v)
     dev = q.device
     if dev.type != "cuda" or k.device != dev or v.device != dev:
         raise ValueError("flash_attention: q, k and v must share one CUDA device")

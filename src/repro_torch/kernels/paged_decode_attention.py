@@ -49,6 +49,7 @@ def paged_decode_attention(
     dense kernel's walk on the sliced cache."""
     if q.device.type == "cpu":
         return ref.paged_decode_attention_ref(q, k_pool, v_pool, table, lengths, seq_len=seq_len)
+    build.refuse_grad("paged_decode_attention", q, k_pool, v_pool)
     dev = q.device
     if dev.type != "cuda" or any(t.device != dev for t in (k_pool, v_pool, table, lengths)):
         raise ValueError("paged_decode_attention: all inputs must share one CUDA device")

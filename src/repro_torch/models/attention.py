@@ -4,8 +4,9 @@ multi-head latent attention) — the counterpart of ``repro.models.attention``.
 Prefill attention (``gqa_forward``) goes through
 ``kernels.ops.flash_attention`` wherever the backend launches a kernel (a
 CUDA tensor under "auto" or "cuda"), and is the q-chunked plain
-``chunked_attention`` (the reference's XLA path) otherwise: on the CPU and
-under the "torch" backend.  Every caller prefills positions ``arange(S)``,
+``chunked_attention`` (the reference's XLA path) otherwise: on the CPU,
+under the "torch" backend, and in training (``train=True``) on every
+device.  Every caller prefills positions ``arange(S)``,
 where the kernel's top-left causal mask is ``chunked_attention``'s; other
 positions are not supported on the kernel path.  Cached one-token decode
 goes through ``kernels.ops.decode_attention`` (dense slots) or
@@ -144,14 +145,17 @@ def gqa_forward(
     positions: torch.Tensor | None = None,  # [S]
     q_chunk: int = 1024,
     return_kv: bool = False,
+    train: bool = False,
 ):
-    """Full-sequence causal attention (prefill).
+    """Full-sequence causal attention (prefill, the stateless serve, training).
 
     ``positions`` must be ``arange(S)`` (what every caller passes) wherever
     the backend launches a kernel: the flash kernel masks by top-left
     positions, which equals ``chunked_attention``'s causal mask only there.
     Elsewhere (CPU, backend "torch") attention is ``chunked_attention`` at
-    the given positions.
+    the given positions.  ``train=True`` takes ``chunked_attention`` on every
+    device, the reference's training path: the flash kernel is forward-only
+    (its wrapper raises on inputs that need a gradient).
     """
     B, S, _ = x.shape
     if positions is None:
@@ -159,7 +163,7 @@ def gqa_forward(
     q, k, v = _project_qkv(params, x, dims)
     q = apply_rope(q, positions[None, :], dims.rope_theta)
     k = apply_rope(k, positions[None, :], dims.rope_theta)
-    if kernel_ops.uses_kernel(q):
+    if not train and kernel_ops.uses_kernel(q):
         out = kernel_ops.flash_attention(q, k, v, causal=True, window=dims.sliding_window)
     else:
         out = chunked_attention(q, k, v, positions, positions, dims.groups, dims.sliding_window,

@@ -25,17 +25,19 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models.model import BF16_LEAVES
 
 
-def _convert(tree: Any, name: str, device) -> Any:
+def _convert(tree: Any, name: str, device, master: bool) -> Any:
     if isinstance(tree, dict):
-        return {k: _convert(v, k, device) for k, v in tree.items()}
+        return {k: _convert(v, k, device, master) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_convert(v, name, device) for v in tree)
-    dtype = torch.bfloat16 if name in BF16_LEAVES else torch.float32
+        return type(tree)(_convert(v, name, device, master) for v in tree)
+    dtype = torch.bfloat16 if name in BF16_LEAVES and not master else torch.float32
     return torch.from_numpy(np.array(tree, np.float32)).to(device=device, dtype=dtype)
 
 
-def params_from_numpy(tree: Any, cfg: ArchConfig, device="cuda") -> Any:
-    """The port's parameters from the reference tree of numpy arrays."""
+def params_from_numpy(tree: Any, cfg: ArchConfig, device="cuda", master: bool = False) -> Any:
+    """The port's parameters from the reference tree of numpy arrays; with
+    ``master=True`` every leaf stays f32 (the reference's training masters,
+    ``models.model.init_params(..., master=True)``)."""
     if len(tree["stages"]) != cfg.num_stages:
         raise ValueError(f"tree has {len(tree['stages'])} stages, config {cfg.num_stages}")
-    return _convert(tree, "", device)
+    return _convert(tree, "", device, master)

@@ -1,10 +1,13 @@
 """Shared primitive layers: norms, activations, embeddings, RoPE, FFNs.
 
 The counterpart of ``repro.models.layers``.  Parameters are nested dicts of
-tensors.  Weight matrices are stored in bf16 once at load (the JAX package
-keeps f32 masters and casts them to bf16 at every matmul, which gives the
-same products); norm scales, norm biases and QKV biases stay f32 and are
-cast where the reference casts them.
+tensors.  For serving, weight matrices are stored in bf16 once at load (the
+JAX package keeps f32 masters and casts them to bf16 at every matmul, which
+gives the same products); training keeps f32 masters as the reference does
+(``models.model.init_params(..., master=True)``), and every matmul casts.
+Norm scales, norm biases and QKV biases stay f32 and are cast where the
+reference casts them.  The reference's ``loop_map`` / ``loop_scan`` are
+plain Python loops here (they exist there for XLA's cost analysis).
 """
 from __future__ import annotations
 
@@ -71,10 +74,46 @@ def apply_norm(kind: str, params: Params, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+class _Logistic(torch.autograd.Function):
+    """``1 / (1 + exp(-x))`` op for op in the input dtype, as
+    ``lax.logistic`` lowers, with its derivative rule ``g * (s * (1 - s))``
+    (autograd through the three ops would round a bf16 gradient at other
+    places than the reference does)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        s = 1.0 / (1.0 + torch.exp(-x))
+        ctx.save_for_backward(s)
+        return s
+
+    @staticmethod
+    def backward(ctx, g):
+        (s,) = ctx.saved_tensors
+        return g * (s * (1.0 - s))
+
+
+class _Tanh(torch.autograd.Function):
+    """``torch.tanh`` with ``lax.tanh``'s derivative rule ``(g + g * t) *
+    (1 - t)`` (torch's is ``g * (1 - t * t)``, which rounds otherwise in
+    bf16)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        t = torch.tanh(x)
+        ctx.save_for_backward(t)
+        return t
+
+    @staticmethod
+    def backward(ctx, g):
+        (t,) = ctx.saved_tensors
+        return (g + g * t) * (1.0 - t)
+
+
 def silu(x: torch.Tensor) -> torch.Tensor:
-    """``x * 1 / (1 + exp(-x))`` op for op in the input dtype, as
-    ``jax.nn.silu`` lowers: each step rounds to bf16 on a bf16 input."""
-    return x * (1.0 / (1.0 + torch.exp(-x)))
+    """``x * logistic(x)``, the logistic ``1 / (1 + exp(-x))`` op for op in
+    the input dtype, as ``jax.nn.silu`` lowers: each step rounds to bf16 on
+    a bf16 input."""
+    return x * _Logistic.apply(x)
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
@@ -101,7 +140,7 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     rounds to bf16 on a bf16 input, as the reference's does (the fused
     ``F.gelu`` rounds once and parts from it on ~40% of bf16 values)."""
     c, a = (torch.tensor(v, dtype=x.dtype, device=x.device) for v in (_SQRT_2_OVER_PI, 0.044715))
-    return x * (0.5 * (1.0 + torch.tanh(c * (x + a * (x**3)))))
+    return x * (0.5 * (1.0 + _Tanh.apply(c * (x + a * (x**3)))))
 
 
 _ACTS = {"silu": silu, "gelu": gelu}

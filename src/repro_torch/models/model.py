@@ -21,6 +21,14 @@ state, mLSTM's conv tail and ``C``/``n``/``m``, sLSTM's ``c``/``n``/``h``/
 ``sliding_window`` slots with its ``slot_pos`` when the window is shorter
 than ``max_len``.  The reference's ``lax.scan`` over periods is a Python
 loop here.
+
+Training (``loss_fn``) runs the stages in mode ``"train"``: attention is
+the plain ``chunked_attention`` on every device (the CUDA kernels are
+forward-only), each period is recomputed in the backward pass
+(``torch.utils.checkpoint``, the reference's ``jax.checkpoint``) and the MoE
+blocks' load-balance losses are summed.  ``init_params(..., master=True)``
+keeps every weight in f32, as the reference's trainer does; the matmuls
+cast to bf16 at each use either way.
 """
 from __future__ import annotations
 
@@ -76,9 +84,9 @@ def _dense(shape, generator: torch.Generator | None, device, stacked: int | None
            dtype=torch.bfloat16) -> torch.Tensor:
     """Truncated normal at +-3 std with std 1/sqrt(shape[0]) (the
     reference's fan-in), made in f32 and stored in ``dtype`` (bf16 for a
-    weight matrix; the reference keeps the f32 master).  A stacked leaf is
-    filled one period at a time, so no f32 temporary is larger than one
-    period's matrix.  On the meta device nothing is drawn (shapes only)."""
+    served weight matrix, f32 for a master).  A stacked leaf is filled one
+    period at a time, so no f32 temporary is larger than one period's
+    matrix.  On the meta device nothing is drawn (shapes only)."""
     std = 1.0 / math.sqrt(shape[0])
     out = torch.empty(shape if stacked is None else (stacked, *shape), dtype=dtype,
                       device=device)
@@ -100,9 +108,9 @@ def _norm_init(kind: str, d: int, device, stacked: int | None = None) -> Params:
 
 
 def _state_block_init(kind: str, cfg: ArchConfig, n: int, generator: torch.Generator | None,
-                      device) -> Params:
+                      device, wdtype) -> Params:
     """One Mamba2, mLSTM or sLSTM block (its pre-norm and its cell's
-    parameters), stacked over ``n`` periods."""
+    parameters), stacked over ``n`` periods; weight matrices in ``wdtype``."""
     sk = _STATE_KINDS[kind]
 
     def const(t: torch.Tensor) -> torch.Tensor:
@@ -111,7 +119,7 @@ def _state_block_init(kind: str, cfg: ArchConfig, n: int, generator: torch.Gener
 
     cell = sk.init(
         getattr(cfg, sk.dims),
-        lambda shape: _dense(shape, generator, device, n),
+        lambda shape: _dense(shape, generator, device, n, wdtype),
         lambda shape: _dense(shape, generator, device, n, torch.float32),
         const,
         lambda w: _norm_init("rmsnorm", w, device, n),
@@ -120,16 +128,16 @@ def _state_block_init(kind: str, cfg: ArchConfig, n: int, generator: torch.Gener
 
 
 def _block_init(kind: str, cfg: ArchConfig, n: int, generator: torch.Generator | None,
-                device) -> Params:
+                device, wdtype) -> Params:
     """One block of ``kind``, stacked over ``n`` periods: an attention block
     (GQA or MLA attention; a GLU or MLP FFN or, for ``"moe_attn"``, a
     mixture of experts), or a recurrent one (``_state_block_init``)."""
     if kind in _STATE_KINDS:
-        return _state_block_init(kind, cfg, n, generator, device)
+        return _state_block_init(kind, cfg, n, generator, device, wdtype)
     d = cfg.d_model
 
     def dense(shape):
-        return _dense(shape, generator, device, n)
+        return _dense(shape, generator, device, n, wdtype)
 
     if cfg.mla is not None:
         attn = attention.mla_init(cfg.mla, dense, lambda w: _norm_init("rmsnorm", w, device, n))
@@ -158,26 +166,31 @@ def _block_init(kind: str, cfg: ArchConfig, n: int, generator: torch.Generator |
     return p
 
 
-def init_params(cfg: ArchConfig, generator: torch.Generator | None, device="cuda") -> Params:
+def init_params(cfg: ArchConfig, generator: torch.Generator | None, device="cuda",
+                master: bool = False) -> Params:
     """Random weights with the reference's tree, shapes and init law.
 
     ``generator`` must live on ``device``.  The values differ from
     ``repro.models.model.init_params`` (another generator); tests that need
     equal weights bridge the JAX tree with ``models.bridge``.  On the
     ``"meta"`` device (``generator`` None) it builds the shapes alone.  An
-    ``"embeds"`` frontend has no embedding table.
+    ``"embeds"`` frontend has no embedding table.  Weight matrices are bf16
+    for serving, or f32 masters with ``master=True`` (training; the
+    products are the same, since every matmul casts to bf16).
     """
     d = cfg.d_model
+    wdtype = torch.float32 if master else torch.bfloat16
     params: Params = {}
     if cfg.frontend == "tokens":
-        params["embed"] = {"embed": _dense((cfg.vocab_size, d), generator, device)}
+        params["embed"] = {"embed": _dense((cfg.vocab_size, d), generator, device, dtype=wdtype)}
     params.update({
-        "lm_head": _dense((d, cfg.vocab_size), generator, device),
+        "lm_head": _dense((d, cfg.vocab_size), generator, device, dtype=wdtype),
         "final_norm": _norm_init(cfg.norm, d, device),
         "exit_norms": {f"exit_{h}": _norm_init(cfg.norm, d, device) for h in cfg.exit_stages},
     })
     params["stages"] = [
-        {"blocks": tuple(_block_init(kind, cfg, n, generator, device) for kind in cfg.period)}
+        {"blocks": tuple(_block_init(kind, cfg, n, generator, device, wdtype)
+                         for kind in cfg.period)}
         for n in cfg.stage_periods()
     ]
     return params
@@ -205,14 +218,15 @@ def _period(tree: Params, i: int) -> Params:
 # ---------------------------------------------------------------------------
 
 
-def _ffn(kind: str, p: Params, h2: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    """The block's FFN on the normed residual: the GLU or the MLP, or the
-    MoE (whose load-balance loss only training reads)."""
+def _ffn(kind: str, p: Params, h2: torch.Tensor, cfg: ArchConfig):
+    """The block's FFN on the normed residual: ``(out, aux)``, the GLU or
+    the MLP with ``aux`` None, or the MoE with its load-balance loss (which
+    only training reads)."""
     if kind == "moe_attn":
-        return moe.moe_forward(p["moe"], h2, cfg.moe)[0]
+        return moe.moe_forward(p["moe"], h2, cfg.moe)
     if cfg.ffn == "mlp":
-        return layers.mlp_ffn(p["ffn"], h2, cfg.act)
-    return layers.glu_ffn(p["ffn"], h2, cfg.act)
+        return layers.mlp_ffn(p["ffn"], h2, cfg.act), None
+    return layers.glu_ffn(p["ffn"], h2, cfg.act), None
 
 
 def _state_block_apply(kind: str, p: Params, x: torch.Tensor, cfg: ArchConfig, mode: str):
@@ -271,12 +285,19 @@ def _block_apply(
     x: torch.Tensor,
     cfg: ArchConfig,
     positions: torch.Tensor,
-    mode: str,  # "train" | "prefill"
+    mode: str,  # "train" | "forward" | "prefill"
     max_len: int = 0,
 ):
-    """One block of ``kind``.  Returns (x', cache or None)."""
+    """One block of ``kind``.  Returns (x', cache or None, aux or None).
+
+    ``"prefill"`` also builds the block's cache; ``"forward"`` (the
+    stateless serve) and ``"train"`` build none and differ only in
+    attention, which ``"train"`` computes with the plain
+    ``chunked_attention`` on every device, since the flash kernel has no
+    backward.  ``aux`` is an MoE block's load-balance loss (None for the
+    other blocks, where the reference adds a zero)."""
     if kind in _STATE_KINDS:
-        return _state_block_apply(kind, p, x, cfg, mode)
+        return (*_state_block_apply(kind, p, x, cfg, mode), None)
     h = layers.apply_norm(cfg.norm, p["norm1"], x)
     cache = None
     if cfg.mla is not None:
@@ -295,10 +316,12 @@ def _block_apply(
                                                 return_kv=True)
             cache = _cache_from_kv(k, v, dims, max_len)
         else:
-            out = attention.gqa_forward(p["attn"], h, dims, positions, cfg.q_chunk)
+            out = attention.gqa_forward(p["attn"], h, dims, positions, cfg.q_chunk,
+                                        train=mode == "train")
     x = x + out
     h2 = layers.apply_norm(cfg.norm, p["norm2"], x)
-    return x + _ffn(kind, p, h2, cfg), cache
+    ffn_out, aux = _ffn(kind, p, h2, cfg)
+    return x + ffn_out, cache, aux
 
 
 def _block_decode(kind: str, p: Params, x: torch.Tensor, cache: Params, cfg: ArchConfig,
@@ -331,7 +354,7 @@ def _block_decode(kind: str, p: Params, x: torch.Tensor, cache: Params, cfg: Arc
         out, cache = decode(p["attn"], h, cache, cfg.attn_dims())
     x = x + out
     h2 = layers.apply_norm(cfg.norm, p["norm2"], x)
-    return x + _ffn(kind, p, h2, cfg), cache
+    return x + _ffn(kind, p, h2, cfg)[0], cache
 
 
 def _stack_caches(per_period: list[Params]) -> Params:
@@ -345,20 +368,50 @@ def _num_periods(stage: Params) -> int:
     return block["norm1" if "norm1" in block else "norm"]["scale"].shape[0]
 
 
+def _add_aux(total: torch.Tensor | None, a: torch.Tensor | None) -> torch.Tensor | None:
+    """``total + a`` where None stands for the reference's zero (``0 + a``
+    is ``a`` exactly, so the sums round as the reference's do)."""
+    if a is None:
+        return total
+    return a if total is None else total + a
+
+
+def _period_apply(blocks: tuple, i: int, x: torch.Tensor, aux: torch.Tensor | None,
+                  cfg: ArchConfig, positions: torch.Tensor, mode: str, max_len: int):
+    """Period ``i`` of a stage (each kind's block in order): ``(x, aux,
+    the blocks' caches)``, ``aux`` carried through the blocks."""
+    caches = []
+    for j, kind in enumerate(cfg.period):
+        x, cache, a = _block_apply(kind, _period(blocks[j], i), x, cfg, positions, mode, max_len)
+        caches.append(cache)
+        aux = _add_aux(aux, a)
+    return x, aux, caches
+
+
 def _run_stage(
     stage: Params, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor, mode: str,
     max_len: int = 0,
 ):
-    """Run this stage's periods in order.  Returns (x, stacked caches or None)."""
+    """Run this stage's periods in order.  Returns (x, stacked caches or
+    None, the MoE blocks' summed aux loss or None).  In mode ``"train"``
+    with grad enabled each period is recomputed in the backward pass
+    (``torch.utils.checkpoint``; the reference's ``jax.checkpoint``): only
+    the periods' inputs are kept."""
     caches: list[list[Params]] = [[] for _ in cfg.period]
+    aux = None
+    remat = mode == "train" and torch.is_grad_enabled()
     for i in range(_num_periods(stage)):
-        for j, kind in enumerate(cfg.period):
-            x, cache = _block_apply(kind, _period(stage["blocks"][j], i), x, cfg, positions, mode,
-                                    max_len)
+        args = (stage["blocks"], i, x, aux, cfg, positions, mode, max_len)
+        if remat:
+            x, aux, period_caches = torch.utils.checkpoint.checkpoint(
+                _period_apply, *args, use_reentrant=False)
+        else:
+            x, aux, period_caches = _period_apply(*args)
+        for j, cache in enumerate(period_caches):
             caches[j].append(cache)
     if mode != "prefill":
-        return x, None
-    return x, tuple(_stack_caches(c) for c in caches)
+        return x, None, aux
+    return x, tuple(_stack_caches(c) for c in caches), aux
 
 
 def _decode_stage(stage: Params, x: torch.Tensor, caches, cfg: ArchConfig, ragged: bool = False,
@@ -386,7 +439,9 @@ def prefill_stage(params: Params, stage_idx: int, x: torch.Tensor, cfg: ArchConf
     """Prefill through stage ``stage_idx`` (1-indexed): residual stream in,
     (residual stream out, stage caches sized ``max_len``) back."""
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
-    return _run_stage(params["stages"][stage_idx - 1], x, cfg, positions, "prefill", max_len)
+    out, caches, _ = _run_stage(params["stages"][stage_idx - 1], x, cfg, positions, "prefill",
+                                max_len)
+    return out, caches
 
 
 def decode_stage_ragged(params: Params, stage_idx: int, x: torch.Tensor, caches, cfg: ArchConfig):
@@ -539,6 +594,83 @@ def final_confidence(params: Params, hidden: torch.Tensor, cfg: ArchConfig):
     return _head_confidence(params, params["final_norm"], hidden, cfg)
 
 
+def lm_logits(params: Params, hidden: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """f32 logits of the shared LM head (a bf16 product, then cast)."""
+    return layers.matmul(hidden, params["lm_head"]).float()
+
+
+def chunked_xent(
+    hidden: torch.Tensor,  # [B, S, d]
+    labels: torch.Tensor,  # [B, S] (-1 == masked)
+    head: torch.Tensor,  # [d, V]
+    chunk: int = 512,
+):
+    """``(nll_sum, count)`` of the token NLL over the unmasked labels,
+    ``chunk`` positions at a time (the whole ``S`` when ``chunk`` does not
+    divide it), so the f32 logits are ``[B, chunk, V]`` at most."""
+    B, S, _ = hidden.shape
+    chunk = min(chunk, S)
+    if S % chunk != 0:
+        chunk = S
+    nll, cnt = [], []
+    for i in range(0, S, chunk):
+        y = labels[:, i:i + chunk].long()
+        logits = layers.matmul(hidden[:, i:i + chunk], head).float()  # [B, C, V]
+        lse = torch.logsumexp(logits, dim=-1)
+        tgt = torch.gather(logits, -1, y.clamp(min=0)[..., None])[..., 0]
+        mask = (y >= 0).float()
+        nll.append(torch.sum((lse - tgt) * mask))
+        cnt.append(torch.sum(mask))
+    return torch.sum(torch.stack(nll)), torch.sum(torch.stack(cnt))
+
+
+def forward_hidden(params: Params, batch: dict, cfg: ArchConfig):
+    """The training forward: ``(final hidden, {stage: exit hidden}, aux)``,
+    ``aux`` the MoE blocks' summed load-balance loss (f32, 0 without MoE)."""
+    x = embed_inputs(params, batch, cfg)
+    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    exits: dict[int, torch.Tensor] = {}
+    aux_total = None
+    for si, stage in enumerate(params["stages"], start=1):
+        x, _, aux = _run_stage(stage, x, cfg, positions, "train")
+        aux_total = _add_aux(aux_total, aux)
+        if si in cfg.exit_stages:
+            exits[si] = x
+    if aux_total is None:
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, exits, aux_total
+
+
+def loss_fn(params: Params, batch: dict, cfg: ArchConfig, aux_weight: float = 0.01):
+    """Deep-supervision LM loss: the final head plus the early-exit heads
+    weighted by ``cfg.exit_loss_weight``, plus ``aux_weight`` times the MoE
+    load-balance loss.  Returns ``(loss, metrics)``, metrics ``loss``,
+    ``final_loss``, ``moe_aux`` and ``exit_{h}_loss`` (f32 scalars)."""
+    x, exits, moe_aux = forward_hidden(params, batch, cfg)
+    head = params["lm_head"]
+    labels = batch["labels"]
+
+    h_final = layers.apply_norm(cfg.norm, params["final_norm"], x)
+    nll, cnt = chunked_xent(h_final, labels, head)
+    total, weight_sum = nll, cnt
+    per_exit = {}
+    for h_stage in cfg.exit_stages:
+        he = layers.apply_norm(cfg.norm, params["exit_norms"][f"exit_{h_stage}"], exits[h_stage])
+        e_nll, e_cnt = chunked_xent(he, labels, head)
+        per_exit[f"exit_{h_stage}_loss"] = e_nll / torch.clamp(e_cnt, min=1.0)
+        total = total + cfg.exit_loss_weight * e_nll
+        weight_sum = weight_sum + cfg.exit_loss_weight * e_cnt
+
+    loss = total / torch.clamp(weight_sum, min=1.0) + aux_weight * moe_aux
+    metrics = {
+        "loss": loss,
+        "final_loss": nll / torch.clamp(cnt, min=1.0),
+        "moe_aux": moe_aux,
+        **per_exit,
+    }
+    return loss, metrics
+
+
 # ---------------------------------------------------------------------------
 # Monolithic entry points (the single-host reference generator)
 # ---------------------------------------------------------------------------
@@ -596,7 +728,7 @@ def prefill(params: Params, batch: dict, cfg: ArchConfig, max_len: int):
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
     caches, confs, toks = [], [], []
     for si, stage in enumerate(params["stages"], start=1):
-        x, stage_caches = _run_stage(stage, x, cfg, positions, "prefill", max_len)
+        x, stage_caches, _ = _run_stage(stage, x, cfg, positions, "prefill", max_len)
         caches.append(stage_caches)
         if si in cfg.exit_stages:
             c, t = exit_confidence(params, x[:, -1:], si, cfg)

@@ -39,7 +39,7 @@ def embed_step(params: Any, tokens: torch.Tensor, cfg: ArchConfig) -> torch.Tens
 def stage_forward(params: Any, x: torch.Tensor, cfg: ArchConfig, stage_idx: int) -> torch.Tensor:
     """Residual stream through stage ``stage_idx`` (1-indexed), any batch."""
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
-    out, _ = model_lib._run_stage(params["stages"][stage_idx - 1], x, cfg, positions, "train")
+    out, _, _ = model_lib._run_stage(params["stages"][stage_idx - 1], x, cfg, positions, "forward")
     return out
 
 

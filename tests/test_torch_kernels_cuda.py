@@ -20,7 +20,9 @@ query heads per KV head the wrappers launch the walk once per chunk of at
 most 16, held to the same gates at G 17, 24 and 32.  The exit head is held
 at the five LM heads of the registry, at B up to 65 (one pass over w per 64
 rows), at a d of 16384 and one not a multiple of 8, with fewer vocab
-columns than its CTAs' unit, and with a tie across a CTA boundary.
+columns than its CTAs' unit, and with a tie across a CTA boundary.  A
+reduced train step on the card reaches every Q/K/V projection and launches
+no kernel, and every wrapper refuses CUDA inputs that require grad.
 """
 import math
 
@@ -665,3 +667,75 @@ def test_traced_serve_syncs_before_each_wall_reading(cuda, monkeypatch):
     assert traced.sequences_by_rid() == plain.sequences_by_rid() and traced.delays == plain.delays
     rows = roofline_utilization(tracer, cfg)
     assert rows and all(r["measured_wall_s"] > 0 for r in rows.values())
+
+
+# ---------------------------------------------------------------------------
+# training on the card: no kernel, every projection reached
+# ---------------------------------------------------------------------------
+
+
+def test_train_step_reaches_qkv_and_launches_no_kernel(cuda):
+    """One reduced stablelm-1.6b train step on the card (f32 masters): the
+    loss is finite, every stage's Q, K and V projections get a nonzero
+    gradient (the forward-only flash kernel would cut them), and no kernel's
+    launch counter moves (training attends with the plain version)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, token_stream
+    from repro_torch.models import model as model_lib
+    from repro_torch.training import AdamWConfig, make_train_step
+    from repro_torch.training import optimizer as opt_lib
+    from repro_torch.training import train_step as train_step_lib
+
+    wrappers = (texit.exit_confidence, tdec.decode_attention, tpaged.paged_decode_attention,
+                tflash.flash_attention)
+    before = [f.launches for f in wrappers]
+    cfg = get_config("stablelm-1.6b").reduced()
+    params = model_lib.init_params(cfg, torch.Generator(device=cuda).manual_seed(0), cuda,
+                                   master=True)
+    batch = next(token_stream(cfg, DataConfig(batch_size=2, seq_len=64), device=cuda))
+    _, _, grads = train_step_lib.value_and_grad(
+        lambda p, b: model_lib.loss_fn(p, b, cfg), params, batch)
+    for stage in grads["stages"]:
+        for w in ("w_q", "w_k", "w_v"):
+            assert float(torch.linalg.vector_norm(stage["blocks"][0]["attn"][w])) > 0
+    step = make_train_step(cfg, AdamWConfig(total_steps=2, warmup_steps=1))
+    _, state, metrics = step(params, opt_lib.init_opt_state(params), batch)
+    assert math.isfinite(float(metrics["loss"])) and int(state["step"]) == 1
+    assert [f.launches for f in wrappers] == before
+
+
+def test_kernel_wrappers_refuse_grad_inputs_on_the_card(cuda, monkeypatch):
+    """On CUDA tensors that require grad each wrapper raises before it builds
+    or launches; under ``torch.no_grad()`` the same call runs."""
+    from repro_torch.kernels import build
+
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    q4 = _randn((1, 128, 2, 64), gen, cuda)
+    kv4 = _randn((1, 128, 2, 64), gen, cuda)
+    kv2 = _randn((2, 128, 2, 64), gen, cuda)
+    q3 = _randn((2, 2, 64), gen, cuda)
+    lengths = torch.tensor([100, 7], dtype=torch.int32, device=cuda)
+    pool = _randn((9, 16, 2, 64), gen, cuda)
+    table = torch.arange(16, dtype=torch.int32, device=cuda).reshape(2, 8) % 8
+    h, w = _randn((2, 64), gen, cuda), _randn((64, 256), gen, cuda)
+    calls = {
+        "flash_attention": lambda q: tflash.flash_attention(q, kv4, kv4),
+        "decode_attention": lambda q: tdec.decode_attention(q, kv2, kv2, lengths),
+        "paged_decode_attention": lambda q: tpaged.paged_decode_attention(q, pool, pool, table,
+                                                                          lengths),
+        "exit_confidence": lambda x: texit.exit_confidence(x, w),
+    }
+    inputs = {"flash_attention": q4, "decode_attention": q3, "paged_decode_attention": q3,
+              "exit_confidence": h}
+    real_load = build.load
+    for name, call in calls.items():
+        x = inputs[name].clone().requires_grad_(True)
+        monkeypatch.setattr(build, "load", lambda n: (_ for _ in ()).throw(AssertionError(n)))
+        with pytest.raises(RuntimeError, match="no backward"):
+            call(x)
+        monkeypatch.setattr(build, "load", real_load)
+        with torch.no_grad():
+            out = call(x)
+        torch.cuda.synchronize()
+        assert all(torch.isfinite(o).all() for o in (out if isinstance(out, tuple) else (out,))
+                   if o.is_floating_point())
