@@ -99,8 +99,9 @@ exits non-zero without the final result line:
      layers, hd 96; embeddings [4, 512, 3072]) and musicgen-medium (48
      layers, 5 stages; LayerNorm and the tanh-gelu MLP; embeddings [8, 256,
      1536]), each a prefill and 8 decode steps (flash once per layer of the
-     prefill, the exit head once per head call, no decode kernel: the
-     steps' one-token decode is the reference's plain attention), and one
+     prefill, the exit head once per head call, the decode kernel once per
+     layer and step where the caches are full at a head dim it takes:
+     musicgen's, not phi-3's hd 96 or mixtral's ring), and one
      full-width block of each prefilled on the card and on the CPU,
      norm-wise within 2^-7; mixtral-8x7b at full width and half depth (16
      layers, ~23.5 B parameters) served dense and paged through the engine
@@ -136,6 +137,26 @@ exits non-zero without the final result line:
      gradient rejected), and step 6's state through ``CheckpointManager``
      bit for bit; prints the step's wall, tokens/s, peak memory and FLOP
      share.
+
+  10. multi-device — (``multidevice_phase``) an NCCL group of world size 1
+     and ``launch.mesh.make_host_mesh()`` on the card: (a) full-width
+     stablelm-1.6b's batched prefill (B 8) and 8 decode steps with the
+     parameters laid out by the ``as_serving`` specs and the batch and
+     caches by theirs, against the same steps without a mesh: tokens and
+     exit stages bit for bit, and the same nonzero launches of flash,
+     decode and the exit head; (b) one full-width train step (B 8 x S 512,
+     masters and AdamW state by ``param_specs``) against the step without a
+     mesh: loss and grad norm bit for bit, masters at atol 1e-6 (a step
+     that skipped its update is shown to fail that), its peak memory against
+     the dry run's prediction for that cell on a 1 x 1 mesh within 15%; (c)
+     the int8 compressed step on a (1,1,1) ("pod", "data", "model") mesh:
+     finite loss, masters equal to AdamW's step from its own moments by hand
+     at atol 1e-6, and the gradient those moments carry plus the int8
+     residual equal to the uncompressed step's at 2^-7; (d) the dry run in a
+     subprocess (started before phase 9, on the host's CPU): gates of
+     stablelm-1.6b train_4k and decode_32k and mixtral-8x7b at all 32
+     layers decode_32k on pod16x16, one measured cell (stablelm decode_32k)
+     with its roofline row, and the 1 x 1 prediction of (b).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits 2.
@@ -208,6 +229,23 @@ EMBEDS_STEPS = {"phi-3-vision-4.2b": (4, 512), "musicgen-medium": (8, 256)}
 # the train phase: full-width stablelm-1.6b, f32 masters, AdamW
 TRAIN_B, TRAIN_S, TRAIN_STEPS = 8, 512, 6
 TRAIN_PERIOD_B, TRAIN_PERIOD_S = 2, 256  # the period held card vs CPU
+# the multi-device phase: full-width stablelm-1.6b's batched steps on a 1 x 1
+# mesh (prefill B 8 of MD_PROMPT tokens, then MD_DECODE decode steps)
+MD_B, MD_PROMPT, MD_DECODE = 8, 128, 8
+# its dry-run cells on pod16x16 (gates), the measured one, and the 1 x 1
+# train cell whose predicted peak phase 10 (b) is held to within 15%
+MD_GATES = (("stablelm-1.6b", "train_4k"), ("stablelm-1.6b", "decode_32k"),
+            ("mixtral-8x7b", "decode_32k"))
+MD_MEASURE = ("stablelm-1.6b", "decode_32k")
+MD_PEAK_TOL = 0.15
+# phase 10 (b): the sharded step's masters against the step without a mesh
+# (f32 rounding apart: measured 6.41e-08 on the H100); (c): the compressed
+# step's masters against AdamW's step by hand from its own moments
+MD_MASTER_ATOL = 1e-6
+# phase 10 (c): the gradient the compressed step's moments carry, plus its
+# int8 residual, against the uncompressed step's, norm-wise per leaf (the
+# training gradient tolerance)
+MD_GRAD_RTOL = 2.0**-7
 # the device functions of the port's kernels, as the profiler names them
 KERNEL_FUNCTIONS = ("exit_tile_kernel", "exit_combine_kernel", "flash_wgmma_kernel",
                     "flash_simple_kernel", "decode_attention_kernel",
@@ -1976,8 +2014,8 @@ def main() -> None:
     # full width, one at a time.  Each run's kernel launches are counted
     # (the counts set to 0 just before it, read just after): flash once per
     # layer in a prefill, the exit head once per head call (every call under
-    # 64 rows), and neither decode kernel (the steps' one-token decode is
-    # the reference's plain attention).
+    # 64 rows), the decode kernel once per layer and step where the caches
+    # are full at a head dim it takes (musicgen), and no paged one.
     from repro_torch.serving import make_decode_step, make_prefill_step
 
     step_counts = {}  # model -> the kernels' launches in its steps run
@@ -2021,8 +2059,17 @@ def main() -> None:
               f"exit stages of the last call {outs[-1]['exit_stage'].tolist()}", flush=True)
         check(f"{label} steps launched flash once per layer of the prefill",
               counts["flash_attention"] == mcfg.num_layers, f"{counts['flash_attention']} launches")
-        check(f"{label} steps launched no decode kernel (the plain one-token attention)",
-              counts["decode_attention"] == counts["paged_decode_attention"] == 0, f"{counts}")
+        # the one-token decode takes the decode kernel where its caches are
+        # full (no ring shorter than max_len) at a head dim it takes, once
+        # per layer and step per chunk of MMA_G query heads per KV head
+        dims = mcfg.attn_dims()
+        takes = ((dims.sliding_window is None or dims.sliding_window >= max_len)
+                 and dims.head_dim in ops.DECODE_HEAD_DIMS)
+        want = mcfg.num_layers * STEPS_DECODE * -(-dims.groups // kdec.MMA_G) if takes else 0
+        check(f"{label} steps launched the decode kernel {want} times (full caches at a head "
+              f"dim it takes; else the plain one-token attention) and no paged one",
+              counts["decode_attention"] == want and counts["paged_decode_attention"] == 0,
+              f"{counts}")
         check_head_passes(f"{label} steps", rows, counts["exit_confidence"])
         check(f"{label} steps: every head of every call ran", len(rows) == n_calls * n_heads,
               f"{len(rows)} head calls for {n_calls} calls x {n_heads} heads")
@@ -2481,7 +2528,14 @@ def main() -> None:
                 })
 
     del heads
-    train_phase(dev, read_counts, zero_counts)
+    dryrun_proc = start_dryrun()  # phase 10 (d): CPU only, beside phase 9 and 10 on the card
+    try:
+        train_phase(dev, read_counts, zero_counts)
+        multidevice_phase(dev, read_counts, zero_counts, dryrun_proc)
+    finally:
+        if dryrun_proc.poll() is None:
+            dryrun_proc.kill()
+            dryrun_proc.wait()
 
     print(f"nvidia-smi: {nvidia_smi()}")
     print(json.dumps({"kernels": kernels_out}))
@@ -2703,6 +2757,296 @@ def train_phase(dev, read_counts, zero_counts) -> None:
     del blk, g_c, g_h, y_c, y_h, faulty
     gc.collect()
     torch.cuda.empty_cache()
+
+
+_DRYRUN = """
+import json, os, time
+from repro_torch.configs import get_config
+from repro_torch.configs.base import ShapeSpec
+from repro_torch.launch import dryrun
+out = {}
+with dryrun.fake_world(256):
+    for arch, shape in GATES:
+        t = time.time()
+        row = dryrun.run_cell(arch, shape, multi_pod=False, fit=(arch, shape) == MEASURE,
+                              save=False)
+        row["wall_s"] = time.time() - t
+        out[arch + " " + shape] = row
+os.environ["REPRO_MESH"] = "1x1"
+with dryrun.fake_world(1):
+    cfg = get_config("stablelm-1.6b")
+    out["train_1x1"] = dryrun.gate_cell("stablelm-1.6b", "train_b8_s512", False, cfg=cfg,
+                                        shape=ShapeSpec("train_b8_s512", S, B, "train"))
+print("DRYRUN " + json.dumps(out))
+"""
+
+
+def start_dryrun() -> subprocess.Popen:
+    """Phase 10 (d)'s dry run, started in a process of its own (the fake
+    process group is process-global) on the host's CPU."""
+    code = (f"GATES = {MD_GATES!r}\nMEASURE = {MD_MEASURE!r}\nB, S = {TRAIN_B}, {TRAIN_S}\n"
+            + _DRYRUN)
+    import os
+
+    src = str(Path(__file__).resolve().parent / "src")
+    env = dict(os.environ, PYTHONPATH=src, CUDA_VISIBLE_DEVICES="")
+    return subprocess.Popen([sys.executable, "-c", code], stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, env=env)
+
+
+def multidevice_phase(dev, read_counts, zero_counts, dryrun_proc) -> None:
+    """Phase 10: the port's multi-device path on one card (see the module
+    docstring, item 10).  Every step runs in this process on the card; a
+    failure fails the script."""
+    import socket
+
+    import torch.distributed as dist
+
+    from repro_torch import sharding
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, token_stream
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model as model_lib
+    from repro_torch.runtime import compression
+    from repro_torch.serving.steps import make_decode_step, make_prefill_step
+    from repro_torch.training import AdamWConfig, make_compressed_train_step, make_train_step
+    from repro_torch.training import optimizer as opt_lib
+
+    phase("multi-device: an NCCL group of one, a 1 x 1 mesh on the card")
+    leaves = torch.utils._pytree.tree_leaves
+    tree_map = torch.utils._pytree.tree_map
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=0, world_size=1)
+    try:
+        mesh = make_host_mesh()
+        rules = sharding.set_mesh(mesh)
+        print(f"mesh {mesh}; backend {dist.get_backend()}", flush=True)
+        cfg = get_config("stablelm-1.6b")
+
+        # (a) the batched steps, without and with the mesh
+        gc.collect()
+        torch.cuda.empty_cache()
+        params = model_lib.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+        rng = np.random.default_rng(SEED + 10)
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (MD_B, MD_PROMPT))
+                                  .astype(np.int32)).to(dev)
+        prefill = make_prefill_step(cfg, MD_PROMPT + MD_DECODE)
+        decode = make_decode_step(cfg)
+        conf = prefill(params, {"tokens": tokens},
+                       torch.full((len(cfg.exit_stages),), 2.0, device=dev))["exit_conf"]
+        srt = torch.sort(conf.float(), dim=0).values  # exits taken by some rows, not all
+        th = (srt[MD_B // 2 - 1] + srt[MD_B // 2]) / 2
+
+        def run(p_, place):
+            out = prefill(p_, place({"tokens": tokens}), th)
+            trace = [(out["token"], out["exit_stage"], out["exit_conf"])]
+            for _ in range(MD_DECODE):
+                out = decode(p_, place({"tokens": out["token"][:, None]}), out["caches"], th)
+                trace.append((out["token"], out["exit_stage"], out["exit_conf"]))
+            torch.cuda.synchronize()
+            return trace
+
+        def full(t):
+            return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+        zero_counts()
+        t0 = time.perf_counter()
+        plain = run(params, lambda b: b)
+        t_plain = time.perf_counter() - t0
+        n_plain = read_counts()
+        sparams = sharding.distribute_tree(params, sharding.param_specs(params, rules.as_serving()),
+                                           mesh)
+        place = lambda b: sharding.distribute_tree(b, sharding.batch_specs(b), mesh)  # noqa: E731
+        zero_counts()
+        t0 = time.perf_counter()
+        meshed = run(sparams, place)
+        t_mesh = time.perf_counter() - t0
+        n_mesh = read_counts()
+        same_tok = all(torch.equal(full(a[0]), b[0]) and torch.equal(full(a[1]), b[1])
+                       for a, b in zip(meshed, plain))
+        conf_gap = max(float((full(a[2]) - b[2]).abs().max()) for a, b in zip(meshed, plain))
+        exits = Counter(int(e) for _, st, _ in plain for e in st.tolist())
+        print(f"(a) prefill B {MD_B} x {MD_PROMPT} + {MD_DECODE} decode steps: without a mesh "
+              f"{t_plain:.2f} s, on the mesh {t_mesh:.2f} s (DTensor dispatch on the host); "
+              f"launches {n_plain} / {n_mesh}; exit stages over the steps {dict(exits)}; "
+              f"conf max|diff| {conf_gap:.3g}", flush=True)
+        check("multi-device (a): the sharded steps' tokens and exit stages equal the unsharded "
+              "steps' bit for bit", same_tok and type(meshed[-1][0]).__name__ == "DTensor",
+              f"{len(plain)} steps of {MD_B} rows")
+        used = ("flash_attention", "decode_attention", "exit_confidence")
+        check("multi-device (a): the sharded steps launch flash, decode and the exit head, as "
+              "often as without a mesh", all(n_mesh[k] > 0 for k in used) and n_mesh == n_plain,
+              f"with the mesh {n_mesh}, without {n_plain}")
+        del params, sparams, plain, meshed
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (b) one train step, without and with the mesh, from the same seed
+        opt_cfg = AdamWConfig(total_steps=TRAIN_STEPS, warmup_steps=TRAIN_STEPS)
+        step_fn = make_train_step(cfg, opt_cfg)
+        dcfg = DataConfig(batch_size=TRAIN_B, seq_len=TRAIN_S, seed=0)
+
+        def masters():
+            return model_lib.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), dev,
+                                         master=True)
+
+        # a step's peak counts from what the card held before its arguments
+        # were made (the earlier phases still hold some): the arguments and
+        # the step's own temporaries, as the dry run predicts them
+        base0 = torch.cuda.memory_allocated()
+        p0 = masters()
+        s0 = opt_lib.init_opt_state(p0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        p0, s0, m0 = step_fn(p0, s0, next(token_stream(cfg, dcfg, device=dev)))
+        loss0, gn0 = float(m0["loss"]), float(m0["grad_norm"])
+        peak0 = torch.cuda.max_memory_allocated() - base0
+        ref = tree_map(lambda t: t.cpu(), p0)
+        ref_m = [t.cpu() for t in leaves(s0["m"])]
+        del p0, s0, m0
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        p1 = masters()
+        pspecs = sharding.param_specs(p1)
+        p1 = sharding.distribute_tree(p1, pspecs, mesh)
+        s1 = opt_lib.init_opt_state(p1)
+        s1 = sharding.distribute_tree(s1, sharding.param_specs(s1), mesh)
+        batch = next(token_stream(cfg, dcfg, mesh=mesh))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        p1, s1, m1 = step_fn(p1, s1, batch)
+        loss1, gn1 = float(full(m1["loss"])), float(full(m1["grad_norm"]))
+        t_step = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        gaps = [float((full(a).cpu() - b).abs().max()) for a, b in zip(leaves(p1), leaves(ref))]
+        bitwise = max(gaps) == 0.0 and loss1 == loss0
+        print(f"(b) train step B {TRAIN_B} x S {TRAIN_S} on the mesh: {t_step * 1e3:.1f} ms wall; "
+              f"loss {loss1!r} (without a mesh {loss0!r}), grad norm {gn1!r} ({gn0!r}); updated "
+              f"masters max|diff| {max(gaps):.3g}; bit for bit: {bitwise}; peak device memory of the "
+              f"step (arguments included) {peak / 1e9:.3f} GB ({peak / 2**30:.2f} GiB; the step "
+              f"without a mesh {peak0 / 1e9:.3f} GB) above the {base / 1e9:.3f} GB the earlier "
+              f"phases hold", flush=True)
+        lr1 = float(opt_lib.lr_schedule(torch.tensor(1.0), opt_cfg))
+        del p1, s1, m1, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+        # the planted fault: a step that skipped its update leaves the
+        # initial masters, which the tolerance must refuse
+        skipped = max(float((a.cpu() - b).abs().max()) for a, b in zip(leaves(masters()),
+                                                                        leaves(ref)))
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"    a step that skipped its update would sit {skipped:.3g} from the step without "
+              f"a mesh (lr at step 1 {lr1:.3g}); the tolerance is {MD_MASTER_ATOL:g}", flush=True)
+        check("multi-device (b): the sharded train step's loss and grad norm equal the step "
+              f"without a mesh, its updated masters at atol {MD_MASTER_ATOL:g}",
+              loss1 == loss0 and gn1 == gn0 and max(gaps) <= MD_MASTER_ATOL,
+              f"loss gap {abs(loss1 - loss0):.3g}, grad norm gap {abs(gn1 - gn0):.3g}, masters "
+              f"max|diff| {max(gaps):.3g}")
+        check("multi-device (b) rejects a planted fault: the update skipped",
+              skipped > MD_MASTER_ATOL, f"{skipped:.3g}")
+
+        # (c) the compressed step on a (1, 1, 1) mesh with a pod axis
+        from torch.distributed.device_mesh import init_device_mesh
+
+        pod_mesh = init_device_mesh("cuda", (1, 1, 1), mesh_dim_names=("pod", "data", "model"))
+        sharding.set_mesh(pod_mesh)
+        p2 = masters()
+        pspecs2 = sharding.param_specs(p2)
+        p2 = sharding.distribute_tree(p2, pspecs2, pod_mesh)
+        s2 = opt_lib.init_opt_state(p2)
+        s2["error"] = compression.init_error(p2)
+        s2 = sharding.distribute_tree(s2, sharding.param_specs(s2), pod_mesh)
+        t0 = time.perf_counter()
+        p2, s2, m2 = make_compressed_train_step(cfg, pod_mesh, opt_cfg)(
+            p2, s2, next(token_stream(cfg, dcfg, mesh=pod_mesh)))
+        loss2 = float(full(m2["loss"]))
+        t_comp = time.perf_counter() - t0
+        gn2 = float(full(m2["grad_norm"]))
+        err_max = max(float(full(e).abs().max()) for e in leaves(s2["error"]))
+        # by hand: AdamW's step 1 from the initial masters and the step's own
+        # moments (bias-corrected, weight decay on matrices); a skipped or
+        # sign-flipped update parts from it by ~lr
+        b1, b2 = opt_cfg.beta1, opt_cfg.beta2
+        upd_gap = 0.0
+        with torch.no_grad():
+            for a, b, m, v in zip(leaves(masters()), leaves(p2), leaves(s2["m"]),
+                                  leaves(s2["v"])):
+                delta = (full(m) / (1 - b1)) / (torch.sqrt(full(v) / (1 - b2)) + opt_cfg.eps)
+                if opt_cfg.weight_decay > 0 and a.ndim >= 2:
+                    delta = delta + opt_cfg.weight_decay * a
+                upd_gap = max(upd_gap, float((full(b) - (a - lr1 * delta)).abs().max()))
+                del a, delta
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the gradient the moments carry: at one pod, from zero error,
+        # g = m / ((1 - b1) c) + e (c the clip scale of the dequantized
+        # gradients' norm), against the uncompressed step's m / ((1 - b1) c)
+        def clip(gn):
+            return min(1.0, opt_cfg.grad_clip_norm / max(gn, 1e-9))
+
+        g_gap = 0.0
+        for m, e, m0_ in zip(leaves(s2["m"]), leaves(s2["error"]), ref_m):
+            g = full(m).double() / ((1 - b1) * clip(gn2)) + full(e).double()
+            g0 = m0_.to(dev).double() / ((1 - b1) * clip(gn0))
+            den = float(g0.norm())
+            g_gap = max(g_gap, float((g - g0).norm()) / den if den > 0 else float(g.abs().max()))
+            del g, g0
+        print(f"(c) compressed step on {pod_mesh}: {t_comp * 1e3:.1f} ms wall; loss {loss2!r}; "
+              f"masters max|diff| from AdamW's step by hand {upd_gap:.3g} (lr at step 1 "
+              f"{lr1:.3g}); gradient carried + residual against the uncompressed step's, worst "
+              f"leaf norm-wise {g_gap:.3g}; largest error residual {err_max:.3g}", flush=True)
+        check("multi-device (c): the compressed step's loss is finite, its masters are AdamW's "
+              f"step from its own moments (atol {MD_MASTER_ATOL:g}) and its moments carry the "
+              f"uncompressed gradient less the int8 residual (norm-wise {MD_GRAD_RTOL:.3g})",
+              math.isfinite(loss2) and upd_gap <= MD_MASTER_ATOL and g_gap <= MD_GRAD_RTOL
+              and err_max > 0, f"loss {loss2:.6g}, update gap {upd_gap:.3g}, gradient gap "
+              f"{g_gap:.3g}")
+        del p2, s2, m2, ref, ref_m
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        sharding.clear_mesh()
+        dist.destroy_process_group()
+
+    # (d) the dry run's gates, measured cell and the 1 x 1 prediction
+    phase("multi-device (d): the dry run (meta tensors, a fake group of 256 ranks)")
+    t0 = time.perf_counter()
+    stdout, stderr = dryrun_proc.communicate(timeout=600)
+    line = next((ln for ln in stdout.splitlines() if ln.startswith("DRYRUN ")), None)
+    check("multi-device (d): the dry-run subprocess finished", dryrun_proc.returncode == 0
+          and line is not None, f"rc {dryrun_proc.returncode}; waited "
+          f"{time.perf_counter() - t0:.1f} s; " + stderr[-3000:].replace("\n", " | "))
+    rows = json.loads(line[len("DRYRUN "):])
+    for arch, shape in MD_GATES:
+        row = rows[f"{arch} {shape}"]
+        mem = row["memory"]
+        print(f"  {row['cell']}: gate {row['gate']} in {row['wall_s']:.1f} s; per device "
+              f"arguments {mem['argument_size_gb']:.3f} GB, peak {mem['peak_gb_per_device']:.3f} GB "
+              f"(predicted on meta tensors); collectives {row['gate_collective_counts']}",
+              flush=True)
+        check(f"multi-device (d): {arch} {shape} gated on pod16x16", row["gate"] == "ok"
+              and sum(row["gate_collective_counts"].values()) > 0, row["cell"])
+    arch, shape = MD_MEASURE
+    row = rows[f"{arch} {shape}"]
+    keys = ("hlo_gflops", "hlo_gbytes", "coll_gbytes_global", "compute_ms", "memory_ms",
+            "collective_ms", "dominant", "model_gflops", "useful_ratio", "roofline_fraction")
+    print("  roofline row (predicted, H100 peaks): " + json.dumps({k: row[k] for k in keys}),
+          flush=True)
+    check("multi-device (d): the measured cell's roofline row", all(k in row for k in keys)
+          and row["hlo_gflops"] > 0, row["cell"])
+    pred = rows["train_1x1"]["memory"]["peak_gb_per_device"] * 1e9
+    gap = abs(peak - pred) / pred
+    print(f"  (b)'s cell on a 1 x 1 mesh: predicted peak {pred / 1e9:.3f} GB, measured "
+          f"{peak / 1e9:.3f} GB on {nvidia_smi()}: {gap:.1%} apart", flush=True)
+    check("multi-device (b): the train step's peak memory within 15% of the dry run's prediction",
+          gap <= MD_PEAK_TOL, f"{gap:.1%}")
 
 
 if __name__ == "__main__":

@@ -155,3 +155,56 @@ class ArchConfig:
             small["xlstm"] = dataclasses.replace(self.xlstm, d_model=128, num_heads=4, chunk=16)
         small.update(overrides)
         return dataclasses.replace(self, name=f"{self.name}-smoke", **small)
+
+
+# ---------------------------------------------------------------------------
+# Assigned input shapes (seq_len, global_batch, mode)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    mode: str  # "train" | "prefill" | "decode"
+
+
+SHAPES: dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524_288, 1, "decode"),
+}
+
+
+def shape_applicable(cfg: ArchConfig, shape: ShapeSpec) -> tuple[bool, str]:
+    """(runnable, reason-if-skipped) per the assignment's skip rules."""
+    if shape.name == "long_500k" and not cfg.sub_quadratic:
+        return False, (
+            "pure full-attention arch: a 500k dense-KV decode needs sub-quadratic "
+            "attention (see DESIGN.md §4)"
+        )
+    return True, ""
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeSpec) -> dict[str, Any]:
+    """Meta-tensor stand-ins for every model input of this cell (the
+    reference's ``ShapeDtypeStruct``s: the same shapes and dtypes, nothing
+    allocated).  For ``decode`` the caches come from ``model.cache_specs``
+    (they are inputs of the decode step, not of the batch)."""
+    B, S = shape.global_batch, shape.seq_len
+
+    def f(shp, dtype):
+        return torch.empty(shp, dtype=dtype, device="meta")
+
+    if shape.mode not in ("train", "prefill", "decode"):
+        raise ValueError(shape.mode)
+    S_in = 1 if shape.mode == "decode" else S
+    if cfg.frontend == "embeds":
+        batch = {"embeds": f((B, S_in, cfg.d_model), torch.bfloat16)}
+    else:
+        batch = {"tokens": f((B, S_in), torch.int32)}
+    if shape.mode == "train":
+        batch["labels"] = f((B, S), torch.int32)
+    return batch

@@ -4,8 +4,8 @@ copied).
 Training: an infinite deterministic token stream, seeded by ``(seed,
 step)``, so a resumed run sees bit for bit the batches it would have seen
 (the checkpoint records the step; no cursor state is stored).  Batches are
-made on the host and copied to ``device``.  The reference's ``mesh``
-argument (batches arriving sharded) waits for the port's device mesh.
+made on the host and copied to ``device``; with a device ``mesh`` each leaf
+arrives as a DTensor sharded on its batch dim over ("pod", "data").
 
 Serving: Poisson arrivals of prompts with lognormal lengths.
 """
@@ -46,13 +46,29 @@ def _batch_for_step(cfg: ArchConfig, dcfg: DataConfig, step: int) -> dict:
 
 
 def token_stream(cfg: ArchConfig, dcfg: DataConfig, start_step: int = 0,
-                 device="cuda") -> Iterator[dict]:
+                 device="cuda", mesh=None) -> Iterator[dict]:
     """Infinite stream of batches from ``start_step`` on, as tensors on
-    ``device`` (tokens and labels int32, embeddings f32)."""
+    ``device`` (tokens and labels int32, embeddings f32).  With a
+    ``DeviceMesh``, each leaf is a DTensor on the mesh's device, its batch
+    dim sharded over whichever of ("pod", "data") the mesh has: every rank
+    cuts its own rows from the same seeded host batch (no global concat)."""
+    from repro_torch.sharding import PartitionSpec, distribute
+
+    axes = None
+    if mesh is not None:
+        names = tuple(a for a in ("pod", "data") if a in mesh.mesh_dim_names)
+        axes = names if len(names) > 1 else (names[0] if names else None)
+        device = mesh.device_type
     step = start_step
     while True:
         host = _batch_for_step(cfg, dcfg, step)
-        yield {k: torch.from_numpy(v).to(device) for k, v in host.items()}
+        if mesh is None:
+            yield {k: torch.from_numpy(v).to(device) for k, v in host.items()}
+        else:
+            yield {k: distribute(torch.from_numpy(v),
+                                 PartitionSpec(axes, *([None] * (v.ndim - 1))), mesh,
+                                 device=device)
+                   for k, v in host.items()}
         step += 1
 
 

@@ -41,7 +41,8 @@ import torch
 
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import layers
-from repro_torch.models.layers import Params, apply_rope, einsum, matmul
+from repro_torch.models.layers import Params, apply_rope, einsum, is_dtensor, matmul
+from repro_torch.sharding import local_map
 
 NEG_INF = -1e30
 
@@ -72,7 +73,6 @@ class AttnDims:
 
 
 def _project_qkv(params: Params, x: torch.Tensor, dims: AttnDims):
-    B, S, _ = x.shape
     q = matmul(x, params["w_q"])
     k = matmul(x, params["w_k"])
     v = matmul(x, params["w_v"])
@@ -81,10 +81,27 @@ def _project_qkv(params: Params, x: torch.Tensor, dims: AttnDims):
         q = q + params["b_q"].to(q.dtype)
         k = k + params["b_k"].to(k.dtype)
         v = v + params["b_v"].to(v.dtype)
-    q = q.reshape(B, S, dims.num_heads, dims.head_dim)
-    k = k.reshape(B, S, dims.num_kv_heads, dims.head_dim)
-    v = v.reshape(B, S, dims.num_kv_heads, dims.head_dim)
+    q = layers.split_last(q, dims.num_heads, dims.head_dim)
+    k = layers.split_last(k, dims.num_kv_heads, dims.head_dim)
+    v = layers.split_last(v, dims.num_kv_heads, dims.head_dim)
     return q, k, v
+
+
+# ``sharding.local_map`` roles of q/k/v [B, S, heads, hd]
+_QKV = ("b", None, "h", None)
+
+
+def _masked_seq_write(buf: torch.Tensor, new: torch.Tensor, at: torch.Tensor) -> None:
+    """Under a mesh: write ``new`` [B, 1, ...] into the DTensor ``buf`` [B,
+    S, ...] where ``at`` [S] is set, in place, on each device's shard of
+    ``buf`` as it lies (the reference's masked where-write; an index write
+    at a tensor position would read the position on the host).  A 4-D
+    leaf's third dim is its heads."""
+    rest = ("h", None) if buf.ndim == 4 else (None,)
+    bcast = (None, slice(None)) + (None,) * len(rest)
+    buf.copy_(local_map(lambda c, n, a: torch.where(a[bcast], n.to(c.dtype), c),
+                        (buf, new, at), (("b", "s") + rest, ("b", None) + rest, ("s",)),
+                        (("b", "s") + rest,)))
 
 
 def _attend_block(
@@ -97,7 +114,12 @@ def _attend_block(
     window: int | None = None,
 ) -> torch.Tensor:
     """Masked softmax attention for one q-chunk (grouped heads); a key is
-    seen when causal, valid and, with a ``window``, within it."""
+    seen when causal, valid and, with a ``window``, within it.  Under a mesh
+    it runs on each device's rows and heads (``sharding.local_map``)."""
+    if is_dtensor(q):
+        fn = lambda *a: _attend_block(*a, groups, window)  # noqa: E731
+        return local_map(fn, (q, k, v, q_pos, k_pos), (_QKV, _QKV, _QKV, (None,), (None,)),
+                         (_QKV,))
     B, Cq, Hq, hd = q.shape
     kvh = k.shape[2]
     qg = q.reshape(B, Cq, kvh, groups, hd)
@@ -157,7 +179,7 @@ def gqa_forward(
     device, the reference's training path: the flash kernel is forward-only
     (its wrapper raises on inputs that need a gradient).
     """
-    B, S, _ = x.shape
+    S = x.shape[1]
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32, device=x.device)
     q, k, v = _project_qkv(params, x, dims)
@@ -168,7 +190,7 @@ def gqa_forward(
     else:
         out = chunked_attention(q, k, v, positions, positions, dims.groups, dims.sliding_window,
                                 q_chunk)
-    out = matmul(out.reshape(B, S, dims.q_dim), params["w_o"])
+    out = matmul(layers.merge_last(out), params["w_o"])
     if return_kv:
         return out, (k, v)
     return out
@@ -203,8 +225,17 @@ def make_window_cache(batch: int, dims: AttnDims, dtype=torch.bfloat16, device=N
 def prefill_into_cache(cache: Params, k: torch.Tensor, v: torch.Tensor) -> Params:
     """Write a prefilled (k, v) prefix into a full cache starting at 0."""
     S = k.shape[1]
-    cache["k"][:, :S] = k.to(cache["k"].dtype)
-    cache["v"][:, :S] = v.to(cache["v"].dtype)
+    if is_dtensor(k):
+        # under a mesh each device pads its own rows and heads of the prefix
+        # to the cache's length (an in-place write into a plain buffer
+        # cannot take a sharded prefix)
+        pad = (0, 0, 0, 0, 0, cache["k"].shape[1] - S)
+        for name, t in (("k", k), ("v", v)):
+            cache[name] = local_map(lambda t_: torch.nn.functional.pad(t_, pad),
+                                    (t.to(cache[name].dtype),), (_QKV,), (_QKV,))
+    else:
+        cache["k"][:, :S] = k.to(cache["k"].dtype)
+        cache["v"][:, :S] = v.to(cache["v"].dtype)
     cache["pos"] = torch.tensor(S, dtype=torch.int32, device=k.device)
     return cache
 
@@ -238,7 +269,6 @@ def gqa_decode_ragged(
     the validity mask are per row, and attention runs through
     ``kernels.ops.decode_attention`` with ``lengths = pos + 1``.
     """
-    B = x.shape[0]
     pos = cache["pos"]  # int32 [B]
     q, k_new, v_new = _project_qkv(params, x, dims)
     pos_b = pos[:, None]
@@ -248,7 +278,7 @@ def gqa_decode_ragged(
     _cache_write_ragged(cache["v"], v_new, pos)
     new_cache = dict(cache, pos=pos + 1)
     out = kernel_ops.decode_attention(q[:, 0], cache["k"], cache["v"], pos + 1)
-    out = matmul(out.reshape(B, 1, dims.q_dim), params["w_o"])
+    out = matmul(layers.merge_last(out)[:, None], params["w_o"])
     return out, new_cache
 
 
@@ -298,7 +328,6 @@ def gqa_decode_paged(
     guarantees the block holding ``pos`` is owned by the row alone, so the
     write never touches a shared block.  The pool is updated in place.
     """
-    B = x.shape[0]
     pos = cache["pos"]  # int32 [B]
     table = cache["table"]  # int32 [B, n_logical]
     q, k_new, v_new = _project_qkv(params, x, dims)
@@ -310,7 +339,7 @@ def gqa_decode_paged(
     out = kernel_ops.paged_decode_attention(
         q[:, 0], cache["k"], cache["v"], table, pos + 1, seq_len=seq_len
     )
-    out = matmul(out.reshape(B, 1, dims.q_dim), params["w_o"])
+    out = matmul(layers.merge_last(out)[:, None], params["w_o"])
     return out, new_cache
 
 
@@ -327,7 +356,9 @@ def gqa_decode(
     its keys are masked by ``slot_pos`` alone (the ring already bounds the
     window).  A full cache writes at ``pos`` (clamped to the last slot, as
     the reference's masked write) and masks by position and
-    ``dims.sliding_window``."""
+    ``dims.sliding_window``; where the backend launches kernels and the
+    window (if any) spans the cache, it attends through
+    ``kernels.ops.decode_attention`` with ``lengths = pos + 1``."""
     B = x.shape[0]
     pos = cache["pos"]  # int32 []
     q, k_new, v_new = _project_qkv(params, x, dims)
@@ -337,18 +368,36 @@ def gqa_decode(
     S_cache = cache["k"].shape[1]
     windowed = "slot_pos" in cache
     slot = (pos % S_cache if windowed else pos.clamp(max=S_cache - 1)).long()
-    cache["k"][:, slot] = k_new[:, 0].to(cache["k"].dtype)
-    cache["v"][:, slot] = v_new[:, 0].to(cache["v"].dtype)
+    if is_dtensor(cache["k"]):
+        # under a mesh: the masked where-write of the reference (an index
+        # write at a tensor position would read the position on the host),
+        # on each device's shard of the cache as it lies
+        at = torch.arange(S_cache, device=x.device) == slot
+        for name, new in (("k", k_new), ("v", v_new)):
+            _masked_seq_write(cache[name], new, at)
+        if windowed:
+            cache["slot_pos"].copy_(torch.where(at, pos, cache["slot_pos"]))
+    else:
+        cache["k"][:, slot] = k_new[:, 0].to(cache["k"].dtype)
+        cache["v"][:, slot] = v_new[:, 0].to(cache["v"].dtype)
+        if windowed:
+            cache["slot_pos"][slot] = pos
     new_cache = dict(cache, pos=pos + 1)
+    full = not windowed and (dims.sliding_window is None or dims.sliding_window >= S_cache)
+    if full and dims.head_dim in kernel_ops.DECODE_HEAD_DIMS and kernel_ops.uses_kernel(q):
+        # a full cache whose window (if any) spans it: the flash-decode
+        # kernel, every row's keys 0..pos
+        lengths = (pos + 1).clamp(max=S_cache).expand(B).contiguous()
+        out = kernel_ops.decode_attention(q[:, 0], cache["k"], cache["v"], lengths)
+        return matmul(layers.merge_last(out)[:, None], params["w_o"]), new_cache
     if windowed:
-        cache["slot_pos"][slot] = pos
         k_positions, window = cache["slot_pos"], None
     else:
         arange = torch.arange(S_cache, dtype=torch.int32, device=x.device)
         k_positions, window = torch.where(arange <= pos, arange, -1), dims.sliding_window
     out = _attend_block(q, cache["k"], cache["v"], pos.reshape(1), k_positions, dims.groups,
                         window)
-    out = matmul(out.reshape(B, 1, dims.q_dim), params["w_o"])
+    out = matmul(layers.merge_last(out), params["w_o"])
     return out, new_cache
 
 
@@ -430,7 +479,7 @@ def mla_forward(
     q = torch.cat([q_nope, q_pe], dim=-1)
     k = torch.cat([k_nope, k_pe[:, :, None, :].expand(B, S, H, dims.qk_rope_head_dim)], dim=-1)
     out = chunked_attention(q, k, v, positions, positions, 1, q_chunk=q_chunk)
-    out = matmul(out.reshape(B, S, H * dims.v_head_dim), params["w_o"])
+    out = matmul(layers.merge_last(out), params["w_o"])
     if return_latent:
         return out, (c_kv, k_pe)
     return out
@@ -449,8 +498,15 @@ def make_mla_cache(
 def mla_prefill_into_cache(cache: Params, c_kv: torch.Tensor, k_pe: torch.Tensor) -> Params:
     """Write a prefilled latent prefix into an MLA cache starting at 0."""
     S = c_kv.shape[1]
-    cache["c_kv"][:, :S] = c_kv.to(cache["c_kv"].dtype)
-    cache["k_pe"][:, :S] = k_pe.to(cache["k_pe"].dtype)
+    if is_dtensor(c_kv):  # padded to the cache's length, as ``prefill_into_cache``
+        pad = (0, 0, 0, cache["c_kv"].shape[1] - S)
+        for name, t in (("c_kv", c_kv), ("k_pe", k_pe)):
+            cache[name] = local_map(lambda t_: torch.nn.functional.pad(t_, pad),
+                                    (t.to(cache[name].dtype),), (("b", None, None),),
+                                    (("b", None, None),))
+    else:
+        cache["c_kv"][:, :S] = c_kv.to(cache["c_kv"].dtype)
+        cache["k_pe"][:, :S] = k_pe.to(cache["k_pe"].dtype)
     cache["pos"] = torch.tensor(S, dtype=torch.int32, device=c_kv.device)
     return cache
 
@@ -530,8 +586,13 @@ def mla_decode(params: Params, x: torch.Tensor, cache: Params, dims: MlaDims):
     q_nope, q_pe = _mla_q(params, x, dims, pos_b)
     c_new, kpe_new = _mla_latent(params, x, dims, pos_b)
     # the reference's masked write: nothing lands once pos reaches the cache
-    _cache_write_ragged(cache["c_kv"], c_new, pos.expand(B))
-    _cache_write_ragged(cache["k_pe"], kpe_new, pos.expand(B))
+    if is_dtensor(cache["c_kv"]):
+        at = torch.arange(cache["c_kv"].shape[1], device=x.device) == pos
+        _masked_seq_write(cache["c_kv"], c_new, at)
+        _masked_seq_write(cache["k_pe"], kpe_new, at)
+    else:
+        _cache_write_ragged(cache["c_kv"], c_new, pos.expand(B))
+        _cache_write_ragged(cache["k_pe"], kpe_new, pos.expand(B))
     new_cache = dict(cache, pos=pos + 1)
     out = _mla_absorbed_attend(
         params, q_nope, q_pe, cache["c_kv"], cache["k_pe"], pos.expand(B), dims

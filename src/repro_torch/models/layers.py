@@ -16,6 +16,8 @@ from typing import Any
 
 import torch
 
+from repro_torch.sharding import is_dtensor
+
 Params = dict[str, Any]
 
 
@@ -25,22 +27,145 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     On the card this is one bf16 GEMM.  On the CPU the product is taken in
     f32 over the bf16 operands and rounded once, which is what the JAX
     package's CPU backend computes; torch's CPU bf16 GEMM blocks its sums
-    differently and would round a few elements the other way.
+    differently and would round a few elements the other way.  Under a
+    mesh an activation split along its sequence is gathered first
+    (``gather_inner``), as is an FSDP weight's contracted dim
+    (``gather_contraction``); on the CPU partial sums left by a split of the
+    contracted dim are added in f32 before that rounding.
     """
-    x = x.to(torch.bfloat16)
-    w = w.to(torch.bfloat16)
-    if x.is_cuda:
+    if is_dtensor(x):
+        x = gather_inner(x.to(torch.bfloat16))
+        return _GatherInnerGrad.apply(_matmul(x, gather_contraction(w.to(torch.bfloat16))))
+    return _matmul(x.to(torch.bfloat16), w.to(torch.bfloat16))
+
+
+def _matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    if x.device.type != "cpu":  # the card, or the dry run's meta tensors
         return torch.matmul(x, w)
-    return torch.matmul(x.float(), w.float()).to(torch.bfloat16)
+    return reduce_partial(torch.matmul(_f32(x), _f32(w))).to(torch.bfloat16)
+
+
+def _f32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in f32; a DTensor's gradient has its partial sums added in f32
+    before it is rounded back to ``x``'s dtype, once, as without a mesh."""
+    return _F32.apply(x) if is_dtensor(x) else x.float()
+
+
+class _F32(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.dtype = x.dtype
+        return x.float()
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_partial(g).to(ctx.dtype)
+
+
+class _GatherInnerGrad(torch.autograd.Function):
+    """Identity on a product's DTensor output whose gradient is gathered
+    along its inner dims (``gather_inner``), as its input was: a gradient
+    split along the sequence (by a sequence-parallel residual downstream)
+    would reach the product's backward, which flattens batch and sequence."""
+
+    @staticmethod
+    def forward(ctx, y):
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, g):
+        return gather_inner(g)
+
+
+def gather_inner(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor activation gathered along every dim but its first and its
+    last (the sequence of a sequence-parallel residual, Megatron's
+    all-gather before a column-parallel product); anything else as it is."""
+    if not is_dtensor(x) or x.ndim < 3:
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+
+    target = [Replicate() if isinstance(p, Shard) and 0 < p.dim < x.ndim - 1 else p
+              for p in x.placements]
+    return x if target == list(x.placements) else x.redistribute(x.device_mesh, target)
+
+
+def split_last(x: torch.Tensor, n: int, size: int) -> torch.Tensor:
+    """``x [..., n * size]`` as ``[..., n, size]`` (heads out of a
+    projection).  A DTensor whose last dim is split over more devices than
+    ``n`` divides among is gathered along it first."""
+    if is_dtensor(x):
+        from torch.distributed.tensor import Replicate, Shard
+
+        last = [i for i, p in enumerate(x.placements)
+                if isinstance(p, Shard) and p.dim == x.ndim - 1]
+        if n % math.prod(x.device_mesh.size(i) for i in last):
+            target = [Replicate() if i in last else p for i, p in enumerate(x.placements)]
+            x = x.redistribute(x.device_mesh, target)
+    return x.reshape(*x.shape[:-1], n, size)
+
+
+def merge_last(x: torch.Tensor) -> torch.Tensor:
+    """``x [..., n, size]`` as ``[..., n * size]`` (heads into a projection's
+    input).  For a DTensor the gradient coming back is gathered along its
+    last dim where its split does not fall on head boundaries (the reshape's
+    backward could not split it into heads)."""
+    if not is_dtensor(x):
+        return x.reshape(*x.shape[:-2], x.shape[-2] * x.shape[-1])
+    return _MergeLast.apply(x)
+
+
+class _MergeLast(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.heads = x.shape[-2]
+        return x.reshape(*x.shape[:-2], x.shape[-2] * x.shape[-1])
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import Replicate, Shard
+
+        last = [i for i, p in enumerate(g.placements)
+                if isinstance(p, Shard) and p.dim == g.ndim - 1]
+        if ctx.heads % math.prod(g.device_mesh.size(i) for i in last):
+            g = g.redistribute(g.device_mesh, [Replicate() if i in last else p
+                                               for i, p in enumerate(g.placements)])
+        return g.reshape(*g.shape[:-1], ctx.heads, g.shape[-1] // ctx.heads)
+
+
+def gather_contraction(w: torch.Tensor) -> torch.Tensor:
+    """A DTensor weight gathered along its contracted (second to last) dim:
+    an FSDP-split weight is all-gathered at its use, so the activations keep
+    their batch split; anything else as it is."""
+    if not is_dtensor(w):
+        return w
+    from torch.distributed.tensor import Replicate, Shard
+
+    target = [Replicate() if isinstance(p, Shard) and p.dim == w.ndim - 2 else p
+              for p in w.placements]
+    return w if target == list(w.placements) else w.redistribute(w.device_mesh, target)
+
+
+def reduce_partial(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor with partial sums (a contraction split over a mesh axis)
+    reduced to replicated along those axes; anything else as it is."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Partial, Replicate
+
+    if not any(isinstance(p, Partial) for p in x.placements):
+        return x
+    target = [Replicate() if isinstance(p, Partial) else p for p in x.placements]
+    return x.redistribute(x.device_mesh, target)
 
 
 def einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``torch.einsum`` of two bf16 operands with a bf16 result, rounded as
     ``matmul`` rounds: one bf16 product on the card, the f32 product rounded
     once on the CPU (the reference's ``jnp.einsum`` on bf16 operands)."""
-    if a.is_cuda:
+    if a.device.type != "cpu":  # the card, or the dry run's meta tensors
         return torch.einsum(eq, a, b)
-    return torch.einsum(eq, a.float(), b.float()).to(torch.bfloat16)
+    return reduce_partial(torch.einsum(eq, _f32(a), _f32(b))).to(torch.bfloat16)
 
 
 # ---------------------------------------------------------------------------
@@ -185,8 +310,43 @@ def apply_rope(
 
 
 def embed(params: Params, tokens: torch.Tensor) -> torch.Tensor:
-    """Row lookup in the bf16 table (the reference casts, then indexes)."""
+    """Row lookup in the bf16 table (the reference casts, then indexes).
+    A DTensor table is looked up where it lies (``_embed_sharded``)."""
+    if is_dtensor(params["embed"]):
+        return _embed_sharded(params["embed"], tokens)
     return params["embed"].to(torch.bfloat16)[tokens]
+
+
+def _embed_sharded(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """The vocab-parallel lookup: each device looks up the tokens that fall
+    in its own rows of the table (its vocab split kept, its width gathered)
+    and zeros for the others; the rows' sum over the vocab split is the
+    lookup (a partial sum the caller's layout reduces).  The tokens keep
+    their batch split on the other mesh dims."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard, distribute_tensor
+
+    mesh = table.device_mesh
+    vocab = [isinstance(p, Shard) and p.dim == 0 for p in table.placements]
+    w = table.redistribute(mesh, [Shard(0) if v else Replicate() for v in vocab])
+    if not is_dtensor(tokens):
+        tokens = distribute_tensor(tokens, mesh, [Replicate()] * mesh.ndim, src_data_rank=None)
+    rows = [not v and isinstance(p, Shard) and p.dim == 0
+            for v, p in zip(vocab, tokens.placements)]
+    t = tokens.redistribute(mesh, [Shard(0) if r else Replicate() for r in rows])
+    # the table's gradient from this device's rows is a part of the whole
+    # along the mesh dims that split the rows
+    w_l = w.to_local(grad_placements=[Partial() if r else p for r, p in zip(rows, w.placements)])
+    w_l, t_l = w_l.to(torch.bfloat16), t.to_local()
+    start, coord = 0, mesh.get_coordinate()
+    for i, v in enumerate(vocab):  # the first row of this device's split
+        if v:
+            start = start * mesh.size(i) + coord[i]
+    start *= w_l.shape[0]
+    local = t_l.long() - start
+    inside = (local >= 0) & (local < w_l.shape[0])
+    out = torch.where(inside[..., None], w_l[local.clamp(0, w_l.shape[0] - 1)], 0.0)
+    pl = [Shard(0) if r else (Partial() if v else Replicate()) for r, v in zip(rows, vocab)]
+    return DTensor.from_local(out.to(torch.bfloat16), mesh, pl, run_check=False)
 
 
 def glu_ffn_init(dense, d: int, d_ff: int) -> Params:

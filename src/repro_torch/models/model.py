@@ -33,6 +33,7 @@ cast to bf16 at each use either way.
 from __future__ import annotations
 
 import math
+import os
 from typing import Any, NamedTuple
 
 import torch
@@ -41,6 +42,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import attention, layers, moe, ssm
 from repro_torch.models.layers import Params
+from repro_torch.sharding import constrain, local_map
 
 # weight matrices kept in bf16 (cast once at load; the reference casts each
 # to bf16 at every use, the conv kernels to the bf16 activations' dtype);
@@ -196,6 +198,13 @@ def init_params(cfg: ArchConfig, generator: torch.Generator | None, device="cuda
     return params
 
 
+def abstract_params(cfg: ArchConfig) -> Params:
+    """The parameter tree as meta tensors, nothing allocated (the dry run's
+    path): the reference's ``abstract_params``, whose leaves are all f32, so
+    the weight matrices come as f32 masters."""
+    return init_params(cfg, None, device="meta", master=True)
+
+
 def count_params(cfg: ArchConfig, active_only: bool = False) -> int:
     """Parameters of the model (shapes on the meta device, nothing drawn);
     ``active_only`` leaves out each MoE block's routed experts past top-k."""
@@ -268,6 +277,16 @@ def _cache_from_kv(k: torch.Tensor, v: torch.Tensor, dims: attention.AttnDims,
     if W is None or W >= max_len:
         cache = attention.make_kv_cache(B, max_len, dims, device=k.device)
         return attention.prefill_into_cache(cache, k, v)
+    if layers.is_dtensor(k):
+        # under a mesh each device fills the ring from its own rows and heads
+        def ring(k, v):
+            c = _cache_from_kv(k, v, dims, max_len)
+            return c["k"], c["v"], c["slot_pos"]
+
+        qkv = ("b", None, "h", None)
+        rk, rv, slot_pos = local_map(ring, (k, v), (qkv, qkv), (qkv, qkv, (None,)))
+        return {"k": rk, "v": rv, "slot_pos": slot_pos,
+                "pos": torch.tensor(S, dtype=torch.int32, device=k.device)}
     cache = attention.make_window_cache(B, dims, device=k.device)
     start = S - min(S, W)
     pos_tail = torch.arange(start, S, dtype=torch.int32, device=k.device)
@@ -385,7 +404,10 @@ def _period_apply(blocks: tuple, i: int, x: torch.Tensor, aux: torch.Tensor | No
         x, cache, a = _block_apply(kind, _period(blocks[j], i), x, cfg, positions, mode, max_len)
         caches.append(cache)
         aux = _add_aux(aux, a)
-    return x, aux, caches
+    # the residual stream between periods, sequence-parallel over the model
+    # axis under a mesh (``REPRO_SP=0`` keeps the sequence whole)
+    seq = "seq" if os.environ.get("REPRO_SP", "1") == "1" else None
+    return constrain(x, "batch", seq, None), aux, caches
 
 
 def _run_stage(
@@ -599,6 +621,17 @@ def lm_logits(params: Params, hidden: torch.Tensor, cfg: ArchConfig) -> torch.Te
     return layers.matmul(hidden, params["lm_head"]).float()
 
 
+def _vocab_ids(logits: torch.Tensor) -> torch.Tensor:
+    """``arange(V)`` as a DTensor split along the mesh dims that split the
+    last dim of the DTensor ``logits``."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    pl = [Shard(0) if isinstance(p, Shard) and p.dim == logits.ndim - 1 else Replicate()
+          for p in logits.placements]
+    ids = torch.arange(logits.shape[-1], device=logits.to_local().device)
+    return distribute_tensor(ids, logits.device_mesh, pl, src_data_rank=None)
+
+
 def chunked_xent(
     hidden: torch.Tensor,  # [B, S, d]
     labels: torch.Tensor,  # [B, S] (-1 == masked)
@@ -612,12 +645,21 @@ def chunked_xent(
     chunk = min(chunk, S)
     if S % chunk != 0:
         chunk = S
+    if layers.is_dtensor(head):  # gathered (FSDP) once, not per chunk
+        head = layers.gather_contraction(head)
     nll, cnt = [], []
     for i in range(0, S, chunk):
         y = labels[:, i:i + chunk].long()
         logits = layers.matmul(hidden[:, i:i + chunk], head).float()  # [B, C, V]
-        lse = torch.logsumexp(logits, dim=-1)
-        tgt = torch.gather(logits, -1, y.clamp(min=0)[..., None])[..., 0]
+        lse = torch.logsumexp(logits, dim=2)  # dims counted from 0: a DTensor's vocab split
+        if layers.is_dtensor(logits):
+            # a masked sum over the (vocab-sharded) logits, the vocab ids
+            # split as the logits are: DTensor's gather over a sharded dim
+            # leaves a partial it cannot reduce after [..., 0]
+            tgt = torch.sum(torch.where(_vocab_ids(logits) == y.clamp(min=0)[..., None], logits,
+                                        0.0), 2)
+        else:
+            tgt = torch.gather(logits, -1, y.clamp(min=0)[..., None])[..., 0]
         mask = (y >= 0).float()
         nll.append(torch.sum((lse - tgt) * mask))
         cnt.append(torch.sum(mask))
@@ -701,13 +743,20 @@ def init_caches(cfg: ArchConfig, batch: int, max_len: int, device="cuda") -> lis
     ]
 
 
+def cache_specs(cfg: ArchConfig, batch: int, max_len: int) -> list:
+    """``init_caches`` as meta tensors (the dry run's decode caches)."""
+    return init_caches(cfg, batch, max_len, device="meta")
+
+
 def embed_inputs(params: Params, batch: dict, cfg: ArchConfig) -> torch.Tensor:
     """The residual stream ``[B, S, d]`` of a batch: ``{"tokens": [B, S]}``
     through the embedding table, or, under ``frontend="embeds"``,
     ``{"embeds": [B, S, d]}`` cast to the compute dtype."""
     if cfg.frontend == "embeds":
-        return batch["embeds"].to(cfg.dtype)
-    return layers.embed(params["embed"], batch["tokens"])
+        x = batch["embeds"].to(cfg.dtype)
+    else:
+        x = layers.embed(params["embed"], batch["tokens"])
+    return constrain(x, "batch", "seq", None)
 
 
 def _stack_heads(confs: list, toks: list, B: int, device):

@@ -34,6 +34,7 @@ import torch
 
 from repro_torch.models import layers
 from repro_torch.models.layers import Params, matmul
+from repro_torch.sharding import local_map
 
 
 def _pick_chunk(seq_len: int, chunk: int) -> int:
@@ -69,7 +70,11 @@ def _repeat(x: torch.Tensor, n: int, dim: int) -> torch.Tensor:
 
 
 def causal_conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """x: [B,S,C], w: [K,C] depthwise, left-padded causal; adds in x's dtype."""
+    """x: [B,S,C], w: [K,C] depthwise, left-padded causal; adds in x's dtype.
+    Under a mesh it runs on each device's rows and channels."""
+    if layers.is_dtensor(x):
+        return local_map(causal_conv1d, (x, w, b), (("b", None, "c"), (None, "c"), ("c",)),
+                         (("b", None, "c"),))
     K, S = w.shape[0], x.shape[1]
     xp = torch.nn.functional.pad(x, (0, 0, K - 1, 0))
     out = torch.zeros_like(x)
@@ -79,7 +84,12 @@ def causal_conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Te
 
 
 def conv_step(x_t: torch.Tensor, conv_cache: torch.Tensor, w: torch.Tensor, b: torch.Tensor):
-    """One decode step: x_t [B,C]; conv_cache [B,K-1,C] holds prior inputs."""
+    """One decode step: x_t [B,C]; conv_cache [B,K-1,C] holds prior inputs.
+    Under a mesh it runs on each device's rows and channels of the cache."""
+    if layers.is_dtensor(conv_cache):
+        return local_map(lambda c, x, w_, b_: conv_step(x, c, w_, b_), (conv_cache, x_t, w, b),
+                         (("b", None, "c"), ("b", "c"), (None, "c"), ("c",)),
+                         (("b", "c"), ("b", None, "c")))
     window = torch.cat([conv_cache, x_t[:, None, :]], dim=1)  # [B,K,C]
     out = layers.einsum("bkc,kc->bc", window, w.to(x_t.dtype)) + b.to(x_t.dtype)
     return out, window[:, 1:]
@@ -155,6 +165,13 @@ def ssd_chunked(
     initial_state: torch.Tensor | None = None,  # [B,H,P,N]
 ):
     """Chunked SSD scan (Mamba2).  Returns (y [B,S,H,P], final_state)."""
+    if layers.is_dtensor(x):  # each device's rows and heads (``sharding.local_map``)
+        if initial_state is not None:
+            raise NotImplementedError("ssd_chunked under a mesh starts from a zero state")
+        h = "h" if b.shape[2] == 1 else None  # heads stay split over one shared group only
+        return local_map(lambda *t: ssd_chunked(*t, chunk), (x, a, b, c),
+                         (("b", None, h, None), ("b", None, h), ("b", None, None, None),
+                          ("b", None, None, None)), (("b", None, h, None), ("b", h, None, None)))
     B, S, H, P = x.shape
     G, N = b.shape[2], b.shape[3]
     Q = _pick_chunk(S, chunk)
@@ -206,7 +223,13 @@ def ssd_step(
     c_t: torch.Tensor,  # [B,G,N]
     state: torch.Tensor,  # [B,H,P,N] f32
 ):
-    """Single-token SSD recurrence (decode)."""
+    """Single-token SSD recurrence (decode).  Under a mesh it runs on each
+    device's rows and heads of the state (``sharding.local_map``)."""
+    if layers.is_dtensor(state):
+        h = "h" if b_t.shape[1] == 1 else None  # heads stay split over one shared group only
+        return local_map(lambda st, *a: ssd_step(*a, st), (state, x_t, a_t, b_t, c_t),
+                         (("b", h, None, None), ("b", h, None), ("b", h), ("b", None, None),
+                          ("b", None, None)), (("b", h, None), ("b", h, None, None)))
     hpg = x_t.shape[1] // b_t.shape[1]
     b_full = _repeat(b_t, hpg, 1).float()  # [B,H,N]
     c_full = _repeat(c_t, hpg, 1).float()
@@ -341,8 +364,18 @@ def mlstm_chunked(
     """Stabilized chunkwise mLSTM.  Returns (h [B,S,H,P], (C, n, m) final).
 
     State convention: stored (C_hat, n_hat) are the true values scaled by
-    exp(-m); m is the running log-stabilizer per (B, H).
+    exp(-m); m is the running log-stabilizer per (B, H).  Under a mesh it
+    runs on each device's rows and heads (``sharding.local_map``).
     """
+    if layers.is_dtensor(q):
+        if initial is not None:
+            raise NotImplementedError("mlstm_chunked under a mesh starts from a zero state")
+        bshp, bsh = ("b", None, "h", None), ("b", None, "h")
+        h, C, n, m = local_map(
+            lambda *a: _flat_state(mlstm_chunked(*a, chunk)), (q, k, v, i_gate, f_gate),
+            (bshp, bshp, bshp, bsh, bsh),
+            (bshp, ("b", "h", None, None), ("b", "h", None), ("b", "h")))
+        return h, (C, n, m)
     B, S, H, P = q.shape
     Q = _pick_chunk(S, chunk)
     nC = S // Q
@@ -409,6 +442,12 @@ def mlstm_chunked(
     return h.to(q.dtype), (C_hat, n_hat, m)
 
 
+def _flat_state(out):
+    """``(h, (C, n, m))`` as ``(h, C, n, m)``."""
+    h, (C, n, m) = out
+    return h, C, n, m
+
+
 def mlstm_step(
     q: torch.Tensor,  # [B,H,P] scaled
     k: torch.Tensor,
@@ -417,6 +456,14 @@ def mlstm_step(
     f_gate: torch.Tensor,  # [B,H]
     state: tuple[torch.Tensor, torch.Tensor, torch.Tensor],
 ):
+    if layers.is_dtensor(state[0]):  # each device's rows and heads of the state
+        bhp, bh = ("b", "h", None), ("b", "h")
+        h, C, n, m = local_map(
+            lambda C, n, m, *a: _flat_state(mlstm_step(*a, (C, n, m))),
+            (*state, q, k, v, i_gate, f_gate),
+            (("b", "h", None, None), bhp, bh, bhp, bhp, bhp, bh, bh),
+            (bhp, ("b", "h", None, None), bhp, bh))
+        return h, (C, n, m)
     C_hat, n_hat, m = state
     lf = layers.log_sigmoid(f_gate.float())
     i = i_gate.float()
@@ -440,9 +487,10 @@ def mlstm_step(
 
 def _mlstm_qkv_gates(params: Params, xi: torch.Tensor, conv_out: torch.Tensor, shape, P: int):
     """q (f32, scaled), k, v (bf16) and the f32 gate logits of an mLSTM block."""
-    q = matmul(conv_out, params["w_q"]).reshape(shape).float() / _query_scale(P)
-    k = matmul(conv_out, params["w_k"]).reshape(shape)
-    v = matmul(xi, params["w_v"]).reshape(shape)
+    H = shape[-2]
+    q = layers.split_last(matmul(conv_out, params["w_q"]), H, P).float() / _query_scale(P)
+    k = layers.split_last(matmul(conv_out, params["w_k"]), H, P)
+    v = layers.split_last(matmul(xi, params["w_v"]), H, P)
     gates = matmul(xi, params["w_if"]).float() + params["if_bias"]
     i_gate, f_gate = torch.chunk(gates, 2, dim=-1)
     return q, k, v, i_gate, f_gate
@@ -514,6 +562,12 @@ def slstm_init(dims: XlstmDims, dense, normal, const, norm) -> Params:
     }
 
 
+def _flat_slstm(out):
+    """``((c, n, h, m), h_t)`` as ``(c, n, h, m, h_t)``."""
+    (c, n, h, m), h_t = out
+    return c, n, h, m, h_t
+
+
 def slstm_cell(
     w_x: torch.Tensor,  # [B, 4d] input pre-activations for this step
     r_gates: torch.Tensor,  # [H, P, 4P]
@@ -522,11 +576,17 @@ def slstm_cell(
     H: int,
     P: int,
 ):
+    if layers.is_dtensor(state[0]):  # each device's rows and heads of the state
+        bhp = ("b", "h", None)
+        c, n, h, m, h_new = local_map(
+            lambda c, n, h, m, w, r, g: _flat_slstm(slstm_cell(w, r, g, (c, n, h, m), r.shape[0], P)),
+            (*state, w_x, r_gates, gate_bias),
+            (bhp, bhp, bhp, bhp, ("b", "h"), ("h", None, None), ("h",)), (bhp,) * 5)
+        return (c, n, h, m), h_new
     c, n, h, m = state
-    B = w_x.shape[0]
     rec = torch.einsum("bhp,hpq->bhq", h, r_gates.to(h.dtype))  # [B,H,4P]
-    pre = w_x.reshape(B, H, 4 * P).float() + rec.float()
-    pre = pre + gate_bias.reshape(H, 4 * P)[None]
+    pre = layers.split_last(w_x, H, 4 * P).float() + rec.float()
+    pre = pre + layers.split_last(gate_bias, H, 4 * P)[None]
     z_p, i_p, f_p, o_p = torch.chunk(pre, 4, dim=-1)  # each [B,H,P]
     z = torch.tanh(z_p)
     o = torch.sigmoid(o_p)

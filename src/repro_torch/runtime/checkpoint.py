@@ -35,6 +35,8 @@ from typing import Any, Iterator
 import numpy as np
 import torch
 
+from repro_torch.sharding import distribute
+
 
 def _leaf_paths(tree: Any, prefix: tuple[str, ...] = ()) -> Iterator[tuple[str, Any]]:
     if isinstance(tree, dict):
@@ -92,24 +94,25 @@ def _write_npy(f, arr: np.ndarray) -> None:
     f.write(memoryview(arr.reshape(-1)).cast("B"))
 
 
-def _read_npy(f, staging: _Staging, device: torch.device) -> torch.Tensor:
+def _read_npy(f, staging: _Staging, device: torch.device | None) -> torch.Tensor:
     """A tensor on ``device`` from an .npy stream in C order (what both
     packages write), read straight into its host buffer (the staging buffer
-    for a CUDA device)."""
+    for a CUDA device; for ``device`` None the host tensor in the staging
+    buffer itself, valid until its next use)."""
     version = np.lib.format.read_magic(f)
     read_header = (np.lib.format.read_array_header_1_0 if version == (1, 0)
                    else np.lib.format.read_array_header_2_0)
     shape, fortran, dtype = read_header(f)
     if fortran:
         raise ValueError("checkpoint leaf is in Fortran order")
-    if device.type == "cuda":
+    if device is None or device.type == "cuda":
         host = staging.view(torch.from_numpy(np.empty(0, dtype)).dtype, shape).numpy()
     else:
         host = np.empty(shape, dtype)
     view = memoryview(host.reshape(-1)).cast("B")
     if f.readinto(view) != view.nbytes:
         raise ValueError("checkpoint leaf is truncated")
-    return torch.from_numpy(host).to(device)
+    return torch.from_numpy(host) if device is None else torch.from_numpy(host).to(device)
 
 
 @dataclasses.dataclass
@@ -188,14 +191,19 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, tree_like: Any, step: int | None = None) -> tuple[Any, dict]:
+    def restore(self, tree_like: Any, step: int | None = None,
+                shardings: Any = None) -> tuple[Any, dict]:
         """Rebuild a tree shaped like ``tree_like``; returns (tree, manifest).
 
         ``tree_like`` holds tensors, or ``torch.empty(..., device="meta")``
         for shapes alone.  The leaf count, names and shapes are validated
         leaf by leaf, so restoring into another config fails loudly.  Each
         leaf comes back with the checkpoint's dtype, on its ``tree_like``
-        leaf's device (the CPU for meta).
+        leaf's device (the CPU for meta).  With ``shardings`` (a tree of
+        ``sharding.NamedSharding`` shaped like ``tree_like``) each leaf comes
+        back as a DTensor laid out by its sharding, on its mesh's device:
+        read one leaf at a time (a CUDA mesh's through the page-locked
+        buffer), each rank keeping its own shard.
         """
         step = step if step is not None else self.latest_step()
         if step is None:
@@ -210,10 +218,12 @@ class CheckpointManager:
                 f"checkpoint has {manifest['num_leaves']} leaves, model expects {len(want)}"
             )
         by_name = {e["name"]: e for e in manifest["index"]}
+        flat_shardings = ([s for _, s in _leaf_paths(shardings)] if shardings is not None
+                          else None)
         leaves = []
         staging = _Staging()
         with zipfile.ZipFile(os.path.join(d, "shard_00000.npz")) as zf:
-            for name, leaf in want:
+            for i, (name, leaf) in enumerate(want):
                 entry = by_name.get(name)
                 if entry is None:
                     raise KeyError(f"checkpoint missing leaf {name!r}")
@@ -224,6 +234,15 @@ class CheckpointManager:
                         f"{name}: checkpoint shape {tuple(entry['shape'])} != model "
                         f"{tuple(leaf.shape)}"
                     )
+                if flat_shardings is not None:
+                    sh = flat_shardings[i]
+                    on_card = sh.mesh.device_type == "cuda"
+                    with zf.open(entry["key"] + ".npy") as f:
+                        host = _read_npy(f, staging, None if on_card else torch.device("cpu"))
+                    # the shard is copied out (of the staging buffer, or of
+                    # the whole leaf) before the next leaf is read
+                    leaves.append(distribute(host, sh.spec, sh.mesh, device=sh.mesh.device_type))
+                    continue
                 target = leaf.device if isinstance(leaf, torch.Tensor) else "cpu"
                 target = "cpu" if torch.device(target).type == "meta" else target
                 with zf.open(entry["key"] + ".npy") as f:

@@ -29,6 +29,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import model as model_lib
+from repro_torch.sharding import mesh_scope
 
 
 def embed_step(params: Any, tokens: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
@@ -178,8 +179,9 @@ def make_prefill_step(cfg: ArchConfig, max_len: int):
     caches sized ``max_len`` (a window ring where the window is shorter)."""
 
     def prefill_step(params: Any, batch: dict, thresholds: torch.Tensor) -> dict:
-        next_token, exit_conf, exit_tok, caches = model_lib.prefill(params, batch, cfg, max_len)
-        token, stage_idx = select_exit(next_token, exit_conf, exit_tok, thresholds)
+        with mesh_scope(params):
+            next_token, exit_conf, exit_tok, caches = model_lib.prefill(params, batch, cfg, max_len)
+            token, stage_idx = select_exit(next_token, exit_conf, exit_tok, thresholds)
         return {"token": token, "exit_stage": stage_idx, "exit_conf": exit_conf, "caches": caches}
 
     return prefill_step
@@ -192,8 +194,10 @@ def make_decode_step(cfg: ArchConfig):
     ``make_prefill_step``'s step does."""
 
     def decode_step(params: Any, batch: dict, caches: list, thresholds: torch.Tensor) -> dict:
-        next_token, exit_conf, exit_tok, new_caches = model_lib.decode_step(params, batch, caches, cfg)
-        token, stage_idx = select_exit(next_token, exit_conf, exit_tok, thresholds)
+        with mesh_scope(params):
+            next_token, exit_conf, exit_tok, new_caches = model_lib.decode_step(params, batch,
+                                                                                caches, cfg)
+            token, stage_idx = select_exit(next_token, exit_conf, exit_tok, thresholds)
         return {"token": token, "exit_stage": stage_idx, "exit_conf": exit_conf,
                 "caches": new_caches}
 

@@ -58,10 +58,16 @@ def lr_schedule(step: torch.Tensor, cfg: AdamWConfig) -> torch.Tensor:
     return cfg.learning_rate * warm * decay
 
 
+def _square_sum(leaf: torch.Tensor) -> torch.Tensor:
+    """The f32 sum of squares of a leaf; of a DTensor leaf, summed over its
+    shards (a plain scalar on every rank)."""
+    s = torch.sum(torch.square(leaf.float()))
+    return s.full_tensor() if hasattr(s, "full_tensor") else s
+
+
 def global_norm(tree: Any) -> torch.Tensor:
     """The f32 2-norm over every leaf of ``tree``."""
-    return torch.sqrt(torch.sum(torch.stack(
-        [torch.sum(torch.square(leaf.float())) for leaf in tree_leaves(tree)])))
+    return torch.sqrt(torch.sum(torch.stack([_square_sum(leaf) for leaf in tree_leaves(tree)])))
 
 
 def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
