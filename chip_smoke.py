@@ -128,6 +128,24 @@ exits non-zero without the final result line:
      under mixtral's window at 4160 and 8192 tokens (SDPA given the band as
      a mask), both decode kernels at mixtral's G 4, and the exit head at the
      three new LM heads;
+  8b. split partials — (``split_phase``, from a generator of its own) the
+     decode kernel's optional f32 output and log-sum-exp at G 1, 4 and 16
+     and head dims 64, 80 and 128, at the serve's lengths and on a 4096-key
+     cache with a row of length 0 (against the f32-score plain version and
+     the plain version; rounded, bit for bit the null-output call's); a
+     4096-key cache cut into 2, 3 and 8 sequence shards on one card, each
+     shard's partial by the kernel, combined (``ops.combine_partials``)
+     against the unsplit kernel; the exit kernel's max logit, and
+     stablelm-1.6b's LM head cut into 2, 4 and 16 vocab blocks, each
+     block's partial by the kernel, combined
+     (``ops.combine_exit_partials``) against the unsplit kernel (conf atol
+     1e-3 and rtol 1e-4, the argmax exact, a planted tie across blocks kept
+     at its first column); three planted faults, each rejected (a combine
+     without the lse weights, shard lengths without the shard's offset, an
+     argmax without its block's offset); and the decode kernel at
+     stablelm's serve lengths and on the 4096-key cache and the exit head at
+     stablelm's head (B 8) with the new outputs, in turns with the
+     null-output calls, each within 3% of them;
   9. train  — full-width stablelm-1.6b trained for 6 steps through
      ``training.make_train_step`` (f32 masters, B 8 x S 512, AdamW;
      ``train_phase``): finite losses and gradients, a nonzero gradient in
@@ -156,7 +174,16 @@ exits non-zero without the final result line:
      subprocess (started before phase 9, on the host's CPU): gates of
      stablelm-1.6b train_4k and decode_32k and mixtral-8x7b at all 32
      layers decode_32k on pod16x16, one measured cell (stablelm decode_32k)
-     with its roofline row, and the 1 x 1 prediction of (b).
+     with its roofline row, and the 1 x 1 prediction of (b); and the cells
+     whose decode gathered the sequence-split KV cache before the split-KV
+     decode (``DAGGER_PEAKS``: nine archs' decode_32k, zamba2's and
+     mixtral's long_500k) measured through the dry run's CLI (three cells
+     at a time, started with phase 8): none bound by its collectives,
+     none's peak above its earlier reading, and stablelm decode_32k's
+     collective term under 5 ms.
+  11. examples — ``examples/torch_quickstart.py`` (60 train steps) and
+     ``examples/torch_failover_elastic.py`` on the card, each in a process
+     of its own (the two at once), each ending in its closing line.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits 2.
@@ -2223,6 +2250,8 @@ def main() -> None:
 
     # -- 8. times -------------------------------------------------------------
     phase("times (device time from the profiler, cold L2, mean over launches)")
+    # phase 10 (d)'s † cells on the host's CPU, beside the device timings
+    dagger_proc = start_dagger_sweep()
     flush = L2Flush(dev)
     kernels_out = []
 
@@ -2527,20 +2556,190 @@ def main() -> None:
                     "launches": n_launch, "max_abs_err": max_err[err_key], **t,
                 })
 
+    split_phase(dev, dec_lengths, max_len, flush)
+
     del heads
     dryrun_proc = start_dryrun()  # phase 10 (d): CPU only, beside phase 9 and 10 on the card
     try:
         train_phase(dev, read_counts, zero_counts)
-        multidevice_phase(dev, read_counts, zero_counts, dryrun_proc)
+        multidevice_phase(dev, read_counts, zero_counts, dryrun_proc, dagger_proc)
     finally:
         if dryrun_proc.poll() is None:
             dryrun_proc.kill()
             dryrun_proc.wait()
+        stop_group(dagger_proc)
+    examples_phase()
 
     print(f"nvidia-smi: {nvidia_smi()}")
     print(json.dumps({"kernels": kernels_out}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_kind,
                                              "count": torch.cuda.device_count()}}))
+
+
+# the split phase (8b): the decode kernel's partials, split-KV and
+# vocab-split combines on one card, their planted faults and timings
+SPLIT_SEED = SEED + 23
+# (label, query heads, KV heads, head dim) of the partial decode's gates: G 1,
+# 4 and 16 at head dims 64, 80 and 128
+SPLIT_HEADS = tuple((f"G {g} hd {hd_}", 4 * g, 4, hd_) for g in (1, 4, 16) for hd_ in (64, 80, 128))
+# a one-card split of a 4096-key cache into n shards (3: unaligned to the
+# walk's 512-key splits), and of stablelm-1.6b's LM head into n vocab blocks
+KV_SHARDS = (2, 3, 8)
+VOCAB_SHARDS = (2, 4, 16)
+# rows of the split gates: a row of length 0, rows ending in the first shard
+# (the later shards empty), and rows spanning several
+SPLIT_LENGTHS = [0, 100, 511, 512, 1500, 3000, 4095, 4096]
+# rows 1 and 2 with the new outputs against the null-output calls, in turns
+SPLIT_TIME_TOL = 0.03
+
+
+def split_phase(dev, dec_lengths: list[int], max_len: int, flush: "L2Flush") -> dict:
+    """Phase 8b (see the module docstring): on one card, the sharded steps'
+    kernel paths.  Returns the timings for the record."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as kdec
+    from repro_torch.kernels import exit_confidence as kexit
+    from repro_torch.kernels import ops, ref
+
+    phase("split partials: split-KV decode and the vocab-split exit head on one card")
+    g = torch.Generator(device=dev).manual_seed(SPLIT_SEED)
+
+    def dec_inputs(B, S, hq, kvh, hd_, lengths):
+        q = torch.randn((B, hq, hd_), generator=g, device=dev).bfloat16()
+        k = torch.randn((B, S, kvh, hd_), generator=g, device=dev).bfloat16()
+        v = torch.randn((B, S, kvh, hd_), generator=g, device=dev).bfloat16()
+        return q, k, v, torch.tensor(lengths, dtype=torch.int32, device=dev)
+
+    # (1) the partial outputs against the plain version, and rounded against
+    # the null-output call bit for bit
+    for label, hq, kvh, hd_ in SPLIT_HEADS:
+        for S, lengths in ((max_len, [0] + dec_lengths[1:]), (LONG_S, [0] + LONG_LENGTHS[1:])):
+            q, k, v, ln = dec_inputs(len(lengths), S, hq, kvh, hd_, lengths)
+            o, lse = kdec.decode_attention_partial(q, k, v, ln)
+            o32, lse32 = ref.decode_attention_partial_ref(q, k, v, ln, f32_scores=True)
+            orf, _ = ref.decode_attention_partial_ref(q, k, v, ln)
+            same = torch.equal(o.bfloat16(), kdec.decode_attention(q, k, v, ln))
+            ok_o, err_o, _ = bf16_close(o, o32)
+            err_ref = float((o - orf).abs().max())
+            live = ln > 0
+            err_lse = float((lse[live] - lse32[live]).abs().max())
+            empty = bool((o[~live] == 0).all()) and bool(torch.isneginf(lse[~live]).all())
+            check(f"decode_attention_partial {label} S={S}",
+                  ok_o and err_ref <= 2e-2 and err_lse <= 1e-3 and empty and same,
+                  f"o against the f32-score plain version max|diff| {err_o:.3g} (rtol 1.6e-2, atol "
+                  f"1e-2), against the plain version {err_ref:.3g} (tol 2e-2); lse max|diff| "
+                  f"{err_lse:.3g} (tol 1e-3); length-0 row (0, -inf) {empty}; o rounded == the "
+                  f"null-output call's output bit for bit {same}")
+            del q, k, v, o, lse, o32, lse32, orf
+
+    # (2) a 4096-key cache split into n shards on one card: each shard's
+    # partial by the kernel, combined, against the unsplit kernel
+    def shard_partials(q, k, v, ln, n, offset=True):
+        parts, lo = [], 0
+        for kc, vc in zip(torch.chunk(k, n, dim=1), torch.chunk(v, n, dim=1)):
+            local = (ln - (lo if offset else 0)).clamp(0, kc.shape[1]).to(torch.int32)
+            parts.append(kdec.decode_attention_partial(q, kc.contiguous(), vc.contiguous(), local))
+            lo += kc.shape[1]
+        return torch.stack([p[0] for p in parts]), torch.stack([p[1] for p in parts])
+
+    for label, hq, kvh, hd_ in SPLIT_HEADS[::4]:
+        q, k, v, ln = dec_inputs(len(SPLIT_LENGTHS), LONG_S, hq, kvh, hd_, SPLIT_LENGTHS)
+        whole = kdec.decode_attention(q, k, v, ln)
+        for n in KV_SHARDS:
+            o, lse = shard_partials(q, k, v, ln, n)
+            got = ops.combine_partials(o, lse).bfloat16()
+            ok, err, _ = bf16_close(got, whole)
+            ulp = float(((got.float() - whole.float()).abs()
+                         / whole.float().abs().clamp_min(2.0**-126)).max())
+            check(f"split-KV decode {label} over {n} shards of {LONG_S // n}+ keys", ok,
+                  f"combined against the unsplit kernel max|diff| {err:.3g} (rtol 1.6e-2, atol "
+                  f"1e-2), max rel diff {ulp:.3g}")
+            if n == KV_SHARDS[0]:
+                w_free = o.sum(0) / (lse > -math.inf).sum(0).clamp_min(1)[..., None]
+                ok_f, err_f, _ = bf16_close(w_free.bfloat16(), whole)
+                check(f"split-KV gate rejects a combine without the lse weights ({label})", not ok_f,
+                      f"max|diff| {err_f:.3g}")
+                o_f, lse_f = shard_partials(q, k, v, ln, n, offset=False)
+                got_f = ops.combine_partials(o_f, lse_f).bfloat16()
+                ok_f, err_f, _ = bf16_close(got_f, whole)
+                check(f"split-KV gate rejects local lengths without the shard's offset ({label})",
+                      not ok_f, f"max|diff| {err_f:.3g}")
+        del q, k, v, whole
+
+    # (3) the exit head's max logit, and stablelm-1.6b's LM head cut into
+    # vocab blocks, each block's partial by the kernel, combined
+    cfg = get_config("stablelm-1.6b")
+    d, V = cfg.d_model, cfg.vocab_size
+    h = torch.randn((BATCH, d), generator=g, device=dev)
+    w = torch.randn((d, V), generator=g, device=dev) / math.sqrt(d)
+    tgt = torch.randperm(V, generator=g, device=dev)[:BATCH]
+    # row 0's target in the first of the smallest vocab blocks
+    tgt[0] = int(torch.randint(0, V // VOCAB_SHARDS[-1], (1,), generator=g, device=dev))
+    if len(set(tgt.tolist())) != BATCH:
+        raise RuntimeError("split head inputs: two rows share a target column")
+    w[:, tgt] += 8.0 * (h / h.norm(dim=1, keepdim=True) ** 2).T
+    # a tie across vocab blocks: row 0's top column copied into the last
+    # block, where the combine must keep the first
+    j1, j2 = int(tgt[0]), V - 1
+    w[:, j2] = w[:, j1]
+    h, w = h.bfloat16(), w.bfloat16()
+    c, i, m = kexit.exit_confidence_partial(h, w)
+    cr, ir, mr = ref.exit_confidence_partial_ref(h, w)
+    ok, err, rel = conf_close(c, cr)
+    err_m = float((m - mr).abs().max())
+    c0, i0 = kexit.exit_confidence(h, w)
+    check("exit_confidence_partial stablelm head B=8", ok and torch.equal(i, ir) and err_m <= 1e-3
+          and torch.equal(c, c0) and torch.equal(i, i0),
+          f"conf max|err| {err:.3g}, rel {rel:.3g}; argmax equal {torch.equal(i, ir)}; max logit "
+          f"max|diff| {err_m:.3g} (tol 1e-3); conf and argmax == the null-output call's "
+          f"{torch.equal(c, c0) and torch.equal(i, i0)}")
+    for n in VOCAB_SHARDS:
+        parts, lo = [], 0
+        for wc in torch.chunk(w, n, dim=1):
+            cc, ic, mc = kexit.exit_confidence_partial(h, wc.contiguous())
+            parts.append((cc, ic + lo, mc, ic))
+            lo += wc.shape[1]
+        conf, idx = ops.combine_exit_partials(*(torch.stack([p[j] for p in parts]) for j in range(3)))
+        ok, err, rel = conf_close(conf, c0)
+        check(f"vocab-split exit head over {n} blocks of {V // n} columns",
+              ok and torch.equal(idx, i0) and int(idx[0]) == j1,
+              f"conf max|err| {err:.3g} (atol 1e-3), rel {rel:.3g} (rtol 1e-4); argmax equal "
+              f"{torch.equal(idx, i0)}; the tie at columns {j1} and {j2} kept at {int(idx[0])}")
+        if n == VOCAB_SHARDS[0]:
+            _, idx_f = ops.combine_exit_partials(*(torch.stack([p[j] for p in parts])
+                                                   for j in (0, 3, 2)))
+            check("vocab-split gate rejects an argmax without its block's offset",
+                  not torch.equal(idx_f, i0), f"{int((idx_f != i0).sum())} of {BATCH} rows differ")
+
+    # (4) rows 1 and 2 with the new outputs, in turns with the null-output
+    # calls (null, new, new, null, twice; medians of 4)
+    q, k, v, ln = dec_inputs(BATCH, max_len, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+                             dec_lengths)
+    ql, kl, vl, lnl = dec_inputs(BATCH, LONG_S, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+                                 LONG_LENGTHS)
+    pairs = {
+        "decode_attention serve lengths": (lambda: kdec.decode_attention(q, k, v, ln),
+                                           lambda: kdec.decode_attention_partial(q, k, v, ln), 200),
+        "decode_attention S 4096": (lambda: kdec.decode_attention(ql, kl, vl, lnl),
+                                    lambda: kdec.decode_attention_partial(ql, kl, vl, lnl), 100),
+        "exit_confidence stablelm head B 8": (lambda: kexit.exit_confidence(h, w),
+                                              lambda: kexit.exit_confidence_partial(h, w), 50),
+    }
+    out, smi = {}, nvidia_smi()
+    for name, (null_fn, new_fn, iters) in pairs.items():
+        ms = {"null": [], "new": []}
+        for _ in range(2):
+            for tag, fn in (("null", null_fn), ("new", new_fn), ("new", new_fn), ("null", null_fn)):
+                ms[tag].append(time_cold(fn, iters, flush))
+        t_null, t_new = (float(np.median(ms[t])) for t in ("null", "new"))
+        out[name] = (t_null, t_new)
+        print(f"{name} on {smi}: null outputs {t_null:.5f} ms, with the new outputs {t_new:.5f} "
+              f"ms ({t_new / t_null - 1:+.2%}); in turns: " + "; ".join(
+                  f"{t} {' '.join(f'{x:.5f}' for x in xs)}" for t, xs in ms.items()), flush=True)
+        check(f"{name}: the new outputs within {SPLIT_TIME_TOL:.0%} of the null-output calls",
+              abs(t_new / t_null - 1) <= SPLIT_TIME_TOL, f"{t_new / t_null - 1:+.2%}")
+    del q, k, v, ql, kl, vl, h, w
+    return out
 
 
 def train_phase(dev, read_counts, zero_counts) -> None:
@@ -2781,6 +2980,39 @@ print("DRYRUN " + json.dumps(out))
 """
 
 
+# the port's examples run on the card: (script, flags, closing line)
+EXAMPLES = (("examples/torch_quickstart.py", [], "quickstart OK"),
+            ("examples/torch_failover_elastic.py", [], "(bit-exact resume)"))
+
+
+def examples_phase() -> None:
+    """Phase 11: the port's examples on the card (their default device),
+    each in a process of its own, the two at once (each is bound by its
+    host), each ending in its closing line."""
+    import os
+
+    phase("examples on the card")
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, script, *flags], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True, env=env, cwd=str(root))
+             for script, flags, _ in EXAMPLES]
+    try:
+        outs = [proc.communicate(timeout=400) for proc in procs]
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for (script, _, last), proc, (stdout, stderr) in zip(EXAMPLES, procs, outs):
+        lines = stdout.strip().splitlines()
+        print("\n".join(f"  | {ln}" for ln in lines), flush=True)
+        check(f"{script} on the card", proc.returncode == 0 and bool(lines)
+              and lines[-1].endswith(last), f"rc {proc.returncode}, both done in "
+              f"{time.perf_counter() - t0:.1f} s; " + stderr[-1500:].replace("\n", " | "))
+
+
 def start_dryrun() -> subprocess.Popen:
     """Phase 10 (d)'s dry run, started in a process of its own (the fake
     process group is process-global) on the host's CPU."""
@@ -2794,7 +3026,80 @@ def start_dryrun() -> subprocess.Popen:
                             stderr=subprocess.PIPE, text=True, env=env)
 
 
-def multidevice_phase(dev, read_counts, zero_counts, dryrun_proc) -> None:
+# the dry-run cells once marked † (a gather of the sequence-split KV cache
+# at every layer), re-read since the split-KV decode: their peak GB a device
+# on pod16x16 then (PERF.md), which none may exceed now
+DAGGER_PEAKS = {
+    ("stablelm-1.6b", "decode_32k"): 6.7, ("glm4-9b", "decode_32k"): 5.6,
+    ("internlm2-20b", "decode_32k"): 9.1, ("qwen2.5-32b", "decode_32k"): 13.1,
+    ("deepseek-v2-lite-16b", "decode_32k"): 3.8, ("zamba2-2.7b", "decode_32k"): 6.0,
+    ("mixtral-8x7b", "decode_32k"): 6.9, ("phi-3-vision-4.2b", "decode_32k"): 11.8,
+    ("musicgen-medium", "decode_32k"): 8.2,
+    ("zamba2-2.7b", "long_500k"): 1.1, ("mixtral-8x7b", "long_500k"): 6.6,
+}
+DAGGER_DIR = "experiments/dryrun_torch/dagger"
+# stablelm-1.6b decode_32k's collective term on pod16x16 must fall under this
+DAGGER_COLL_MS = 5.0
+
+
+def start_dagger_sweep() -> subprocess.Popen:
+    """The † cells through the dry run's CLI (one process per cell, three
+    at a time, on the host's CPU), measured: started with phase 8, read in
+    10 (d)."""
+    import os
+
+    root = Path(__file__).resolve().parent
+    archs = sorted({a for a, _ in DAGGER_PEAKS})
+    shapes = sorted({s_ for _, s_ in DAGGER_PEAKS})
+    env = dict(os.environ, PYTHONPATH=str(root / "src"), CUDA_VISIBLE_DEVICES="",
+               REPRO_DRYRUN_DIR=str(root / DAGGER_DIR))
+    # a session of its own: the sweep and its per-cell processes are stopped
+    # together at exit (``stop_group``), whatever ends the script
+    proc = subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                             ",".join(archs), "--shape", ",".join(shapes), "--jobs", "3",
+                             "--limit", "500"], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, env=env, cwd=str(root), start_new_session=True)
+    import atexit
+
+    atexit.register(stop_group, proc)
+    return proc
+
+
+def stop_group(proc: subprocess.Popen) -> None:
+    """Kill ``proc``'s process group if ``proc`` still runs."""
+    import os
+    import signal
+
+    if proc.poll() is None:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+
+
+def read_dagger_sweep(proc: subprocess.Popen) -> None:
+    """Phase 10 (d), the † cells: every one measured, none bound by its
+    collectives, none's peak above its reading with the gather, and stablelm-1.6b
+    decode_32k's collective term under ``DAGGER_COLL_MS``."""
+    t0 = time.perf_counter()
+    stdout, stderr = proc.communicate(timeout=900)
+    check("multi-device (d): the † cells' dry-run sweep finished", proc.returncode == 0,
+          f"rc {proc.returncode}; waited {time.perf_counter() - t0:.1f} s; "
+          + (stdout[-1500:] + stderr[-1500:]).replace("\n", " | "))
+    root = Path(__file__).resolve().parent / DAGGER_DIR
+    for (arch, shape), old in DAGGER_PEAKS.items():
+        row = json.loads((root / f"{arch}__{shape}__pod16x16.json").read_text())
+        peak = row["memory"]["peak_gb_per_device"]
+        print(f"  † {row['cell']}: peak {peak:.3f} GB a device (with the gather: {old}), compute / "
+              f"memory / collective {row['compute_ms']:.4g} / {row['memory_ms']:.4g} / "
+              f"{row['collective_ms']:.4g} ms, dominant {row['dominant']}, roofline fraction "
+              f"{row['roofline_fraction']:.3g}; collectives {row['collective_counts']}", flush=True)
+        ok = row["dominant"] != "collective" and peak <= old + 0.05
+        if (arch, shape) == ("stablelm-1.6b", "decode_32k"):
+            ok = ok and row["collective_ms"] < DAGGER_COLL_MS
+        check(f"multi-device (d): † {arch} {shape} re-read", ok,
+              f"dominant {row['dominant']}, peak {peak:.3f} GB, collective {row['collective_ms']:.4g} ms")
+
+
+def multidevice_phase(dev, read_counts, zero_counts, dryrun_proc, dagger_proc=None) -> None:
     """Phase 10: the port's multi-device path on one card (see the module
     docstring, item 10).  Every step runs in this process on the card; a
     failure fails the script."""
@@ -3047,6 +3352,8 @@ def multidevice_phase(dev, read_counts, zero_counts, dryrun_proc) -> None:
           f"{peak / 1e9:.3f} GB on {nvidia_smi()}: {gap:.1%} apart", flush=True)
     check("multi-device (b): the train step's peak memory within 15% of the dry run's prediction",
           gap <= MD_PEAK_TOL, f"{gap:.1%}")
+    if dagger_proc is not None:
+        read_dagger_sweep(dagger_proc)
 
 
 if __name__ == "__main__":

@@ -19,6 +19,14 @@
 // length, clamped to S.  Head dims 32, 64, 80 (zamba2-2.7b: five k-steps
 // of Q K^T and ten 8-dim column blocks of P V, paired) and 128.
 //
+// Optional outputs (null pointers: not written, the walk as before): each
+// query row's output in f32 before its bf16 cast, `out_f32` [B, KVH * G,
+// HD], and its log-sum-exp `lse` [B, KVH * G] (-inf at length 0).  They are
+// the partial of one sequence shard when the cache is split over devices:
+// the shards' (out_f32, lse) are combined as the walk combines its splits
+// (kernels/decode_attention.py, `decode_attention_partial`).  A null `out`
+// writes no bf16 output.
+//
 // Each exported function returns cudaGetLastError() after its launch.
 
 #include <cuda_bf16.h>
@@ -49,6 +57,8 @@ decode_attention_kernel(const __nv_bfloat16* __restrict__ q,  // [B, KVH * G, HD
                         __nv_bfloat16* __restrict__ out,      // [B, KVH * G, HD]
                         float* __restrict__ part_o,           // [B, KVH, n_split_max, G, HD]
                         float* __restrict__ part_lse,         // [B, KVH, n_split_max, G]
+                        float* __restrict__ out_f32,          // [B, KVH * G, HD] or null
+                        float* __restrict__ lse,              // [B, KVH * G] or null
                         int S, int KVH, int G, int split, float sm_scale) {
   extern __shared__ __align__(16) uint8_t smem[];
   const int h = blockIdx.x, b = blockIdx.y;
@@ -58,21 +68,25 @@ decode_attention_kernel(const __nv_bfloat16* __restrict__ q,  // [B, KVH * G, HD
   const size_t head = bh * G * HD;  // the G query heads of KV head h
   const size_t part = bh * gridDim.z * G;
   decode_core::attend<HD>(q + head, k + (size_t)h * HD, v + (size_t)h * HD, (size_t)KVH * HD, len,
-                          G, split, blockIdx.z, DenseRows{(size_t)b * S}, out + head,
-                          part_o + part * HD, part_lse + part, sm_scale, smem);
+                          G, split, blockIdx.z, DenseRows{(size_t)b * S},
+                          out != nullptr ? out + head : nullptr, part_o + part * HD,
+                          part_lse + part, out_f32 != nullptr ? out_f32 + head : nullptr,
+                          lse != nullptr ? lse + bh * G : nullptr, sm_scale, smem);
 }
 
 template <int HD>
 struct Launch {
   static cudaError_t run(const void* q, const void* k, const void* v, const void* lengths,
-                         void* out, void* part_o, void* part_lse, int B, int S, int KVH, int G,
-                         int split, int combine, float sm_scale, cudaStream_t s) {
+                         void* out, void* part_o, void* part_lse, void* out_f32, void* lse, int B,
+                         int S, int KVH, int G, int split, int combine, float sm_scale,
+                         cudaStream_t s) {
     return decode_core::launch_walk<HD>(
-        decode_attention_kernel<HD>, lengths, out, part_o, part_lse, B, S, KVH, G, split, combine,
-        s, static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(lengths),
-        static_cast<__nv_bfloat16*>(out), static_cast<float*>(part_o),
-        static_cast<float*>(part_lse), S, KVH, G, split, sm_scale);
+        decode_attention_kernel<HD>, lengths, out, part_o, part_lse, out_f32, lse, B, S, KVH, G,
+        split, combine, s, static_cast<const __nv_bfloat16*>(q),
+        static_cast<const __nv_bfloat16*>(k), static_cast<const __nv_bfloat16*>(v),
+        static_cast<const int*>(lengths), static_cast<__nv_bfloat16*>(out),
+        static_cast<float*>(part_o), static_cast<float*>(part_lse), static_cast<float*>(out_f32),
+        static_cast<float*>(lse), S, KVH, G, split, sm_scale);
   }
 };
 
@@ -80,9 +94,10 @@ struct Launch {
 
 extern "C" int decode_attention_bf16(const void* q, const void* k, const void* v,
                                      const void* lengths, void* out, void* part_o, void* part_lse,
-                                     int B, int S, int KVH, int G, int hd, int split, int combine,
-                                     float sm_scale, void* stream) {
-  return decode_core::dispatch<Launch>(hd, q, k, v, lengths, out, part_o, part_lse, B, S, KVH, G,
-                                       split, combine, sm_scale,
+                                     void* out_f32, void* lse, int B, int S, int KVH, int G,
+                                     int hd, int split, int combine, float sm_scale,
+                                     void* stream) {
+  return decode_core::dispatch<Launch>(hd, q, k, v, lengths, out, part_o, part_lse, out_f32, lse,
+                                       B, S, KVH, G, split, combine, sm_scale,
                                        reinterpret_cast<cudaStream_t>(stream));
 }

@@ -36,7 +36,12 @@
 //     adds them in split order, each weighted by exp(lse - max lse).
 //
 // len == 0 reads nothing and returns zeros (acc / l with the l > 0 guard).
-// The output is bf16.
+// The output is bf16 (`out`); where the caller gives them, the walk or the
+// combine also writes each row's output in f32 before that cast
+// (`out_f32`) and its log-sum-exp (`lse`, natural log of the sum of
+// exp(score) over the row's keys; -inf for a row of length 0): the
+// partial a sequence shard of a sharded cache hands to the combine across
+// shards.  A null `out` writes no bf16 output.
 //
 // `PROBE:` comments mark the lines where tools/probe_decode_walk.py patches
 // its variants of the walk: keep each with its line.
@@ -131,7 +136,9 @@ __device__ __forceinline__ void cp_async_wait() {
 // k_h, v_h: the K/V bases offset to this KV head (row r of the cache starts
 // at k_h + r * row_stride); out_h: [G, HD]; part_o [n_split_max, G, HD]
 // and part_lse [n_split_max, G]: this (row, KV head)'s scratch, written only
-// when the row has more than one split; smem: Smem<HD>::BYTES.
+// when the row has more than one split; of32_h [G, HD] and lse_h [G]: the
+// f32 output and log-sum-exp, or null (written by the walk when the row
+// has one split, else by the combine); smem: Smem<HD>::BYTES.
 //
 // mma.m16n8k16 fragments (lane = 4 * quad + qi): A holds rows quad and
 // quad + 8, columns 2 qi (+1) and 2 qi + 8 (+1); B holds columns (n) quad,
@@ -144,6 +151,7 @@ __device__ __forceinline__ void attend(const __nv_bfloat16* __restrict__ q_h,
                                        int len, int G, int split, int s, RowOf row_of,
                                        __nv_bfloat16* __restrict__ out_h,
                                        float* __restrict__ part_o, float* __restrict__ part_lse,
+                                       float* __restrict__ of32_h, float* __restrict__ lse_h,
                                        float sm_scale, uint8_t* smem) {
   using L = Smem<HD>;
   constexpr int CH = HD / 8;  // 16-byte chunks per key row
@@ -333,14 +341,21 @@ __device__ __forceinline__ void attend(const __nv_bfloat16* __restrict__ q_h,
   }
   __syncthreads();
   if (n_split > 1 && tid < G) part_lse[s * G + tid] = m + logf(red_l[tid]);
+  if (n_split == 1 && lse_h != nullptr && tid < G)
+    lse_h[tid] = red_l[tid] > 0.f ? m + logf(red_l[tid]) : __int_as_float(0xff800000);  // -inf
   for (int e = tid; e < G * HD; e += THREADS) {
     const int g = e / HD, d = e % HD;
     float acc = 0.f;
 #pragma unroll
     for (int w = 0; w < WARPS; ++w) acc += red_o[(w * G + g) * HD + d] * red_m[w * G + g];
     const float l = red_l[g];
-    if (n_split == 1) out_h[e] = __float2bfloat16(l > 0.f ? acc / l : 0.f);
-    else part_o[(size_t)s * G * HD + e] = acc / l;  // a split holds a key, so l > 0
+    if (n_split == 1) {
+      const float o = l > 0.f ? acc / l : 0.f;
+      if (out_h != nullptr) out_h[e] = __float2bfloat16(o);
+      if (of32_h != nullptr) of32_h[e] = o;
+    } else {
+      part_o[(size_t)s * G * HD + e] = acc / l;  // a split holds a key, so l > 0
+    }
   }
 }  // PROBE: exit
 
@@ -348,12 +363,14 @@ __device__ __forceinline__ void attend(const __nv_bfloat16* __restrict__ q_h,
 // weighted by exp(lse - max lse): one CTA of HD threads per (KV head, batch
 // row, query head of the KV head), thread d adding dimension d.  part_o [B,
 // KVH, n_split_max, G, HD], part_lse [B, KVH, n_split_max, G], lengths
-// clamped to [0, S] as the walk clamps them.
+// clamped to [0, S] as the walk clamps them; out (or null), out_f32 (or
+// null) [B, KVH * G, HD], lse (or null) [B, KVH * G].
 template <int HD>
 __global__ void __launch_bounds__(HD)
 combine_kernel(const float* __restrict__ part_o, const float* __restrict__ part_lse,
-               const int* __restrict__ lengths, __nv_bfloat16* __restrict__ out, int S, int KVH,
-               int G, int split, int n_split_max) {
+               const int* __restrict__ lengths, __nv_bfloat16* __restrict__ out,
+               float* __restrict__ out_f32, float* __restrict__ lse, int S, int KVH, int G,
+               int split, int n_split_max) {
   const int h = blockIdx.x, b = blockIdx.y, g = blockIdx.z;
   int len = lengths[b];
   len = len < 0 ? 0 : (len > S ? S : len);
@@ -371,21 +388,27 @@ combine_kernel(const float* __restrict__ part_o, const float* __restrict__ part_
     wsum += w;
     acc += po[(size_t)s * G * HD] * w;
   }
-  out[(bh * G + g) * HD + threadIdx.x] = __float2bfloat16(acc / wsum);
+  const float o = acc / wsum;
+  const size_t at = (bh * G + g) * HD + threadIdx.x;
+  if (out != nullptr) out[at] = __float2bfloat16(o);
+  if (out_f32 != nullptr) out_f32[at] = o;
+  if (lse != nullptr && threadIdx.x == 0) lse[bh * G + g] = mx + logf(wsum);
 }
 
 // Host side: launch `kernel` (a walk over (KV head, batch row, split) taking
 // `args...`) on a cache of S positions, n_splits(S, split) splits per row,
 // then the combine where a row can have more than one split (`combine` 0
 // leaves it out: a planted fault for the tests, never the wrappers' call).
+// out_f32 and lse (either may be null) reach the combine as they reach the
+// walk through `args...`.
 // `static`: internal linkage, so each library keeps its own `smem_set` (a
 // function template's static local is otherwise one object shared by every
 // library the process loads, and a second library would skip its own
 // cudaFuncSetAttribute).
 template <int HD, class Kernel, class... Args>
 static cudaError_t launch_walk(Kernel kernel, const void* lengths, void* out, const void* part_o,
-                        const void* part_lse, int B, int S, int KVH, int G, int split, int combine,
-                        cudaStream_t stream, Args... args) {
+                        const void* part_lse, void* out_f32, void* lse, int B, int S, int KVH,
+                        int G, int split, int combine, cudaStream_t stream, Args... args) {
   if (G < 1 || G > MMA_G || split < WT || split % WT != 0 || B > 65535)
     return cudaErrorInvalidValue;
   const int n_split_max = n_splits(S, split);
@@ -403,8 +426,8 @@ static cudaError_t launch_walk(Kernel kernel, const void* lengths, void* out, co
   if (err != cudaSuccess || n_split_max == 1 || !combine) return err;
   combine_kernel<HD><<<dim3(KVH, B, G), HD, 0, stream>>>(
       static_cast<const float*>(part_o), static_cast<const float*>(part_lse),
-      static_cast<const int*>(lengths), static_cast<__nv_bfloat16*>(out), S, KVH, G, split,
-      n_split_max);
+      static_cast<const int*>(lengths), static_cast<__nv_bfloat16*>(out),
+      static_cast<float*>(out_f32), static_cast<float*>(lse), S, KVH, G, split, n_split_max);
   return cudaGetLastError();
 }
 

@@ -381,7 +381,8 @@ exit_tile_kernel(const __grid_constant__ CUtensorMap w_map,  // w [d, V] as {V, 
 __global__ void exit_combine_kernel(const float* __restrict__ part_m,
                                     const float* __restrict__ part_l,
                                     const int* __restrict__ part_i,
-                                    float* __restrict__ conf, int* __restrict__ idx, int nt) {
+                                    float* __restrict__ conf, int* __restrict__ idx,
+                                    float* __restrict__ mx, int nt) {
   const int b = blockIdx.x;
   const int lane = threadIdx.x;
   const int per = (nt + 31) / 32;
@@ -412,6 +413,7 @@ __global__ void exit_combine_kernel(const float* __restrict__ part_m,
   if (lane == 0) {
     conf[b] = 1.f / (l > 0.f ? l : 1.f);
     idx[b] = ix;
+    if (mx != nullptr) mx[b] = m;
   }
 }
 
@@ -476,9 +478,12 @@ cudaError_t launch_pass(const CUtensorMap& w_map, const void* h, int ldh, float*
 
 // One pass: batch rows [row0, row0 + rows) of h [B, ldh] (the first d of
 // each row used) against w [d, V], over `n_ctas` CTAs.  part_* are [B,
-// n_ctas]; conf and idx [B].
+// n_ctas]; conf and idx [B]; mx [B] (or null: not written) each row's max
+// logit, with which the row's log-sum-exp is mx - log(conf): what a vocab
+// shard of a split head hands to the combine across shards.
 extern "C" int exit_confidence_bf16(const void* h, const void* w, void* part_m, void* part_l,
-                                    void* part_i, void* conf, void* idx, int B, int d, int ldh,
+                                    void* part_i, void* conf, void* idx, void* mx, int B, int d,
+                                    int ldh,
                                     int V, int row0, int rows, int n_ctas, void* stream) {
   if (V % 8 != 0 || d < 1 || ldh < d || ldh % 8 != 0 || rows < 1 || rows > 64 || row0 < 0 ||
       row0 + rows > B || n_ctas < 1 ||
@@ -499,6 +504,8 @@ extern "C" int exit_confidence_bf16(const void* h, const void* w, void* part_m, 
   const size_t off = (size_t)row0 * n_ctas;
   exit_combine_kernel<<<rows, 32, 0, s>>>(pm + off, pl + off, pi + off,
                                           static_cast<float*>(conf) + row0,
-                                          static_cast<int*>(idx) + row0, n_ctas);
+                                          static_cast<int*>(idx) + row0,
+                                          mx != nullptr ? static_cast<float*>(mx) + row0 : nullptr,
+                                          n_ctas);
   return cudaGetLastError();
 }

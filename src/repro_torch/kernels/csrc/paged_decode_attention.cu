@@ -82,7 +82,7 @@ paged_decode_attention_kernel(const __nv_bfloat16* __restrict__ q,       // [B, 
   decode_core::attend<HD>(q + head, k_pool + (size_t)h * HD, v_pool + (size_t)h * HD,
                           (size_t)KVH * HD, len, G, split, blockIdx.z,
                           PagedRows{table + (size_t)b * n_logical, bs}, out + head,
-                          part_o + part * HD, part_lse + part, sm_scale, smem);
+                          part_o + part * HD, part_lse + part, nullptr, nullptr, sm_scale, smem);
 }
 
 // as in decode_attention.cu, over a view of S <= n_logical * bs positions
@@ -93,8 +93,8 @@ struct Launch {
                          void* part_lse, int B, int n_logical, int bs, int S, int KVH, int G,
                          int split, int combine, float sm_scale, cudaStream_t s) {
     return decode_core::launch_walk<HD>(
-        paged_decode_attention_kernel<HD>, lengths, out, part_o, part_lse, B, S, KVH, G, split,
-        combine, s, static_cast<const __nv_bfloat16*>(q),
+        paged_decode_attention_kernel<HD>, lengths, out, part_o, part_lse, nullptr, nullptr, B, S,
+        KVH, G, split, combine, s, static_cast<const __nv_bfloat16*>(q),
         static_cast<const __nv_bfloat16*>(k_pool), static_cast<const __nv_bfloat16*>(v_pool),
         static_cast<const int*>(table), static_cast<const int*>(lengths),
         static_cast<__nv_bfloat16*>(out), static_cast<float*>(part_o),

@@ -10,6 +10,11 @@ cannot take raises.  ``grid_ctas``, ``vocab_ranges`` and ``batch_passes``
 are the kernel's split of the vocab and the batch, written out so that the
 CPU tests reach it (``ref.exit_confidence_split_ref`` runs the plain
 version over it).
+
+``exit_confidence_partial`` launches the same kernel for one vocab shard of
+a head split over devices: it also hands back each row's max logit m, with
+which the row's log-sum-exp is m - log(conf) (``ops.combine_exit_partials``
+combines the shards).
 """
 from __future__ import annotations
 
@@ -69,7 +74,7 @@ def _lib():
     lib = build.load("exit_confidence")
     fn = lib.exit_confidence_bf16
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -78,6 +83,19 @@ def exit_confidence(h: torch.Tensor, w: torch.Tensor) -> tuple[torch.Tensor, tor
     """h [B, d], w [d, V] -> (conf [B] f32, argmax [B] i32)."""
     if h.device.type == "cpu":
         return ref.exit_confidence_ref(h, w)
+    return _run(h, w, False)
+
+
+def exit_confidence_partial(h: torch.Tensor, w: torch.Tensor):
+    """h [B, d], w [d, V] -> (conf [B] f32, argmax [B] i32, max logit [B]
+    f32): ``exit_confidence`` and each row's max logit, from the same kernel
+    (its launches count in ``exit_confidence.launches``)."""
+    if h.device.type == "cpu":
+        return ref.exit_confidence_partial_ref(h, w)
+    return _run(h, w, True)
+
+
+def _run(h: torch.Tensor, w: torch.Tensor, with_max: bool):
     build.refuse_grad("exit_confidence", h, w)
     if h.device.type != "cuda" or w.device != h.device:
         raise ValueError(f"exit_confidence: h on {h.device}, w on {w.device}")
@@ -104,23 +122,26 @@ def exit_confidence(h: torch.Tensor, w: torch.Tensor) -> tuple[torch.Tensor, tor
         h = hp
     fn = _lib()
     n = grid_ctas(V, _ctas(h.device))
-    # the partials m, l, argmax [B, n] each, then conf and idx [B], in one
-    # allocation of 4-byte words (the serve is host-bound: one allocation,
-    # the partials by address)
-    buf = torch.empty(3 * B * n + 2 * B, dtype=torch.float32, device=h.device)
+    # the partials m, l, argmax [B, n] each, then conf, idx and (with_max)
+    # the max logit [B], in one allocation of 4-byte words (the serve is
+    # host-bound: one allocation, the partials by address)
+    buf = torch.empty(3 * B * n + (3 if with_max else 2) * B, dtype=torch.float32,
+                      device=h.device)
     conf = buf[3 * B * n: 3 * B * n + B]
-    idx = buf[3 * B * n + B:].view(torch.int32)
+    idx = buf[3 * B * n + B: 3 * B * n + 2 * B].view(torch.int32)
+    mx = buf[3 * B * n + 2 * B:] if with_max else None
     base, part_bytes = buf.data_ptr(), 4 * B * n
     stream = torch.cuda.current_stream(h.device).cuda_stream
     for r0, r1 in batch_passes(B):
         err = fn(
             h.data_ptr(), w.data_ptr(), base, base + part_bytes, base + 2 * part_bytes,
-            conf.data_ptr(), idx.data_ptr(), B, d, h.shape[1], V, r0, r1 - r0, n, stream,
+            conf.data_ptr(), idx.data_ptr(), None if mx is None else mx.data_ptr(), B, d,
+            h.shape[1], V, r0, r1 - r0, n, stream,
         )
         if err != 0:
             raise RuntimeError(f"exit_confidence kernel launch failed: cudaError {err}")
         exit_confidence.launches += 1
-    return conf, idx
+    return (conf, idx, mx) if with_max else (conf, idx)
 
 
 exit_confidence.launches = 0

@@ -61,6 +61,45 @@ def decode_attention_ref(
     return out.reshape(B, Hq, hd)
 
 
+def decode_attention_partial_ref(
+    q: torch.Tensor,  # [B, Hq, hd]
+    k: torch.Tensor,  # [B, S, kv, hd]
+    v: torch.Tensor,  # [B, S, kv, hd]
+    lengths: torch.Tensor,  # [B]
+    f32_scores: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The partial of ``kernels.decode_attention.decode_attention_partial``:
+    (o [B, Hq, hd] f32, lse [B, Hq] f32), o the output before its cast and
+    lse the log-sum-exp of the masked, scaled scores.  A row of length 0
+    gives (0, -inf), so that a sequence shard holding none of a row's keys
+    weighs nothing in the combine (``decode_attention_ref`` gives the mean
+    of V there).  By default the scores and probabilities are
+    ``decode_attention_ref``'s (the product of the bf16-cast probabilities
+    with V taken in f32); ``f32_scores`` takes
+    ``decode_attention_f32_scores_ref``'s f32 softmax instead."""
+    B, Hq, hd = q.shape
+    kvh = k.shape[2]
+    qg = q.reshape(B, kvh, Hq // kvh, hd)
+    if f32_scores:
+        scores = torch.einsum("bkgd,bskd->bkgs", qg.float(), k.float())
+    else:
+        scores = torch.einsum("bkgd,bskd->bkgs", qg, k).float()
+    scores = scores * float(1.0 / math.sqrt(hd))
+    valid = (torch.arange(k.shape[1], device=k.device)[None, :] < lengths[:, None])[:, None, None, :]
+    scores = torch.where(valid, scores, NEG_INF)
+    m = scores.amax(dim=-1, keepdim=True)
+    p = torch.where(valid, torch.exp(scores - m), 0.0)
+    l = p.sum(dim=-1, keepdim=True)
+    if f32_scores:
+        o = torch.einsum("bkgs,bskd->bkgd", p, v.float()) / torch.where(l > 0, l, 1.0)
+    else:
+        probs = torch.softmax(scores, dim=-1).to(v.dtype)
+        o = torch.einsum("bkgs,bskd->bkgd", probs.float(), v.float())
+    o = torch.where(l > 0, o, 0.0)
+    lse = torch.where(l > 0, m + torch.log(torch.where(l > 0, l, 1.0)), -math.inf)
+    return o.reshape(B, Hq, hd), lse.reshape(B, Hq)
+
+
 def paged_decode_attention_ref(
     q: torch.Tensor,  # [B, Hq, hd]
     k_pool: torch.Tensor,  # [NB, bs, kv, hd] physical block pool
@@ -129,6 +168,17 @@ def exit_confidence_ref(h: torch.Tensor, w: torch.Tensor) -> tuple[torch.Tensor,
     conf = 1.0 / l
     idx = torch.argmax(logits, dim=-1).to(torch.int32)
     return conf, idx
+
+
+def exit_confidence_partial_ref(h: torch.Tensor, w: torch.Tensor):
+    """``exit_confidence_ref`` and each row's max logit m [B] f32 (the row's
+    log-sum-exp is m - log(conf)): the partial of one vocab shard of a split
+    head, ``kernels.exit_confidence.exit_confidence_partial``'s contract."""
+    logits = torch.matmul(h.float(), w.to(h.dtype).float())
+    m = torch.max(logits, dim=-1).values
+    l = torch.sum(torch.exp(logits - m[:, None]), dim=-1)
+    idx = torch.argmax(logits, dim=-1).to(torch.int32)
+    return 1.0 / l, idx, m
 
 
 def exit_confidence_split_ref(h: torch.Tensor, w: torch.Tensor,

@@ -42,7 +42,7 @@ import torch
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import layers
 from repro_torch.models.layers import Params, apply_rope, einsum, is_dtensor, matmul
-from repro_torch.sharding import local_map
+from repro_torch.sharding import local_map, split_dims
 
 NEG_INF = -1e30
 
@@ -89,6 +89,8 @@ def _project_qkv(params: Params, x: torch.Tensor, dims: AttnDims):
 
 # ``sharding.local_map`` roles of q/k/v [B, S, heads, hd]
 _QKV = ("b", None, "h", None)
+# ... of a cache [B, S, kv, hd] whose sequence split stays (split-KV decode)
+_KV = ("b", "s", "h", None)
 
 
 def _masked_seq_write(buf: torch.Tensor, new: torch.Tensor, at: torch.Tensor) -> None:
@@ -115,12 +117,33 @@ def _attend_block(
 ) -> torch.Tensor:
     """Masked softmax attention for one q-chunk (grouped heads); a key is
     seen when causal, valid and, with a ``window``, within it.  Under a mesh
-    it runs on each device's rows and heads (``sharding.local_map``)."""
+    it runs on each device's rows and heads (``sharding.local_map``); keys
+    split along their sequence (a decode cache, a window ring with its
+    ``slot_pos``) stay split, each device attending to its own keys under
+    the softmax's global max and sum (``_attend_shard``)."""
     if is_dtensor(q):
+        dims = split_dims(k, 1)
+        if dims:
+            reduce = _shard_reduce(k.device_mesh, dims)
+
+            def shard(k_, v_, q_, qp, kp):  # the cache leads: its sequence split stays
+                return _attend_shard(q_, k_, v_, qp, kp, groups, window, reduce)
+
+            return local_map(shard, (k, v, q, q_pos, k_pos), (_KV, _KV, _QKV, (None,), ("s",)),
+                             (_QKV,))
         fn = lambda *a: _attend_block(*a, groups, window)  # noqa: E731
         return local_map(fn, (q, k, v, q_pos, k_pos), (_QKV, _QKV, _QKV, (None,), (None,)),
                          (_QKV,))
-    B, Cq, Hq, hd = q.shape
+    scores, mask = _scores(q, k, q_pos, k_pos, groups, window)
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum("bkgqs,bskd->bqkgd", probs, v)
+    return out.reshape(*q.shape[:3], v.shape[-1])
+
+
+def _scores(q, k, q_pos, k_pos, groups: int, window: int | None):
+    """The masked, scaled f32 scores [B, kv, g, Cq, Sk] and the mask [Cq,
+    Sk] of ``_attend_block``."""
+    B, Cq, _, hd = q.shape
     kvh = k.shape[2]
     qg = q.reshape(B, Cq, kvh, groups, hd)
     scale = 1.0 / math.sqrt(hd)
@@ -128,10 +151,48 @@ def _attend_block(
     mask = (q_pos[:, None] >= k_pos[None, :]) & (k_pos[None, :] >= 0)
     if window is not None:
         mask = mask & (k_pos[None, :] > q_pos[:, None] - window)
-    scores = torch.where(mask[None, None, None], scores, NEG_INF)
-    probs = torch.softmax(scores, dim=-1).to(v.dtype)
-    out = torch.einsum("bkgqs,bskd->bqkgd", probs, v)
-    return out.reshape(B, Cq, Hq, v.shape[-1])
+    return torch.where(mask[None, None, None], scores, NEG_INF), mask
+
+
+def _shard_reduce(mesh, dims: list[int]):
+    """``reduce(t, op)``: ``t`` all-reduced ("max" or "sum") over the
+    devices of the mesh dims ``dims`` (a sequence split over one or two of
+    them), by functional collectives (``CollectiveRecorder`` sees them)."""
+    from torch.distributed import _functional_collectives as funcol
+
+    groups = [mesh.get_group(i) for i in dims]
+
+    def reduce(t: torch.Tensor, op: str) -> torch.Tensor:
+        for group in groups:
+            t = funcol.wait_tensor(funcol.all_reduce(t, op, group))
+        return t
+
+    return reduce
+
+
+def _mix(probs: torch.Tensor, values: torch.Tensor, eq: str, reduce) -> torch.Tensor:
+    """This shard's share of ``einsum(eq, probs, values)``, summed over the
+    shards by ``reduce`` and rounded once to ``values``' dtype: on the CPU
+    the f32 products (the unsharded bf16 product's one rounding, as
+    ``layers.einsum``), elsewhere each shard's bf16 product."""
+    if values.device.type == "cpu":
+        part = torch.einsum(eq, probs.float(), values.float())
+    else:
+        part = torch.einsum(eq, probs, values).float()
+    return reduce(part, "sum").to(values.dtype)
+
+
+def _attend_shard(q, k, v, q_pos, k_pos, groups: int, window: int | None, reduce):
+    """``_attend_block`` on one shard of a sequence-split cache, the
+    reference's distributed flash-decode: the scores' max and sum-exp are
+    all-reduced over the shards, so each device's probabilities are the
+    unsharded softmax's, cast to ``v``'s dtype as there; its P V partial
+    sums are then all-reduced.  Three all-reduces, [B, kv, g, Cq] twice and
+    [B, Cq, Hq, hd] f32."""
+    scores, _ = _scores(q, k, q_pos, k_pos, groups, window)
+    e = torch.exp(scores - reduce(scores.amax(dim=-1, keepdim=True), "max"))
+    probs = (e / reduce(e.sum(dim=-1, keepdim=True), "sum")).to(v.dtype)
+    return _mix(probs, v, "bkgqs,bskd->bqkgd", reduce).reshape(*q.shape[:3], v.shape[-1])
 
 
 def chunked_attention(
@@ -522,22 +583,47 @@ def _mla_absorbed_attend(
 ) -> torch.Tensor:
     """Absorbed-latent attention shared by the scalar, ragged and paged
     decodes: the query absorbs ``W_uk``, scores and mixes in latent space
-    (O(S * (lora + rope_dim)) per head), and ``W_uv`` maps the mix out."""
+    (O(S * (lora + rope_dim)) per head), and ``W_uv`` maps the mix out.
+    Under a mesh a latent cache split along its sequence stays split: each
+    device mixes its own positions under the softmax's global max and sum,
+    as ``_attend_shard`` does."""
     B, S_cache = c_kv.shape[0], c_kv.shape[1]
     H = dims.num_heads
     bf16 = torch.bfloat16
     w_uk = params["w_uk"].reshape(dims.kv_lora_rank, H, dims.qk_nope_head_dim)
     q_lat = einsum("bhd,rhd->bhr", q_nope[:, 0].to(bf16), w_uk.to(bf16))
-    scores = einsum("bhr,bsr->bhs", q_lat, c_kv).float()
-    scores = scores + torch.einsum("bhd,bsd->bhs", q_pe[:, 0].float(), k_pe.float())
-    scores = scores / math.sqrt(dims.qk_head_dim)
-    valid = torch.arange(S_cache, device=c_kv.device)[None, :] <= pos[:, None]  # [B, S]
-    scores = torch.where(valid[:, None, :], scores, NEG_INF)
-    probs = torch.softmax(scores, dim=-1).to(c_kv.dtype)
-    out_lat = einsum("bhs,bsr->bhr", probs, c_kv)  # [B, H, lora]
+    split = split_dims(c_kv, 1)
+    if split:
+        reduce = _shard_reduce(c_kv.device_mesh, split)
+
+        def shard(c_, kp_, ql_, qpe_, pos_, keys_):
+            scores, _ = _mla_scores(ql_, qpe_, c_, kp_, keys_, pos_, dims)
+            e = torch.exp(scores - reduce(scores.amax(dim=-1, keepdim=True), "max"))
+            probs = (e / reduce(e.sum(dim=-1, keepdim=True), "sum")).to(c_.dtype)
+            return _mix(probs, c_, "bhs,bsr->bhr", reduce)
+
+        keys = torch.arange(S_cache, dtype=torch.int32, device=c_kv.to_local().device)
+        out_lat = local_map(shard, (c_kv, k_pe, q_lat, q_pe[:, 0], pos, keys),
+                            (("b", "s", None), ("b", "s", None), ("b", "h", None),
+                             ("b", "h", None), ("b",), ("s",)), (("b", "h", None),))
+    else:
+        keys = torch.arange(S_cache, device=c_kv.device)
+        scores, _ = _mla_scores(q_lat, q_pe[:, 0], c_kv, k_pe, keys, pos, dims)
+        probs = torch.softmax(scores, dim=-1).to(c_kv.dtype)
+        out_lat = einsum("bhs,bsr->bhr", probs, c_kv)  # [B, H, lora]
     w_uv = params["w_uv"].reshape(dims.kv_lora_rank, H, dims.v_head_dim)
     out = einsum("bhr,rhd->bhd", out_lat, w_uv.to(out_lat.dtype))
     return matmul(out.reshape(B, 1, H * dims.v_head_dim), params["w_o"])
+
+
+def _mla_scores(q_lat, q_pe, c_kv, k_pe, keys, pos, dims: MlaDims):
+    """The absorbed scores [B, H, S] f32 of positions ``keys`` [S] (masked
+    past each row's ``pos``) and the validity [B, S]."""
+    scores = einsum("bhr,bsr->bhs", q_lat, c_kv).float()
+    scores = scores + torch.einsum("bhd,bsd->bhs", q_pe.float(), k_pe.float())
+    scores = scores / math.sqrt(dims.qk_head_dim)
+    valid = keys[None, :] <= pos[:, None]  # [B, S]
+    return torch.where(valid[:, None, :], scores, NEG_INF), valid
 
 
 def mla_decode_ragged(params: Params, x: torch.Tensor, cache: Params, dims: MlaDims):

@@ -16,7 +16,7 @@ from typing import Any
 
 import torch
 
-from repro_torch.sharding import is_dtensor
+from repro_torch.sharding import get_mesh, is_dtensor, split_dims
 
 Params = dict[str, Any]
 
@@ -30,18 +30,22 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     differently and would round a few elements the other way.  Under a
     mesh an activation split along its sequence is gathered first
     (``gather_inner``), as is an FSDP weight's contracted dim
-    (``gather_contraction``); on the CPU partial sums left by a split of the
-    contracted dim are added in f32 before that rounding.
+    (``gather_contraction``).  A row-parallel weight, its contracted dim
+    split over the tensor-parallel axis (``w_o``, ``w_down``), stays split
+    where that moves fewer bytes (``row_parallel``: decode's one-token rows),
+    and each device multiplies its split of ``x``'s last dim; the partial
+    sums are all-reduced (on the CPU added in f32 before the rounding).
     """
     if is_dtensor(x):
         x = gather_inner(x.to(torch.bfloat16))
-        return _GatherInnerGrad.apply(_matmul(x, gather_contraction(w.to(torch.bfloat16))))
+        x, w = row_parallel(x, gather_contraction(w.to(torch.bfloat16)))
+        return _GatherInnerGrad.apply(_matmul(x, w))
     return _matmul(x.to(torch.bfloat16), w.to(torch.bfloat16))
 
 
 def _matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if x.device.type != "cpu":  # the card, or the dry run's meta tensors
-        return torch.matmul(x, w)
+        return reduce_partial(torch.matmul(x, w))
     return reduce_partial(torch.matmul(_f32(x), _f32(w))).to(torch.bfloat16)
 
 
@@ -134,16 +138,52 @@ class _MergeLast(torch.autograd.Function):
 
 
 def gather_contraction(w: torch.Tensor) -> torch.Tensor:
-    """A DTensor weight gathered along its contracted (second to last) dim:
-    an FSDP-split weight is all-gathered at its use, so the activations keep
-    their batch split; anything else as it is."""
+    """A DTensor weight gathered along its contracted (second to last) dim
+    where a mesh dim other than the tensor-parallel axis splits it: an
+    FSDP-split weight is all-gathered at its use, so the activations keep
+    their batch split; a split over the tensor-parallel axis is left to
+    ``row_parallel``; anything else as it is."""
     if not is_dtensor(w):
         return w
+    from torch.distributed.tensor import Replicate
+
+    rules = get_mesh()
+    tp = "model" if rules is None else rules.tp_axis
+    gather = [i for i in split_dims(w, -2) if w.device_mesh.mesh_dim_names[i] != tp]
+    if not gather:
+        return w
+    return w.redistribute(w.device_mesh, [Replicate() if i in gather else p
+                                          for i, p in enumerate(w.placements)])
+
+
+def row_parallel(x: torch.Tensor, w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(x, w) laid out for ``x @ w`` where the tensor-parallel axis splits
+    ``w``'s contracted dim.  The product then either stays split, ``x``'s
+    last dim split alike (a local slice where it is replicated) and the
+    partial sums all-reduced, or gathers ``w`` along that dim, whichever
+    moves fewer bytes a device: the all-reduce of this device's output
+    (twice its bytes, in f32 on the CPU) against the weight gathered.
+    Decode's one-token rows keep it split; a prefill or training batch
+    gathers the weight, as before."""
+    dims = split_dims(w, -2)
+    if not dims:
+        return x, w
     from torch.distributed.tensor import Replicate, Shard
 
-    target = [Replicate() if isinstance(p, Shard) and p.dim == w.ndim - 2 else p
-              for p in w.placements]
-    return w if target == list(w.placements) else w.redistribute(w.device_mesh, target)
+    xl = x.to_local()
+    rows = xl.numel() // max(1, xl.shape[-1])
+    out_bytes = rows * w.shape[-1] * (4 if xl.device.type == "cpu" else 2)
+    w_bytes = w.to_local().numel() * math.prod(w.device_mesh.size(i) for i in dims) * 2
+    if 2 * out_bytes > w_bytes:
+        return x, w.redistribute(w.device_mesh, [Replicate() if i in dims else p
+                                                 for i, p in enumerate(w.placements)])
+    last = x.ndim - 1
+    target = [Shard(last) if i in dims else
+              (Replicate() if isinstance(p, Shard) and p.dim == last else p)
+              for i, p in enumerate(x.placements)]
+    if target != list(x.placements):
+        x = x.redistribute(x.device_mesh, target)
+    return x, w
 
 
 def reduce_partial(x: torch.Tensor) -> torch.Tensor:

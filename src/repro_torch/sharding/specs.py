@@ -267,26 +267,35 @@ def local_map(fn, args: tuple, roles: tuple, out_roles: tuple):
     tensors, the latter taken as replicated) and wrap its outputs.
 
     ``roles[i]`` names each dim of ``args[i]``: "b" (batch rows), "h"
-    (heads), "s" (sequence), "c" (channels) or None.  The first DTensor argument's layout
-    decides: a mesh dim that shards one of its dims with a role stays
+    (heads), "s" (sequence), "c" (channels), "v" (vocab) or None.  Per
+    mesh dim, the DTensor arguments are read in order and the first that
+    shards one of its dims with a role there decides: that mesh dim stays
     sharded, and every argument with that role is laid out sharded alike
-    along it (if each such dim divides); any other mesh dim is gathered.
+    along it (if each such dim divides); a mesh dim no argument shards by a
+    role is gathered.  So the first DTensor argument's layout comes first
+    (lead with the argument whose split must stay, a sharded cache's
+    sequence, say), and a later one's role fills a mesh dim the first
+    leaves unsplit (a vocab-split head beside batch-split rows).
     ``out_roles`` names the outputs' dims.
     """
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard, distribute_tensor
 
-    lead, lead_roles = next((a, r) for a, r in zip(args, roles) if isinstance(a, DTensor))
-    mesh = lead.device_mesh
+    dts = [(a, r) for a, r in zip(args, roles) if isinstance(a, DTensor)]
+    mesh = dts[0][0].device_mesh
     kept: list[str | None] = []
     split: dict[str, int] = {}
-    for i, p in enumerate(lead.placements):
-        role = lead_roles[p.dim] if isinstance(p, Shard) else None
-        if role is not None:
-            n = split.get(role, 1) * mesh.size(i)
-            if any(role in r and a.shape[r.index(role)] % n for a, r in zip(args, roles)):
-                role = None
-            else:
-                split[role] = n
+    for i in range(mesh.ndim):
+        role = None
+        for a, r in dts:
+            p = a.placements[i]
+            cand = r[p.dim] if isinstance(p, Shard) else None
+            if cand is None:
+                continue
+            n = split.get(cand, 1) * mesh.size(i)
+            if not any(cand in r_ and a_.shape[r_.index(cand)] % n for a_, r_ in zip(args, roles)):
+                role = cand
+                split[cand] = n
+                break
         kept.append(role)
 
     def layout(r):
@@ -342,6 +351,18 @@ def is_dtensor(x) -> bool:
     from torch.distributed.tensor import DTensor
 
     return isinstance(x, DTensor)
+
+
+def split_dims(x, dim: int) -> list[int]:
+    """The mesh dims (of more than one device) along which the DTensor ``x``
+    splits its dim ``dim``; [] for a plain tensor."""
+    if not is_dtensor(x):
+        return []
+    from torch.distributed.tensor import Shard
+
+    dim %= x.ndim
+    return [i for i, p in enumerate(x.placements)
+            if isinstance(p, Shard) and p.dim == dim and x.device_mesh.size(i) > 1]
 
 
 def mesh_scope(*trees: Any):

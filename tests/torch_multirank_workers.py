@@ -372,3 +372,123 @@ def _spec_of(t, mesh):
         if isinstance(p, Shard):
             parts[p.dim] = name
     return sharding.PartitionSpec(*parts)
+
+
+# ---------------------------------------------------------------------------
+# split-KV decode: caches laid out by ``cache_specs`` (sequence split)
+# ---------------------------------------------------------------------------
+
+# no single collective of a decode step over a split cache moves more: the
+# gathers of a whole layer's K or V (megabytes at full width) are gone
+RECORD_MAX_BYTES = 16 * 1024
+
+
+def _cache_split_dims(caches) -> set:
+    """The mesh dims that split a cache leaf along its sequence (``k``,
+    ``v``, ``c_kv``, ``k_pe``: the dim after the batch)."""
+    from torch.distributed.tensor import Shard
+
+    out = set()
+    flat = torch.utils._pytree.tree_flatten_with_path(caches)[0]
+    for path, leaf in flat:
+        name = getattr(path[-1], "key", None)
+        if name in ("k", "v", "c_kv", "k_pe"):
+            seq = leaf.ndim - (3 if name in ("c_kv", "k_pe") else 4) + 1
+            out |= {i for i, p in enumerate(leaf.placements)
+                    if isinstance(p, Shard) and p.dim == seq}
+    return out
+
+
+def split_decode(rank, world, store_path, shape, names, arch="stablelm-1.6b", B=4, S=16,
+                 max_len=32, n_dec=4, record=False):
+    """Prefill unsharded, then ``n_dec`` decode steps twice: unsharded, and
+    sharded (parameters by the ``as_serving`` specs, the batch by
+    ``batch_specs``, the prefill's caches laid out by ``cache_specs``, their
+    sequence split).  Tokens and exit stages equal, confidences at atol
+    1e-3.  With ``record``, the sharded steps run under
+    ``CollectiveRecorder`` and no record may exceed ``RECORD_MAX_BYTES``;
+    the kernel wrappers' split paths (``ops.decode_attention`` on a
+    sequence-split cache, ``ops.exit_confidence`` on a vocab-split head) are
+    also held to their unsharded calls."""
+    from repro_torch.roofline.collectives import CollectiveRecorder
+
+    mesh = _init(rank, world, store_path, shape, names)
+    try:
+        c = cfg(arch)
+        params = _params(c, master=False)
+        tokens = torch.from_numpy(
+            np.random.default_rng(2).integers(0, VOCAB, (B, S)).astype(np.int32))
+        prefill, decode = make_prefill_step(c, max_len), make_decode_step(c)
+        out = prefill(params, {"tokens": tokens}, torch.full((len(c.exit_stages),), 2.0))
+        srt = torch.sort(out["exit_conf"], dim=0).values
+        th = (srt[B // 2 - 1] + srt[B // 2]) / 2 if B > 1 else srt[0] * 1.0001
+        first = _as_col(out["token"])
+        caches0 = out["caches"]
+
+        def run(params, caches, place):
+            tok, trace = first, []
+            for _ in range(n_dec):
+                o = decode(params, place({"tokens": tok}), caches, th)
+                caches = o["caches"]
+                tok = _as_col(_full(o["token"]))
+                trace.append(o)
+            return trace
+
+        ref = run(params, tree_map(torch.clone, caches0), lambda b: b)
+        rules = sharding.set_mesh(mesh)
+        sparams = sharding.distribute_tree(
+            params, sharding.param_specs(params, rules.as_serving()), mesh)
+        scaches = sharding.distribute_tree(tree_map(torch.clone, caches0),
+                                           sharding.cache_specs(caches0), mesh)
+        assert _cache_split_dims(scaches), "no cache leaf is split along its sequence"
+        with CollectiveRecorder() as rec:
+            got = run(sparams, scaches,
+                      lambda b: sharding.distribute_tree(b, sharding.batch_specs(b), mesh))
+        for i, (r, g) in enumerate(zip(ref, got)):
+            assert torch.equal(_full(g["token"]), r["token"]), (i, rank)
+            assert torch.equal(_full(g["exit_stage"]), r["exit_stage"]), (i, rank)
+            np.testing.assert_allclose(_full(g["exit_conf"]).numpy(), r["exit_conf"].numpy(),
+                                       atol=CONF_ATOL, rtol=0)
+        if record:
+            biggest = max(nbytes for _, nbytes, _ in rec.records)
+            assert biggest <= RECORD_MAX_BYTES, (biggest, sorted(set(rec.records))[-5:])
+            _kernel_paths(mesh, c)
+    finally:
+        sharding.clear_mesh()
+        dist.destroy_process_group()
+
+
+def _as_col(tok):
+    return tok[:, None]
+
+
+def _kernel_paths(mesh, c):
+    """``ops.decode_attention`` on a sequence-split cache and
+    ``ops.exit_confidence`` on a vocab-split head against their unsharded
+    calls (the plain versions on the CPU; the kernels on the card)."""
+    from repro_torch.kernels import ops
+
+    g = torch.Generator().manual_seed(4)
+    B, S, H, hd = 4, 32, c.num_heads, c.head_dim
+    q = torch.randn((B, H, hd), generator=g).bfloat16()
+    k = torch.randn((B, S, c.num_kv_heads, hd), generator=g).bfloat16()
+    v = torch.randn((B, S, c.num_kv_heads, hd), generator=g).bfloat16()
+    ln = torch.tensor([32, 5, 17, 1], dtype=torch.int32)
+    P = sharding.PartitionSpec
+    batch = ("pod", "data") if "pod" in mesh.mesh_dim_names else "data"
+    sk = sharding.distribute(k, P(batch, "model", None, None), mesh)
+    sv = sharding.distribute(v, P(batch, "model", None, None), mesh)
+    got = ops.decode_attention(sharding.distribute(q, P(batch, None, None), mesh), sk, sv,
+                               sharding.distribute(ln, P(batch), mesh))
+    np.testing.assert_allclose(_full(got).float().numpy(),
+                               ops.decode_attention(q, k, v, ln).float().numpy(), atol=2e-2)
+    d, V = c.d_model, VOCAB
+    h = torch.randn((B, d), generator=g)
+    w = torch.randn((d, V), generator=g) / d**0.5
+    w[:, [3, 70, 100, 127]] += 6.0 * (h / h.norm(dim=1, keepdim=True) ** 2).T
+    h, w = h.bfloat16(), w.bfloat16()
+    conf, idx = ops.exit_confidence(sharding.distribute(h, P(batch, None), mesh),
+                                    sharding.distribute(w, P(None, "model"), mesh))
+    cr, ir = ops.exit_confidence(h, w)
+    np.testing.assert_allclose(_full(conf).numpy(), cr.numpy(), atol=CONF_ATOL)
+    assert torch.equal(_full(idx), ir) and ir.tolist() == [3, 70, 100, 127]

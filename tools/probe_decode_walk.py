@@ -123,7 +123,7 @@ def build_variants(tmp: Path) -> dict[str, ctypes.CDLL]:
             raise RuntimeError(f"nvcc failed on variant {name}:\n{log}")
         libs[name] = ctypes.CDLL(str(out))
         fn = libs[name].decode_attention_bf16
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return libs
 
@@ -149,7 +149,8 @@ def main() -> None:
                 err = lib.decode_attention_bf16(
                     q.data_ptr(), k.data_ptr(), v.data_ptr(), ln.data_ptr(), out.data_ptr(),
                     None if part_o is None else part_o.data_ptr(),
-                    None if part_lse is None else part_lse.data_ptr(), B, S, kvh, hq // kvh, hd,
+                    None if part_lse is None else part_lse.data_ptr(), None, None, B, S, kvh,
+                    hq // kvh, hd,
                     kdec.SPLIT_KEYS, 1, 1.0 / math.sqrt(hd), torch.cuda.current_stream().cuda_stream)
                 if err:
                     raise RuntimeError(f"launch failed: cudaError {err}")
