@@ -145,7 +145,17 @@ exits non-zero without the final result line:
      argmax without its block's offset); and the decode kernel at
      stablelm's serve lengths and on the 4096-key cache and the exit head at
      stablelm's head (B 8) with the new outputs, in turns with the
-     null-output calls, each within 3% of them;
+     null-output calls, each within 3% of them; then phi-3-vision-4.2b's LM
+     head cut into its 16 vocab blocks of 2004 columns (what a 16-wide
+     "model" axis gives each device: rows of 4008 bytes, which the exit
+     kernel copies in 8-byte cp.async pieces, ``exit_confidence.w_piece``)
+     and into blocks of 2003, 2002 and 28059 columns (2-, 4- and 2-byte
+     pieces), each
+     block's partial against the plain version, each split's combine
+     against the unsplit kernel (conf atol 1e-3 and rtol 1e-4, the argmax
+     exact, row 0's top at a block's last column), a block read without its
+     last column rejected; and one 2004-wide block timed at B 1, 8 and 32
+     in turns with its library yardstick;
   9. train  — full-width stablelm-1.6b trained for 6 steps through
      ``training.make_train_step`` (f32 masters, B 8 x S 512, AdamW;
      ``train_phase``): finite losses and gradients, a nonzero gradient in
@@ -179,8 +189,12 @@ exits non-zero without the final result line:
      decode (``DAGGER_PEAKS``: nine archs' decode_32k, zamba2's and
      mixtral's long_500k) measured through the dry run's CLI (three cells
      at a time, started with phase 8): none bound by its collectives,
-     none's peak above its earlier reading, and stablelm decode_32k's
-     collective term under 5 ms.
+     none's peak above its earlier reading, stablelm decode_32k's
+     collective term under 5 ms and phi-3-vision-4.2b's under 0.1 ms (its
+     vocab-split head no longer gathered) with a peak of at most 7.5 GB; and
+     xlstm-350m's train_4k and prefill_32k on pod16x16 through the CLI
+     (started with phase 9, both at once, 240 s each), which the counted
+     sLSTM scan lets finish.
   11. examples — ``examples/torch_quickstart.py`` (60 train steps) and
      ``examples/torch_failover_elastic.py`` on the card, each in a process
      of its own (the two at once), each ending in its closing line.
@@ -431,7 +445,7 @@ def ptxas_lines(log: str):
         m = re.search(r"entry function '(\w+)'", line)
         if m:
             raw = m.group(1)
-            args = ",".join(re.findall(r"Li(\d+)E", raw))
+            args = ",".join(re.findall(r"L[ib](\d+)E", raw))
             name, spill = f"{kernel_name(raw)}<{args}>", ""
         elif "spill" in line:
             spill = line.strip()
@@ -2559,15 +2573,19 @@ def main() -> None:
     split_phase(dev, dec_lengths, max_len, flush)
 
     del heads
-    dryrun_proc = start_dryrun()  # phase 10 (d): CPU only, beside phase 9 and 10 on the card
+    # phase 10 (d)'s dry runs: CPU only, beside phases 9 and 10 on the card
+    # (xlstm's two cells after the timed phases, whose profiles their load
+    # would share the host with)
+    dryrun_proc, xlstm_proc = start_dryrun(), start_xlstm_sweep()
     try:
         train_phase(dev, read_counts, zero_counts)
-        multidevice_phase(dev, read_counts, zero_counts, dryrun_proc, dagger_proc)
+        multidevice_phase(dev, read_counts, zero_counts, dryrun_proc, dagger_proc, xlstm_proc)
     finally:
         if dryrun_proc.poll() is None:
             dryrun_proc.kill()
             dryrun_proc.wait()
         stop_group(dagger_proc)
+        stop_group(xlstm_proc)
     examples_phase()
 
     print(f"nvidia-smi: {nvidia_smi()}")
@@ -2591,6 +2609,10 @@ VOCAB_SHARDS = (2, 4, 16)
 SPLIT_LENGTHS = [0, 100, 511, 512, 1500, 3000, 4095, 4096]
 # rows 1 and 2 with the new outputs against the null-output calls, in turns
 SPLIT_TIME_TOL = 0.03
+# phi-3-vision-4.2b's LM head over a 16-wide "model" axis: 2004 columns a
+# device; and a split into blocks of odd and 2-mod-4 widths (the rest odd)
+PHI_VOCAB_SHARDS = 16
+PHI_ODD_BLOCKS = (2003, 2002)
 
 
 def split_phase(dev, dec_lengths: list[int], max_len: int, flush: "L2Flush") -> dict:
@@ -2739,6 +2761,117 @@ def split_phase(dev, dec_lengths: list[int], max_len: int, flush: "L2Flush") -> 
         check(f"{name}: the new outputs within {SPLIT_TIME_TOL:.0%} of the null-output calls",
               abs(t_new / t_null - 1) <= SPLIT_TIME_TOL, f"{t_new / t_null - 1:+.2%}")
     del q, k, v, ql, kl, vl, h, w
+    out["phi3 shard"] = unaligned_head_gates(dev, g, flush)
+    return out
+
+
+def unaligned_head_gates(dev, g, flush: "L2Flush") -> dict:
+    """Phase 8b's vocab blocks whose rows are no whole number of 16-byte
+    units (see the module docstring): phi-3-vision-4.2b's head in its 16
+    blocks of 2004 columns and in blocks of odd and 2-mod-4 widths, and one
+    2004-wide block timed.  Returns the timings."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import exit_confidence as kexit
+    from repro_torch.kernels import ops, ref
+    from repro_torch.roofline.constants import HBM_BW, PEAK_FLOPS_BF16
+
+    cfg = get_config("phi-3-vision-4.2b")
+    d, V = cfg.d_model, cfg.vocab_size
+    width = V // PHI_VOCAB_SHARDS
+    h = torch.randn((BATCH, d), generator=g, device=dev)
+    w = torch.randn((d, V), generator=g, device=dev) / math.sqrt(d)
+    # row 0's top: the last column of block 5; row 1's: the last block's
+    # first; the other rows' at random columns
+    edge = [6 * width - 1, (PHI_VOCAB_SHARDS - 1) * width]
+    rest = [c for c in torch.randperm(V, generator=g, device=dev)[:BATCH].tolist()
+            if c not in edge]
+    tgt = torch.tensor(edge + rest[:BATCH - 2], device=dev)
+    w[:, tgt] += 8.0 * (h / h.norm(dim=1, keepdim=True) ** 2).T
+    h, w = h.bfloat16(), w.bfloat16()
+    c0, i0 = kexit.exit_confidence(h, w)  # the unsplit head (V % 8 == 0: TMA)
+    edges = [0, *np.cumsum(PHI_ODD_BLOCKS).tolist(), V]
+    splits = {f"{PHI_VOCAB_SHARDS} blocks of {width} columns":
+              [(j * width, (j + 1) * width) for j in range(PHI_VOCAB_SHARDS)],
+              "blocks of " + ", ".join(str(b - a) for a, b in zip(edges, edges[1:]))
+              + " columns": list(zip(edges, edges[1:]))}
+    n0 = kexit.exit_confidence.launches
+    for label, bounds in splits.items():
+        parts, errs, pieces = [], [], set()
+        for lo, hi in bounds:
+            wc = w[:, lo:hi].contiguous()
+            pieces.add(kexit.w_piece(hi - lo, wc.data_ptr()))
+            cc, ic, mc = kexit.exit_confidence_partial(h, wc)
+            cr, ir, mr = ref.exit_confidence_partial_ref(h, wc)
+            ok, err, rel = conf_close(cc, cr)
+            errs.append((ok and torch.equal(ic, ir), err, rel, float((mc - mr).abs().max())))
+            parts.append((cc, ic + lo, mc))
+        conf, idx = ops.combine_exit_partials(*(torch.stack([p[j] for p in parts])
+                                                for j in range(3)))
+        ok_c, err_c, rel_c = conf_close(conf, c0)
+        ok_b = all(e[0] and e[3] <= 1e-3 for e in errs)
+        check(f"phi-3-vision head, {label}: each block's partial by the cp.async path against "
+              f"the plain version", ok_b and max(pieces) < 16,
+              f"w pieces {sorted(pieces)} bytes; conf max|err| {max(e[1] for e in errs):.3g} "
+              f"(atol 1e-3), rel {max(e[2] for e in errs):.3g} (rtol 1e-4); argmax equal in "
+              f"{sum(e[0] for e in errs)} of {len(errs)} blocks; max logit max|diff| "
+              f"{max(e[3] for e in errs):.3g} (tol 1e-3)")
+        check(f"phi-3-vision head, {label}: combined against the unsplit kernel",
+              ok_c and torch.equal(idx, i0) and idx[:2].tolist() == tgt[:2].tolist(),
+              f"conf max|err| {err_c:.3g} (atol 1e-3), rel {rel_c:.3g} (rtol 1e-4); argmax equal "
+              f"{torch.equal(idx, i0)}; rows 0 and 1 at {idx[:2].tolist()} (tops "
+              f"{tgt[:2].tolist()})")
+    # the planted fault: block 5 read without its last column (row 0's top)
+    bounds = splits[f"{PHI_VOCAB_SHARDS} blocks of {width} columns"]
+    parts = []
+    for j, (lo, hi) in enumerate(bounds):
+        cc, ic, mc = kexit.exit_confidence_partial(h, w[:, lo:hi - (j == 5)].contiguous())
+        parts.append((cc, ic + lo, mc))
+    conf_f, idx_f = ops.combine_exit_partials(*(torch.stack([p[j] for p in parts])
+                                                for j in range(3)))
+    ok_f, err_f, rel_f = conf_close(conf_f, c0)
+    check("phi-3-vision head gate rejects a block read without its last column",
+          not (ok_f and torch.equal(idx_f, i0)),
+          f"conf max|err| {err_f:.3g}, rel {rel_f:.3g}; {int((idx_f != i0).sum())} of {BATCH} "
+          f"argmaxes differ")
+    print(f"  the unaligned blocks' gates launched the exit kernel "
+          f"{kexit.exit_confidence.launches - n0} times", flush=True)
+
+    # one 2004-wide block: the kernel (its partial, as a device of the split
+    # head runs it) in turns with its library yardstick, at B 1, 8 and 32
+    ws = w[:, :width].contiguous()
+    out, smi = {}, nvidia_smi()
+    for B in (1, BATCH, 32):
+        hb = torch.randn((B, d), generator=g, device=dev).bfloat16()
+
+        def library():
+            logits = torch.matmul(hb, ws).float()
+            return logits.max(-1).values, torch.logsumexp(logits, -1), logits.argmax(-1)
+
+        def kernel():
+            return kexit.exit_confidence_partial(hb, ws)
+
+        ms = {"kernel": [], "library": []}
+        for _ in range(2):
+            for tag, fn in (("kernel", kernel), ("library", library), ("library", library),
+                            ("kernel", kernel)):
+                ms[tag].append(time_cold(fn, 50, flush))
+        t_k, t_l = (float(np.median(ms[t])) for t in ("kernel", "library"))
+        t_p = time_cold(lambda: ref.exit_confidence_partial_ref(hb, ws), 10, flush) \
+            if B == BATCH else None
+        bytes_ = d * width * 2 + B * d * 2 + B * 12  # w, h; conf, argmax, max logit
+        b_bytes, b_ops = bytes_ / HBM_BW * 1e3, 2 * B * d * width / PEAK_FLOPS_BF16 * 1e3
+        bound = max(b_bytes, b_ops)
+        out[B] = {"ms": t_k, "plain_ms": t_p, "library_ms": t_l, "bound_ms": bound,
+                  "bound_by": "bytes" if b_bytes >= b_ops else "operations"}
+        plain = f", plain {t_p:.4f} ms" if t_p is not None else ""
+        print(f"exit_confidence_partial B={B} d={d} V={width} (w pieces of "
+              f"{kexit.w_piece(width, ws.data_ptr())} bytes) on {smi}: kernel {t_k:.5f} ms at "
+              f"{bound / t_k:.1%} of the bound, library {t_l:.5f} ms{plain}, bound {bound:.5f} ms "
+              f"({out[B]['bound_by']}: {bytes_ / 1e6:.2f} MB); in turns: " + "; ".join(
+                  f"{t} {' '.join(f'{x:.5f}' for x in xs)}" for t, xs in ms.items()), flush=True)
+        check(f"the 2004-wide block timed at B {B}", math.isfinite(t_k) and t_k > 0,
+              f"{t_k:.5f} ms")
+    del h, w, ws
     return out
 
 
@@ -3038,8 +3171,16 @@ DAGGER_PEAKS = {
     ("zamba2-2.7b", "long_500k"): 1.1, ("mixtral-8x7b", "long_500k"): 6.6,
 }
 DAGGER_DIR = "experiments/dryrun_torch/dagger"
-# stablelm-1.6b decode_32k's collective term on pod16x16 must fall under this
-DAGGER_COLL_MS = 5.0
+# cells whose collective term on pod16x16 must fall under this many ms:
+# stablelm-1.6b's decode (split-KV), phi-3-vision-4.2b's (its vocab-split
+# head kept split: 2004 columns a device), and the peak GB phi-3's may not
+# exceed (its reading with the head gathered)
+DAGGER_COLL_MS = {("stablelm-1.6b", "decode_32k"): 5.0, ("phi-3-vision-4.2b", "decode_32k"): 0.1}
+DAGGER_PEAK_CAP = {("phi-3-vision-4.2b", "decode_32k"): 7.5}
+# xlstm-350m's cells that ran past 240 s before the counted sLSTM scan
+XLSTM_CELLS = ("train_4k", "prefill_32k")
+XLSTM_LIMIT_S = 240
+XLSTM_DIR = "experiments/dryrun_torch/xlstm"
 
 
 def start_dagger_sweep() -> subprocess.Popen:
@@ -3063,6 +3204,45 @@ def start_dagger_sweep() -> subprocess.Popen:
 
     atexit.register(stop_group, proc)
     return proc
+
+
+def start_xlstm_sweep() -> subprocess.Popen:
+    """xlstm-350m's train_4k and prefill_32k on pod16x16 through the dry
+    run's CLI (both at once, ``XLSTM_LIMIT_S`` each, on the host's CPU):
+    started with phase 9, read in 10 (d)."""
+    import atexit
+    import os
+
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"), CUDA_VISIBLE_DEVICES="",
+               REPRO_DRYRUN_DIR=str(root / XLSTM_DIR))
+    proc = subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                             "xlstm-350m", "--shape", ",".join(XLSTM_CELLS), "--jobs", "2",
+                             "--limit", str(XLSTM_LIMIT_S)], stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, env=env, cwd=str(root),
+                            start_new_session=True)
+    atexit.register(stop_group, proc)
+    return proc
+
+
+def read_xlstm_sweep(proc: subprocess.Popen) -> None:
+    """Phase 10 (d), xlstm's cells: both finished within their limit, with
+    a roofline row."""
+    t0 = time.perf_counter()
+    stdout, stderr = proc.communicate(timeout=XLSTM_LIMIT_S + 60)
+    check("multi-device (d): xlstm-350m's train_4k and prefill_32k finished on pod16x16",
+          proc.returncode == 0, f"rc {proc.returncode}; waited {time.perf_counter() - t0:.1f} s; "
+          + (stdout[-1500:] + stderr[-1500:]).replace("\n", " | "))
+    root = Path(__file__).resolve().parent / XLSTM_DIR
+    for shape in XLSTM_CELLS:
+        row = json.loads((root / f"xlstm-350m__{shape}__pod16x16.json").read_text())
+        print(f"  xlstm {row['cell']}: counted in {row['run_s']} s; peak "
+              f"{row['memory']['peak_gb_per_device']:.3f} GB a device, compute / memory / "
+              f"collective {row['compute_ms']:.4g} / {row['memory_ms']:.4g} / "
+              f"{row['collective_ms']:.4g} ms, dominant {row['dominant']}; collectives "
+              f"{row['collective_counts']} (predictions on meta tensors)", flush=True)
+        check(f"multi-device (d): xlstm-350m {shape} measured", row["gate"] == "ok"
+              and row["hlo_gflops"] > 0 and row["run_s"] < XLSTM_LIMIT_S, row["cell"])
 
 
 def stop_group(proc: subprocess.Popen) -> None:
@@ -3093,13 +3273,14 @@ def read_dagger_sweep(proc: subprocess.Popen) -> None:
               f"{row['collective_ms']:.4g} ms, dominant {row['dominant']}, roofline fraction "
               f"{row['roofline_fraction']:.3g}; collectives {row['collective_counts']}", flush=True)
         ok = row["dominant"] != "collective" and peak <= old + 0.05
-        if (arch, shape) == ("stablelm-1.6b", "decode_32k"):
-            ok = ok and row["collective_ms"] < DAGGER_COLL_MS
+        ok = ok and row["collective_ms"] < DAGGER_COLL_MS.get((arch, shape), math.inf)
+        ok = ok and peak <= DAGGER_PEAK_CAP.get((arch, shape), math.inf)
         check(f"multi-device (d): † {arch} {shape} re-read", ok,
               f"dominant {row['dominant']}, peak {peak:.3f} GB, collective {row['collective_ms']:.4g} ms")
 
 
-def multidevice_phase(dev, read_counts, zero_counts, dryrun_proc, dagger_proc=None) -> None:
+def multidevice_phase(dev, read_counts, zero_counts, dryrun_proc, dagger_proc=None,
+                      xlstm_proc=None) -> None:
     """Phase 10: the port's multi-device path on one card (see the module
     docstring, item 10).  Every step runs in this process on the card; a
     failure fails the script."""
@@ -3354,6 +3535,8 @@ def multidevice_phase(dev, read_counts, zero_counts, dryrun_proc, dagger_proc=No
           gap <= MD_PEAK_TOL, f"{gap:.1%}")
     if dagger_proc is not None:
         read_dagger_sweep(dagger_proc)
+    if xlstm_proc is not None:
+        read_xlstm_sweep(xlstm_proc)
 
 
 if __name__ == "__main__":

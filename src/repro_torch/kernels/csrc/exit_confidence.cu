@@ -67,6 +67,26 @@
 //     per row (a contiguous run per lane, then a butterfly in which the
 //     lower lane is always the left operand).  An empty range's partial is
 //     (m = -1e30, l = 0, idx 0), which changes nothing.
+//   * A vocab whose rows are not whole 16-byte units (V % 8 != 0, as a
+//     vocab shard of a split head may be: phi-3-vision-4.2b's 32064 over 16
+//     devices is 2004 columns, 4008-byte rows) or a w not 16-byte aligned:
+//     TMA cannot take such a map, so the producer warp's 32 lanes copy w
+//     with cp.async in the widest piece the rows allow (8 bytes when V % 4
+//     == 0, 4 when V is even; an odd V is read 2 bytes at a time through
+//     registers: cp.async copies no fewer than 4) into the same 128-byte
+//     swizzled boxes TMA writes, zeros past V and past d, one cp.async
+//     group a stage (`exit_tile_kernel<N, false>`); h still comes by TMA.
+//     Each lane signals a stage's mbarrier STAGES / 2 stages later, after
+//     waiting for its group and fencing the async proxy (wgmma reads what
+//     the generic proxy wrote).  Slower than TMA: on a [3072, 2004] shard
+//     (32 CTAs busy) 0.0475 ms at B 8 on an H100 (700 W), where TMA reads
+//     an aligned [3072, 2000] in 0.0217 (tools/ab_exit_head.py --shapes
+//     3072x2004 3072x2000).  A map's row stride must be a multiple of 16
+//     bytes; a map over two rows at a time (8016-byte strides, the second
+//     row's boxes 8 bytes off a 16-byte boundary) stopped the kernel with
+//     an illegal instruction on the card.  Everything else (the split, the
+//     epilogue's masking past the range, the combine) is the aligned
+//     path's; that path's code is unchanged.
 //
 // Host side: the map of w is encoded once per (pointer, d, V) and kept (the
 // LM head is one fixed allocation); the map of h per call; the
@@ -115,6 +135,70 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
       " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
       : "memory");
+}
+
+// `P` bytes from global memory into shared memory, zeros past the first
+// `src_bytes` (cp.async copies 4, 8 or 16 bytes)
+template <int P>
+__device__ __forceinline__ void cp_async(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(dst), "l"(src), "n"(P),
+               "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// until at most `N` of this thread's cp.async groups are pending
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// orders this thread's generic-proxy shared-memory accesses before its
+// later async-proxy ones (wgmma reads its operands through the async proxy)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// A stage's w boxes without TMA: boxes [0, nbox) of the tile at column t0,
+// k rows [k0, k0 + 64), written as TMA writes them (128-byte rows, the
+// 16-byte unit u of row r at unit u ^ (r % 8)), zeros past V and past d.
+// Lane l copies the pieces of P bytes at a fixed place in the rows it
+// takes (neighbouring lanes on neighbouring pieces), walking down the rows;
+// P 2 goes through registers (cp.async copies 4 bytes or more).
+template <int P>
+__device__ __forceinline__ void copy_w_stage(uint32_t dst, const uint8_t* w, int V, int d,
+                                             int t0, int nbox, int k0, int lane) {
+  constexpr int PER_ROW = BOX * 2 / P;               // pieces of a 128-byte box row
+  constexpr int LANES = PER_ROW < 32 ? PER_ROW : 32;  // lanes across a row
+  constexpr int STEP = 32 / LANES;                   // rows a pass of the warp takes
+  const size_t ld = (size_t)V * 2;
+  const int rows = min(BOX, d - k0);
+  for (int b = 0; b < nbox; ++b) {
+#pragma unroll
+    for (int q = 0; q < PER_ROW / LANES; ++q) {
+      const int byte = (lane % LANES + LANES * q) * P;
+      const int col = t0 + b * BOX + byte / 2;
+      const int n_col = 2 * max(0, min(P / 2, V - col));  // bytes of the piece inside V
+      const uint32_t to0 = dst + b * BOX_BYTES + (byte & 15);
+      const int unit = byte >> 4;
+      int r = lane / LANES;
+      const uint8_t* src = w + (size_t)(k0 + r) * ld + (size_t)col * 2;
+#pragma unroll 8
+      for (; r < BOX; r += STEP, src += STEP * ld) {
+        const int n = r < rows ? n_col : 0;
+        const uint32_t to = to0 + r * 128 + ((unit ^ (r & 7)) << 4);
+        if constexpr (P == 2) {
+          const unsigned short v = n > 0 ? __ldg(reinterpret_cast<const unsigned short*>(src)) : 0;
+          asm volatile("st.shared.u16 [%0], %1;\n" ::"r"(to), "h"(v) : "memory");
+        } else {
+          cp_async<P>(to, n > 0 ? src : w, n);
+        }
+      }
+    }
+  }
 }
 
 // D[64 x N] (+)= A[64 x 16] . B[16 x N]; A from shared memory MN-major (the
@@ -195,15 +279,17 @@ __device__ __forceinline__ void combine(float& m, float& l, int& ix, float om, f
 // Fragment layout of a warp's 16 rows of a wgmma f32 accumulator (lane =
 // 4 * quad + qi): d[4 j + e] is row quad (e < 2) or quad + 8 (e >= 2) of the
 // warp's rows, column 8 j + 2 qi + (e & 1).  Here a row is a vocab column
-// and a column a batch row.
-template <int N>
+// and a column a batch row.  TMA_W: w by TMA through `w_map`; otherwise w
+// by the producer warp's copies from `w` in pieces of `piece` bytes (8, 4
+// or 2).
+template <int N, bool TMA_W>
 __global__ void __launch_bounds__(THREADS, 1)
 exit_tile_kernel(const __grid_constant__ CUtensorMap w_map,  // w [d, V] as {V, d}
                  const __grid_constant__ CUtensorMap h_map,  // h [B, ldh] as {ldh, B}
                  float* __restrict__ part_m,                 // [B, gridDim.x]
                  float* __restrict__ part_l,                 // [B, gridDim.x]
                  int* __restrict__ part_i,                   // [B, gridDim.x]
-                 int B, int d, int V, int row0) {
+                 int B, int d, int V, int row0, const uint8_t* __restrict__ w, int piece) {
   using R = Ring<N>;
   constexpr int STAGES = R::STAGES;
   constexpr int NC = N / 4;  // batch columns per thread: 8 j + 2 qi + p at index 2 j + p
@@ -226,13 +312,54 @@ exit_tile_kernel(const __grid_constant__ CUtensorMap w_map,  // w [d, V] as {V, 
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
-      mbar_init(full(s), 1);
+      mbar_init(full(s), TMA_W ? 1 : 33);  // without TMA: + an arrival per producer lane
       mbar_init(empty(s), CONSUMER_WARPS);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
+  if constexpr (!TMA_W) {
+    if (threadIdx.x >= CONSUMER_THREADS) {
+      // producer without TMA for w: every lane copies its pieces of each
+      // stage as one cp.async group, lane 0 also loads the h chunk by TMA.
+      // A stage is signalled LAG stages later, once this lane's group for it
+      // is complete and fenced to the async proxy (the writer's fence, so
+      // the consumers' wgmma reads what the copies wrote).  Half the ring:
+      // at STAGES - 1 the producer's next slot was always the stage it had
+      // just signalled, so it waited on the consumers at every stage (0.0614
+      // against 0.0475 ms on a [3072, 2004] shard at B 8 on an H100, 700 W:
+      // tools/ab_exit_head.py --shapes 3072x2004 --variants lag-full)
+      constexpr int LAG = STAGES / 2;
+      const int lane = threadIdx.x - CONSUMER_THREADS;
+      if (lane == 0) prefetch_map(&h_map);
+      int it = 0;
+      for (int t0 = lo; t0 < hi; t0 += TILE_V) {
+        const int nbox = min(TILE_BOXES, (hi - t0 + BOX - 1) / BOX);
+        for (int kc = 0; kc < n_k; ++kc, ++it) {
+          const int s = it % STAGES;
+          mbar_wait(empty(s), ((it / STAGES) & 1) ^ 1);
+          if (lane == 0) {
+            mbar_expect_tx(full(s), R::H_BYTES);
+            tma_load_2d(h_s(s), &h_map, full(s), kc * BOX, row0);
+          }
+          if (piece == 8) copy_w_stage<8>(w_s(s), w, V, d, t0, nbox, kc * BOX, lane);
+          else if (piece == 4) copy_w_stage<4>(w_s(s), w, V, d, t0, nbox, kc * BOX, lane);
+          else copy_w_stage<2>(w_s(s), w, V, d, t0, nbox, kc * BOX, lane);
+          cp_async_commit();
+          if (it >= LAG) {
+            cp_async_wait<LAG>();
+            fence_proxy_async();
+            mbar_arrive(full((it - LAG) % STAGES));
+          }
+        }
+      }
+      cp_async_wait<0>();
+      fence_proxy_async();
+      for (int j = max(0, it - LAG); j < it; ++j) mbar_arrive(full(j % STAGES));
+      return;
+    }
+  }
   if (threadIdx.x >= CONSUMER_THREADS) {
     // producer: one thread issues every load, the ring running on across
     // tiles, so the next tile's chunks arrive during a tile's epilogue
@@ -417,6 +544,14 @@ __global__ void exit_combine_kernel(const float* __restrict__ part_m,
   }
 }
 
+// the bytes w's loads take at a time: 16 (TMA) where its rows are whole
+// 16-byte units from a 16-byte aligned base, else 8, 4 or 2 (0: refused)
+int w_piece(int V, uintptr_t w) {
+  for (int p = 16; p >= 2; p /= 2)
+    if ((2 * V) % p == 0 && w % p == 0) return p;
+  return 0;
+}
+
 // a 2-D map over bf16 [rows, cols] (cols contiguous, `ld` elements apart),
 // boxes of `box_rows` x 64 columns in the 128-byte swizzle, zeros outside
 bool encode_2d(CUtensorMap* map, const void* ptr, int rows, int cols, int ld, int box_rows,
@@ -455,22 +590,38 @@ const CUtensorMap* w_map_for(const void* w, int d, int V) {
   return &e.map;
 }
 
-template <int N>
-cudaError_t launch_pass(const CUtensorMap& w_map, const void* h, int ldh, float* part_m,
-                        float* part_l, int* part_i, int B, int d, int V, int row0, int n_ctas,
-                        cudaStream_t s) {
-  static bool smem_set = false;
-  if (!smem_set) {
+// the shared-memory attribute of one instantiation, set at its first launch
+template <int N, bool TMA_W>
+cudaError_t set_smem() {
+  static bool done = false;
+  if (!done) {
     const cudaError_t err = cudaFuncSetAttribute(
-        exit_tile_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize, Ring<N>::BYTES);
+        exit_tile_kernel<N, TMA_W>, cudaFuncAttributeMaxDynamicSharedMemorySize, Ring<N>::BYTES);
     if (err != cudaSuccess) return err;
-    smem_set = true;
+    done = true;
   }
+  return cudaSuccess;
+}
+
+// w_map null: w without TMA, in pieces of `piece` bytes
+template <int N>
+cudaError_t launch_pass(const CUtensorMap* w_map, const void* w, int piece, const void* h,
+                        int ldh, float* part_m, float* part_l, int* part_i, int B, int d, int V,
+                        int row0, int n_ctas, cudaStream_t s) {
+  const cudaError_t err = w_map != nullptr ? set_smem<N, true>() : set_smem<N, false>();
+  if (err != cudaSuccess) return err;
   CUtensorMap h_map;
   if (!encode_2d(&h_map, h, B, ldh, ldh, N, CU_TENSOR_MAP_L2_PROMOTION_L2_128B))
     return cudaErrorInvalidValue;
-  exit_tile_kernel<N><<<n_ctas, THREADS, Ring<N>::BYTES, s>>>(w_map, h_map, part_m, part_l,
-                                                              part_i, B, d, V, row0);
+  const uint8_t* wb = static_cast<const uint8_t*>(w);
+  if (w_map != nullptr) {
+    exit_tile_kernel<N, true><<<n_ctas, THREADS, Ring<N>::BYTES, s>>>(
+        *w_map, h_map, part_m, part_l, part_i, B, d, V, row0, wb, 16);
+  } else {
+    CUtensorMap unused{};
+    exit_tile_kernel<N, false><<<n_ctas, THREADS, Ring<N>::BYTES, s>>>(
+        unused, h_map, part_m, part_l, part_i, B, d, V, row0, wb, piece);
+  }
   return cudaGetLastError();
 }
 
@@ -480,26 +631,35 @@ cudaError_t launch_pass(const CUtensorMap& w_map, const void* h, int ldh, float*
 // each row used) against w [d, V], over `n_ctas` CTAs.  part_* are [B,
 // n_ctas]; conf and idx [B]; mx [B] (or null: not written) each row's max
 // logit, with which the row's log-sum-exp is mx - log(conf): what a vocab
-// shard of a split head hands to the combine across shards.
+// shard of a split head hands to the combine across shards.  w's rows go by
+// TMA where they are whole 16-byte units from a 16-byte aligned base, else
+// in the widest pieces both allow (`w_piece`, as exit_confidence.w_piece).
 extern "C" int exit_confidence_bf16(const void* h, const void* w, void* part_m, void* part_l,
                                     void* part_i, void* conf, void* idx, void* mx, int B, int d,
                                     int ldh,
                                     int V, int row0, int rows, int n_ctas, void* stream) {
-  if (V % 8 != 0 || d < 1 || ldh < d || ldh % 8 != 0 || rows < 1 || rows > 64 || row0 < 0 ||
-      row0 + rows > B || n_ctas < 1 ||
-      reinterpret_cast<uintptr_t>(w) % 16 != 0 || reinterpret_cast<uintptr_t>(h) % 16 != 0)
+  const int piece = w_piece(V, reinterpret_cast<uintptr_t>(w));
+  if (piece == 0 || V < 1 || d < 1 || ldh < d || ldh % 8 != 0 || rows < 1 || rows > 64 ||
+      row0 < 0 || row0 + rows > B || n_ctas < 1 || reinterpret_cast<uintptr_t>(h) % 16 != 0)
     return cudaErrorInvalidValue;
-  const CUtensorMap* w_map = w_map_for(w, d, V);
-  if (w_map == nullptr) return cudaErrorInvalidValue;
+  const CUtensorMap* w_map = nullptr;
+  if (piece == 16) {
+    w_map = w_map_for(w, d, V);
+    if (w_map == nullptr) return cudaErrorInvalidValue;
+  }
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   float* pm = static_cast<float*>(part_m);
   float* pl = static_cast<float*>(part_l);
   int* pi = static_cast<int*>(part_i);
   cudaError_t err;
-  if (rows <= 8) err = launch_pass<8>(*w_map, h, ldh, pm, pl, pi, B, d, V, row0, n_ctas, s);
-  else if (rows <= 16) err = launch_pass<16>(*w_map, h, ldh, pm, pl, pi, B, d, V, row0, n_ctas, s);
-  else if (rows <= 32) err = launch_pass<32>(*w_map, h, ldh, pm, pl, pi, B, d, V, row0, n_ctas, s);
-  else err = launch_pass<64>(*w_map, h, ldh, pm, pl, pi, B, d, V, row0, n_ctas, s);
+  if (rows <= 8)
+    err = launch_pass<8>(w_map, w, piece, h, ldh, pm, pl, pi, B, d, V, row0, n_ctas, s);
+  else if (rows <= 16)
+    err = launch_pass<16>(w_map, w, piece, h, ldh, pm, pl, pi, B, d, V, row0, n_ctas, s);
+  else if (rows <= 32)
+    err = launch_pass<32>(w_map, w, piece, h, ldh, pm, pl, pi, B, d, V, row0, n_ctas, s);
+  else
+    err = launch_pass<64>(w_map, w, piece, h, ldh, pm, pl, pi, B, d, V, row0, n_ctas, s);
   if (err != cudaSuccess) return err;
   const size_t off = (size_t)row0 * n_ctas;
   exit_combine_kernel<<<rows, 32, 0, s>>>(pm + off, pl + off, pi + off,

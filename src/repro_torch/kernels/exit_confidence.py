@@ -14,7 +14,10 @@ version over it).
 ``exit_confidence_partial`` launches the same kernel for one vocab shard of
 a head split over devices: it also hands back each row's max logit m, with
 which the row's log-sum-exp is m - log(conf) (``ops.combine_exit_partials``
-combines the shards).
+combines the shards).  A shard's rows need not be whole 16-byte units
+(phi-3-vision-4.2b's 32064 columns over 16 devices are 2004 a shard): TMA
+takes w where they are (V % 8 == 0 on a 16-byte aligned base), the
+producer warp's cp.async pieces of 8, 4 or 2 bytes elsewhere (``w_piece``).
 """
 from __future__ import annotations
 
@@ -60,6 +63,14 @@ def grid_ctas(V: int, n_sm: int) -> int:
     units = -(-V // UNIT)
     q = -(-units // n_sm)
     return max(-(-9 * n_sm // 10), -(-units // q))
+
+
+def w_piece(V: int, address: int) -> int:
+    """The bytes the kernel loads of w at a time, as ``w_piece`` in the
+    source computes them: 16 (by TMA) where w's rows of V bf16 are whole
+    16-byte units from a 16-byte aligned ``address``, else the widest of 8,
+    4 and 2 that both allow (by the producer warp's copies)."""
+    return next(p for p in (16, 8, 4, 2) if (2 * V) % p == 0 and address % p == 0)
 
 
 def _ctas(dev: torch.device) -> int:
@@ -109,11 +120,7 @@ def _run(h: torch.Tensor, w: torch.Tensor, with_max: bool):
     V = w.shape[1]
     if B < 1 or V < 1 or d < 1:
         raise ValueError("exit_confidence: empty batch, width or vocab")
-    # TMA reads w in rows of V elements: a row stride of 16-byte multiples
-    # from a 16-byte aligned base
-    if V % 8 != 0 or w.data_ptr() % 16 != 0:
-        raise ValueError(f"exit_confidence kernel needs V % 8 == 0 and a 16-byte aligned w, "
-                         f"got V={V} at offset {w.data_ptr() % 16}")
+    # h goes by TMA: rows of 16-byte multiples from a 16-byte aligned base
     if d % 8 != 0 or h.data_ptr() % 16 != 0:
         # the same rule for h's rows: a zero-padded aligned copy (B x d,
         # small beside w); the padded columns meet w's zero fill past d

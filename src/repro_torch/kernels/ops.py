@@ -240,11 +240,11 @@ def exit_confidence_partial(h: torch.Tensor, w: torch.Tensor):
 
 def _vocab_splits(w) -> bool:
     """Whether the DTensor head ``w`` [d, V] is split along its vocab into
-    shards the kernel takes (a whole number of 16-byte rows, V_local % 8 ==
-    0; otherwise the vocab is gathered)."""
+    even shards (otherwise the vocab is gathered).  The kernel takes a
+    shard of any width (``exit_confidence.w_piece``)."""
     dims = split_dims(w, 1)
     n = math.prod(w.device_mesh.size(i) for i in dims)
-    return bool(dims) and w.shape[1] % n == 0 and (w.shape[1] // n) % 8 == 0
+    return bool(dims) and w.shape[1] % n == 0
 
 
 def _split_vocab_head(h, w):

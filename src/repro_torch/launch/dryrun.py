@@ -18,9 +18,13 @@ table of them.  Per cell:
     layout is coherent; the argument bytes and the peak of live bytes per
     device show whether it fits.
   MEASURE — the same run, counted.  Eager execution runs every loop
-    iteration (the periods, the attention chunks, sLSTM's time steps), so
-    the counts are exact at full depth and the reference's two-point depth
-    fit (and its ``set_unroll``) has no counterpart.  Per device:
+    iteration (the periods, the attention chunks), so the counts are exact
+    at full depth and the reference's two-point depth fit (and its
+    ``set_unroll``) has no counterpart.  A scan over time (``layers.scan``,
+    sLSTM's) runs its body until a step leaves its carry's layout as it
+    found it, and counts that step's ops for each step left: every later
+    step runs the same ops, so the count is the loop's, exactly (see
+    ``CostMode``).  Per device:
       * FLOPs: ``torch.utils.flop_counter``'s per-op formulas (the ones
         ``FlopCounterMode`` applies) over the LOCAL ops;
       * bytes: operand + result bytes of every local aten op that is not a
@@ -60,6 +64,7 @@ from repro_torch import sharding
 from repro_torch.configs import SHAPES, get_config, input_specs, list_archs
 from repro_torch.configs.base import ShapeSpec, shape_applicable
 from repro_torch.launch.mesh import make_production_mesh, production_mesh_shape
+from repro_torch.models import layers
 from repro_torch.models import model as model_lib
 from repro_torch.roofline import analysis
 from repro_torch.roofline.collectives import CollectiveRecorder, c10d_record
@@ -95,31 +100,69 @@ def _is_view(func) -> bool:
                for r in func._schema.returns)
 
 
+def _local(t: torch.Tensor) -> torch.Tensor:
+    from torch.distributed.tensor import DTensor
+
+    return t._local_tensor if isinstance(t, DTensor) else t
+
+
+def _signature(ts) -> tuple:
+    """What decides the ops a scan step runs on these tensors (a carry, or
+    its gradients): kind, shape, dtype, the local shard's strides, whether
+    a gradient flows, the layout."""
+    return tuple(None if t is None else (
+        type(t), tuple(t.shape), t.dtype, tuple(_local(t).stride()), t.requires_grad,
+        tuple(getattr(t, "placements", ()))) for t in ts)
+
+
 class CostMode(CollectiveRecorder):
     """Counts the local ops a (DTensor) program runs: FLOPs, bytes,
     collectives, and the live and peak bytes of storages (see the module
-    docstring)."""
+    docstring).
 
-    def __init__(self) -> None:
+    While it is active ``layers.scan`` is counted (``_scan``): the body runs
+    until a step leaves its carry's signature (``_signature``) as it found
+    it (the first step or two differ: a plain initial state, a first
+    layout), and that step's counts are added once for every step left.
+    The outputs are meta tensors of their full shapes, stacked as the loop
+    stacks them, and the storages the loop's outputs would hold are held
+    meanwhile.  With gradients the scan is one autograd function
+    (``_CountedScan``) whose backward counts the steps' backwards the same
+    way.  ``full_scans=True`` runs the loop instead (the tests' yardstick)."""
+
+    def __init__(self, full_scans: bool = False) -> None:
         super().__init__()
         self.flops = 0.0
         self.bytes = 0.0
         self.flops_by_op: dict[str, float] = {}
         self.live = 0
         self.peak = 0
-        self._seen = WeakIdKeyDictionary()
+        self.full_scans = full_scans
+        self._seen = WeakIdKeyDictionary()  # storage -> its serial number
+        self._serial = 0
+        self._counting = True
+        self._tracking = True
+        self._outer_scans: list = []
+
+    def __enter__(self):
+        self._outer_scans.append(layers.set_scan(None if self.full_scans else self._scan))
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        layers.set_scan(self._outer_scans.pop())
+        return super().__exit__(*exc)
 
     def track(self, t: torch.Tensor) -> None:
         """Count ``t``'s storage as live until it dies (once per storage)."""
-        from torch.distributed.tensor import DTensor
+        if self._tracking:
+            self._track_storage(_local(t).untyped_storage())
 
-        if isinstance(t, DTensor):
-            t = t._local_tensor
-        st = t.untyped_storage()
+    def _track_storage(self, st) -> None:
         if st in self._seen:
             return
         n = st.nbytes()
-        self._seen[st] = n
+        self._seen[st] = self._serial
+        self._serial += 1
         self.live += n
         self.peak = max(self.peak, self.live)
         weakref.finalize(st, self._free, n)
@@ -139,10 +182,10 @@ class CostMode(CollectiveRecorder):
         if any(issubclass(t, FakeTensor) for t in types) or any(
                 isinstance(o, FakeTensor) for o in outs):
             return out  # DTensor's shape propagation, not the program
-        rec = c10d_record(func, args, out)
+        rec = c10d_record(func, args, out) if self._counting else None
         if rec is not None:
             self.records.append(rec)
-        else:
+        elif self._counting:
             packet = func._overloadpacket
             if packet in flop_registry:
                 f = float(flop_registry[packet](*args, **kwargs, out_val=out))
@@ -156,6 +199,201 @@ class CostMode(CollectiveRecorder):
             for o in outs:
                 self.track(o)
         return out
+
+    # -- counted scans --------------------------------------------------------
+
+    @contextlib.contextmanager
+    def _paused(self):
+        """Ops run here are tracked but not counted (a step re-run for its
+        backward: the loop's graph kept it)."""
+        self._counting = False
+        try:
+            yield
+        finally:
+            self._counting = True
+
+    def _snap(self) -> tuple:
+        return self.flops, self.bytes, dict(self.flops_by_op), len(self.records)
+
+    def _since(self, snap: tuple) -> tuple:
+        """The counts added since ``snap`` (exact: the sums are integers)."""
+        flops, nbytes, by_op, n = snap
+        return (self.flops - flops, self.bytes - nbytes,
+                {k: v - by_op.get(k, 0.0) for k, v in self.flops_by_op.items()},
+                self.records[n:])
+
+    def _repeat(self, delta: tuple, times: int) -> None:
+        """Count ``delta`` (from ``_since``) ``times`` more times."""
+        if times <= 0:
+            return
+        flops, nbytes, by_op, records = delta
+        self.flops += flops * times
+        self.bytes += nbytes * times
+        for k, v in by_op.items():
+            if v:
+                self.flops_by_op[k] = self.flops_by_op.get(k, 0.0) + v * times
+        self.records.extend(records * times)
+
+    def _run_steps(self, body, carry: tuple, xs: torch.Tensor, saved: list | None = None):
+        """The scan's first steps, until one leaves its carry's signature as
+        it found it; that step's counts are added for every step left.
+        Returns ``(last carry, ys of the steps run, each run step's carry)``.
+        With ``saved`` (a list), each step's saved tensors' storages born in
+        the scan go into it, one dict a step, and at least two steps run."""
+        S = xs.shape[1]
+        born = self._serial
+        inputs, ys = [], []
+        while True:
+            inputs.append(carry)
+            snap = self._snap()
+            if saved is None:
+                new, y = body(carry, xs[:, len(ys)])
+            else:
+                saved.append({})
+                pack = _pack_into(saved[-1], self._seen, born)
+                with torch.autograd.graph.saved_tensors_hooks(pack, lambda _: None):
+                    new, y = body(carry, xs[:, len(ys)])
+            delta = self._since(snap)
+            ys.append(y)
+            steady = _signature(new) == _signature(carry)
+            carry = new
+            if len(ys) == S or (steady and (saved is None or len(ys) > 1)):
+                break
+        self._repeat(delta, S - len(ys))
+        return carry, ys, inputs
+
+    def _stack(self, ys: list, S: int) -> torch.Tensor:
+        """The S steps' outputs stacked along dim 1 as the loop stacks them,
+        the last step run standing for the steps not run, whose storages
+        the loop would hold meanwhile."""
+        rest = S - len(ys)
+        hold = _hold(rest * _local(ys[-1]).untyped_storage().nbytes())
+        out = torch.stack(ys + [ys[-1]] * rest, dim=1)
+        del hold
+        return out
+
+    def _scan(self, body, carry: tuple, xs: torch.Tensor, params: tuple):
+        """``layers.scan`` counted (see the class docstring)."""
+        carry = tuple(carry)
+        if xs.device.type != "meta" or xs.shape[1] < 2:
+            return layers.loop_scan(body, carry, xs, params)
+        if torch.is_grad_enabled() and any(t.requires_grad for t in (*carry, xs, *params)):
+            out = _CountedScan.apply(self, body, len(carry), params, *carry, xs, *params)
+            st = self._last_hold()
+            if st is not None:  # kept for the backward (not discarded by a checkpoint)
+                self._track_storage(st)
+            return tuple(out[:-1]), out[-1]
+        carry, ys, _ = self._run_steps(body, carry, xs)
+        return carry, self._stack(ys, xs.shape[1])
+
+
+def _hold(nbytes: int) -> torch.Tensor:
+    """A meta storage of ``nbytes``, live (tracked) while referenced."""
+    return torch.empty((max(0, nbytes),), dtype=torch.uint8, device="meta")
+
+
+def _pack_into(step: dict, seen, born: int):
+    """A saved-tensor pack hook noting the storages born since serial
+    ``born`` (a scan's) in ``step``, and saving nothing: the graph of the
+    steps run in a counted forward is never differentiated."""
+    def pack(t):
+        st = _local(t).untyped_storage()
+        if seen.get(st, -1) >= born:
+            step[id(st)] = (st, st.nbytes())
+    return pack
+
+
+def _held_bytes(saved: list[dict], S: int) -> int:
+    """Bytes a loop of ``S`` steps keeps for its backward, from the saved
+    storages of the steps run (the last one steady): what each step saves
+    that the step before it did not, the steady step's for the rest."""
+    new = [sum(n for key, (_, n) in step.items() if key not in prev)
+           for prev, step in zip([{}] + saved[:-1], saved)]
+    return sum(new) + new[-1] * (S - len(saved))
+
+
+class _CountedScan(torch.autograd.Function):
+    """A counted ``layers.scan`` with gradients (``CostMode._scan``).
+
+    The forward runs the steps as ``CostMode._run_steps`` does and saves a
+    meta storage of the bytes the loop's graph would save over all the
+    steps.  The backward re-runs each distinct step's forward uncounted
+    and counts its backward, from the last step down: the last step (no
+    carry gradient from a later one), one steady step, whose counts stand
+    for every steady step while its carry gradients keep their signature,
+    and the first steps run; the adds that sum the gradients of ``xs`` and
+    of ``params`` over the steps are counted with each step, as the loop's
+    autograd adds them.  It returns gradients of the full shapes."""
+
+    @staticmethod
+    def forward(ctx, mode, body, n, params, *args):
+        carry, xs = args[:n], args[n]
+        S = xs.shape[1]
+        ctx.set_materialize_grads(False)
+        saved: list[dict] = []
+        with torch.enable_grad():
+            final, ys, inputs = mode._run_steps(body, carry, xs, saved)
+            ys = mode._stack(ys, S)
+        mode._tracking = False  # tracked by ``_scan`` only if the graph keeps it
+        try:
+            hold = _hold(_held_bytes(saved, S))
+        finally:
+            mode._tracking = True
+        mode._last_hold = weakref.ref(hold.untyped_storage())
+        ctx.mode, ctx.body, ctx.n, ctx.S, ctx.params = mode, body, n, S, params
+        ctx.flags = [[c.requires_grad for c in inp] for inp in inputs]
+        ctx.xs_grad = xs.requires_grad
+        ctx.save_for_backward(hold, xs, *(c.detach() for inp in inputs for c in inp))
+        return (*(c.detach() for c in final), ys.detach())
+
+    @staticmethod
+    def backward(ctx, *grads):
+        mode, body, n, S, params = ctx.mode, ctx.body, ctx.n, ctx.S, ctx.params
+        hold, xs, *flat = ctx.saved_tensors
+        del hold
+        xs = xs.detach().requires_grad_(ctx.xs_grad)
+        inputs = [flat[i * n:(i + 1) * n] for i in range(len(ctx.flags))]
+        k = len(inputs) - 1  # the steady step (the last step run)
+        g_carry, g_ys = grads[:n], grads[n]
+        acc: list = [None] * (1 + len(params))  # xs's and params' gradients
+        t = S - 1
+        while t >= 0:
+            i = min(t, k)
+            snap = mode._snap()
+            g_in = _step_backward(mode, body, inputs[i], ctx.flags[i], xs, t, params, g_carry,
+                                  None if g_ys is None else g_ys.select(1, t), acc)
+            delta = mode._since(snap)
+            steady = k <= t < S - 1 and _signature(g_in) == _signature(g_carry)
+            g_carry = g_in
+            if steady and t > k:  # steps t-1 .. k run these ops again
+                mode._repeat(delta, t - k)
+                t = k
+            t -= 1
+        return (None, None, None, None, *g_carry, acc[0], *acc[1:])
+
+
+def _step_backward(mode, body, carry, flags, xs, t, params, g_carry, g_y, acc):
+    """Step ``t``'s backward: its forward re-run uncounted from ``carry``,
+    then autograd from its outputs' gradients to its carry, ``xs`` and
+    ``params``; the gradients of ``xs`` and ``params`` are added into
+    ``acc``.  Returns the carry's gradients (None where none flows)."""
+    with torch.enable_grad():
+        carry = tuple(c.detach().requires_grad_(f) for c, f in zip(carry, flags))
+        with mode._paused():
+            new, y = body(carry, xs[:, t])
+        pairs = [(o, g) for o, g in zip((*new, y), (*g_carry, g_y))
+                 if g is not None and o.requires_grad]
+        wrt = [c for c in carry if c.requires_grad]
+        wrt += [a for a in (xs, *params) if a.requires_grad]
+        got = list(torch.autograd.grad([o for o, _ in pairs], wrt, [g for _, g in pairs],
+                                       allow_unused=True)) if pairs else [None] * len(wrt)
+    g_in = tuple(got.pop(0) if c.requires_grad else None for c in carry)
+    for j, a in enumerate((xs, *params)):
+        if a.requires_grad:
+            g = got.pop(0)
+            if g is not None:
+                acc[j] = g if acc[j] is None else acc[j] + g
+    return g_in
 
 
 def _serving_params(aparams):
@@ -207,12 +445,12 @@ def build_step(cfg, shape: ShapeSpec, mesh, microbatches: int = 1, policy: str =
 
 
 def count_step(cfg, shape: ShapeSpec, mesh, microbatches: int = 1,
-               policy: str = "dp_tp") -> tuple[CostMode, int, float]:
+               policy: str = "dp_tp", full_scans: bool = False) -> tuple[CostMode, int, float]:
     """Run the cell's step once under ``CostMode``: ``(counts, argument
-    bytes per device, seconds)``."""
+    bytes per device, seconds)``.  ``full_scans`` runs every scan step."""
     t0 = time.time()
     run, args = build_step(cfg, shape, mesh, microbatches, policy)
-    mode = CostMode()
+    mode = CostMode(full_scans)
     for t in _tensors(args):
         mode.track(t)
     arg_bytes = _local_bytes(args)

@@ -7,7 +7,9 @@ gives the same products); training keeps f32 masters as the reference does
 (``models.model.init_params(..., master=True)``), and every matmul casts.
 Norm scales, norm biases and QKV biases stay f32 and are cast where the
 reference casts them.  The reference's ``loop_map`` / ``loop_scan`` are
-plain Python loops here (they exist there for XLA's cost analysis).
+plain Python loops here (they exist there for XLA's cost analysis);
+``scan``, the counterpart of its ``jax.lax.scan`` over time, is a loop too,
+which the dry run counts without running every step (``set_scan``).
 """
 from __future__ import annotations
 
@@ -206,6 +208,41 @@ def einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if a.device.type != "cpu":  # the card, or the dry run's meta tensors
         return torch.einsum(eq, a, b)
     return reduce_partial(torch.einsum(eq, _f32(a), _f32(b))).to(torch.bfloat16)
+
+
+# ---------------------------------------------------------------------------
+# Scan over time
+# ---------------------------------------------------------------------------
+
+
+def loop_scan(body, carry: tuple, xs: torch.Tensor, params: tuple = ()):
+    """``scan`` as a Python loop, one ``body`` call a step."""
+    ys = []
+    for t in range(xs.shape[1]):
+        carry, y = body(carry, xs[:, t])
+        ys.append(y)
+    return carry, torch.stack(ys, dim=1)
+
+
+_scan_impl = loop_scan
+
+
+def scan(body, carry: tuple, xs: torch.Tensor, params: tuple = ()):
+    """``jax.lax.scan`` over dim 1 of ``xs``: ``body(carry, x_t) -> (carry,
+    y_t)`` for each step in turn, ``carry`` a tuple of tensors; returns the
+    last carry and the ``y_t`` stacked along dim 1.  ``params`` are the
+    tensors ``body`` reads besides its arguments.  This is ``loop_scan``
+    unless a dry run has installed its count (``set_scan``), which runs the
+    body once or twice and returns ``params``' gradients itself."""
+    return _scan_impl(body, carry, xs, tuple(params))
+
+
+def set_scan(impl=None):
+    """Make ``impl(body, carry, xs, params)`` what ``scan`` runs (None:
+    ``loop_scan``); returns the one it replaces."""
+    global _scan_impl
+    old, _scan_impl = _scan_impl, impl or loop_scan
+    return old
 
 
 # ---------------------------------------------------------------------------

@@ -2,11 +2,12 @@
 
 The counterpart of ``repro.models.ssm``, op for op in plain torch: the
 reference has no kernel for these blocks.  Its ``lax.scan`` over chunks
-(``loop_scan``) and sLSTM's scan over time are Python loops here.  Dtypes
-follow the reference's: the projections are bf16 products, the scans and
-gates f32, and mLSTM's queries f32 (the reference divides the bf16 product
-by a NumPy scalar, which promotes it to f32), so mLSTM's cell output stays
-f32 until the down-projection.
+(``loop_scan``) is a Python loop here, and sLSTM's scan over time is
+``layers.scan`` (a loop, which the dry run counts without running every
+step).  Dtypes follow the reference's: the projections are bf16 products,
+the scans and gates f32, and mLSTM's queries f32 (the reference divides the
+bf16 product by a NumPy scalar, which promotes it to f32), so mLSTM's cell
+output stays f32 until the down-projection.
 
   * Mamba2 runs the chunked SSD algorithm (quadratic within a chunk, a scan
     across chunk states); the token-by-token recurrence serves decode.
@@ -510,7 +511,7 @@ def mlstm_forward(
     conv_out = layers.silu(causal_conv1d(xi, params["conv_w"], params["conv_b"]))
     q, k, v, i_gate, f_gate = _mlstm_qkv_gates(params, xi, conv_out, (B, S, H, P), P)
     h, state = mlstm_chunked(q, k, v, i_gate, f_gate, dims.chunk, initial)
-    h = h.reshape(B, S, dims.d_inner)
+    h = layers.merge_last(h)  # [B,S,d_inner]
     h = layers.rmsnorm(params["norm_h"], h) * layers.silu(z)
     out = matmul(h, params["down_proj"])
     if return_state:
@@ -615,11 +616,10 @@ def slstm_forward(
         zeros = torch.zeros((B, H, P), dtype=torch.float32, device=x.device)
         initial = (zeros, zeros, zeros, torch.full((B, H, P), -1e30, dtype=torch.float32,
                                                    device=x.device))
-    state, hs = initial, []
-    for t in range(S):
-        state, h_t = slstm_cell(w_x[:, t], params["r_gates"], params["gate_bias"], state, H, P)
-        hs.append(h_t)
-    h = torch.stack(hs, dim=1).reshape(B, S, d).to(x.dtype)
+    r_gates, gate_bias = params["r_gates"], params["gate_bias"]
+    state, hs = layers.scan(lambda state, w_t: slstm_cell(w_t, r_gates, gate_bias, state, H, P),
+                            initial, w_x, params=(r_gates, gate_bias))
+    h = layers.merge_last(hs).to(x.dtype)  # [B,S,d]
     h = layers.rmsnorm(params["norm_h"], h)
     out = h + layers.glu_ffn(params["ffn"], h)
     if return_state:

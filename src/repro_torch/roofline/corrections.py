@@ -4,9 +4,11 @@
 In the reference the only loop the unrolled measurement cannot open is
 sLSTM's per-timestep recurrence (h_{t-1} feeds the gates, trip count ==
 seq_len): XLA counts its body once, and this module adds the missing
-(seq_len - 1) iterations.  The port's dry run runs that loop eagerly and
-counts every step, so it adds nothing; the formula stays as the yardstick
-the counted steps are held to.
+(seq_len - 1) iterations by a fit.  The port's dry run counts that loop as
+a scan (``launch.dryrun.CostMode`` over ``models.layers.scan``): it runs a
+step or two and counts the steady step's ops once for every step left,
+which is exactly what running every step counts.  So nothing is corrected
+here; the formula stays as the yardstick the counted steps are held to.
 
 Per-step body cost (see ssm.slstm_cell):
   flops : recurrent gate matmul  B * H * P * 4P * 2   (+ O(B*H*P) elementwise)

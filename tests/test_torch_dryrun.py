@@ -174,10 +174,11 @@ def test_model_flops_and_slstm_cost_equal_reference(arch):
 
 
 def test_counted_slstm_steps_equal_the_analytic_matmul_term():
-    """The dry run counts every sLSTM time step (a Python loop): the
-    recurrent products' FLOPs over the S-1 steps past the first, summed over
-    reduced xlstm-350m's sLSTM blocks, equal ``slstm_missing_cost``'s matmul
-    term (B*H*P*4P*2 a step and block) within 1%."""
+    """The dry run counts every sLSTM time step (a counted scan: one step
+    run, its counts added for the rest): the recurrent products' FLOPs over
+    the S-1 steps past the first, summed over reduced xlstm-350m's sLSTM
+    blocks, equal ``slstm_missing_cost``'s matmul term (B*H*P*4P*2 a step
+    and block) within 1%."""
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.launch.dryrun import CostMode
     from repro_torch.models import ssm

@@ -20,7 +20,10 @@ query heads per KV head the wrappers launch the walk once per chunk of at
 most 16, held to the same gates at G 17, 24 and 32.  The exit head is held
 at the five LM heads of the registry, at B up to 65 (one pass over w per 64
 rows), at a d of 16384 and one not a multiple of 8, with fewer vocab
-columns than its CTAs' unit, and with a tie across a CTA boundary.  A
+columns than its CTAs' unit, and with a tie across a CTA boundary; and
+where w's rows are no whole number of 16-byte units or w lies off a
+16-byte boundary (the producer warp's cp.async pieces), phi-3-vision's
+2004-column vocab shard among them, a dropped last column rejected.  A
 reduced train step on the card reaches every Q/K/V projection and launches
 no kernel, and every wrapper refuses CUDA inputs that require grad.
 """
@@ -380,7 +383,7 @@ def _assert_conf_close(conf, cref):
     torch.testing.assert_close(conf, cref, rtol=1e-4, atol=0)
 
 
-# vocabs are multiples of 8 (TMA's 16-byte row rule), most not of the
+# vocabs that are multiples of 8 (TMA's path for w), most not of the
 # 256-column tile; the five LM heads of the registry at B 1 and 8; B 16-65
 # at stablelm-1.6b's head (65: two passes over w); d 16384 and d 100 (not a
 # multiple of 8: an aligned, zero-padded copy of h); V 120 and 136, fewer
@@ -422,11 +425,56 @@ def test_exit_confidence_gate_rejects_a_dropped_tile(cuda):
 
 def test_exit_confidence_rejects_what_it_cannot_take(cuda):
     h = torch.zeros((2, 16), dtype=torch.bfloat16, device=cuda)
-    with pytest.raises(ValueError, match="V % 8"):
-        texit.exit_confidence(h, torch.zeros((16, 100), dtype=torch.bfloat16, device=cuda))
-    flat = torch.zeros(16 * 128 + 1, dtype=torch.bfloat16, device=cuda)
-    with pytest.raises(ValueError, match="aligned"):  # 2 bytes past a 16-byte boundary
-        texit.exit_confidence(h, flat[1:].view(16, 128))
+    with pytest.raises(TypeError, match="bf16"):
+        texit.exit_confidence(h, torch.zeros((16, 100), dtype=torch.float32, device=cuda))
+    with pytest.raises(ValueError, match="shapes"):
+        texit.exit_confidence(h, torch.zeros((8, 100), dtype=torch.bfloat16, device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        texit.exit_confidence(h, torch.zeros((100, 16), dtype=torch.bfloat16, device=cuda).T)
+
+
+# w's rows in pieces (``w_piece``): 2004 columns (phi-3-vision-4.2b's head
+# over 16 devices, 8-byte cp.async), 2002 (4), 2003 and 125 (odd: 2 bytes
+# through registers), 100 (fewer columns than a unit), and w 2 bytes past a
+# 16-byte boundary (2-byte pieces) and 8 bytes past it (8); B past one pass
+# and d not a multiple of 8 or of 64
+@pytest.mark.parametrize(
+    "B,d,V,offset",
+    [(B, 3072, 2004, 0) for B in (1, 8, 32)]
+    + [(8, 2048, 2002, 0), (8, 2048, 2003, 0), (5, 256, 125, 0), (3, 16, 100, 0),
+       (4, 100, 2003, 0), (8, 128, 2048, 1), (8, 128, 2048, 4), (65, 512, 2004, 0),
+       (4, 100, 2004, 0)],
+)
+def test_exit_confidence_unaligned_rows_match_plain(cuda, B, d, V, offset):
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    h, w = _margin_inputs(gen, cuda, B, d, V)
+    if offset:
+        flat = torch.empty(d * V + offset, dtype=torch.bfloat16, device=cuda)
+        flat[offset:] = w.flatten()
+        w = flat[offset:].view(d, V)
+    assert texit.w_piece(V, w.data_ptr()) < 16
+    n0 = texit.exit_confidence.launches
+    conf, idx, mx = texit.exit_confidence_partial(h, w)
+    c0, i0 = texit.exit_confidence(h, w)
+    torch.cuda.synchronize()
+    assert texit.exit_confidence.launches == n0 + 2 * -(-B // texit.MAX_ROWS)
+    cref, iref, mref = ref.exit_confidence_partial_ref(h, w)
+    _assert_conf_close(conf, cref)
+    assert torch.equal(idx, iref)
+    torch.testing.assert_close(mx, mref, rtol=0, atol=1e-3)
+    assert torch.equal(conf, c0) and torch.equal(idx, i0)
+
+
+def test_exit_confidence_unaligned_gate_rejects_a_dropped_column(cuda):
+    """A 2004-wide shard read as 2003 columns, its last column row 0's top:
+    the argmax moves."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    h, w = _margin_inputs(gen, cuda, 8, 3072, 2004)
+    w[:, -1] = w[:, int(ref.exit_confidence_ref(h, w)[1][0])] * 1.5
+    cref, iref = ref.exit_confidence_ref(h, w)
+    assert int(iref[0]) == 2003
+    conf, idx = texit.exit_confidence(h, w[:, :-1].contiguous())
+    assert not torch.equal(idx, iref)
 
 
 def test_exit_confidence_tie_takes_first_index(cuda):

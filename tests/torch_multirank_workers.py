@@ -53,6 +53,7 @@ UPDATE_ATOL = 1e-6
 
 MESHES = {
     "1x2": ((1, 2), ("data", "model")),
+    "1x4": ((1, 4), ("data", "model")),
     "2x2": ((2, 2), ("data", "model")),
     "2x1x2": ((2, 1, 2), ("pod", "data", "model")),
 }
@@ -492,3 +493,40 @@ def _kernel_paths(mesh, c):
     cr, ir = ops.exit_confidence(h, w)
     np.testing.assert_allclose(_full(conf).numpy(), cr.numpy(), atol=CONF_ATOL)
     assert torch.equal(_full(idx), ir) and ir.tolist() == [3, 70, 100, 127]
+
+
+def unaligned_vocab_head(rank, world, store_path, shape, names, V=500):
+    """``ops.exit_confidence`` on an LM head of ``V`` columns split over the
+    "model" axis into shards whose rows are no whole number of 16-byte
+    units (V 500 over 2 or 4: 250 or 125 columns), against the unsharded
+    head on the same rank: the split is kept (no collective record holds a
+    shard of the head or more), conf at atol 1e-3, argmax exact.  Row 0's
+    top column is the first shard's last, row 1's the last shard's first."""
+    from repro_torch.kernels import ops
+    from repro_torch.roofline.collectives import CollectiveRecorder
+
+    mesh = _init(rank, world, store_path, shape, names)
+    try:
+        c = get_config("stablelm-1.6b").reduced(vocab_size=V)
+        n = mesh.size(names.index("model"))
+        g = torch.Generator().manual_seed(5)
+        B, d = 4, c.d_model
+        h = torch.randn((B, d), generator=g)
+        w = torch.randn((d, V), generator=g) / d**0.5
+        top = [V // n - 1, V - V // n, 7, V - 1]
+        w[:, top] += 6.0 * (h / h.norm(dim=1, keepdim=True) ** 2).T
+        h, w = h.bfloat16(), w.bfloat16()
+        P = sharding.PartitionSpec
+        sw = sharding.distribute(w, P(None, "model"), mesh)
+        assert ops._vocab_splits(sw), "the head's vocab split is not kept"
+        with CollectiveRecorder() as rec:
+            conf, idx = ops.exit_confidence(sharding.distribute(h, P("data", None), mesh), sw)
+        shard_bytes = d * (V // n) * 2
+        biggest = max(nbytes for _, nbytes, _ in rec.records)
+        assert biggest < shard_bytes, (biggest, shard_bytes, sorted(set(rec.records))[-3:])
+        cr, ir = ops.exit_confidence(h, w)
+        np.testing.assert_allclose(_full(conf).numpy(), cr.numpy(), atol=CONF_ATOL, rtol=0)
+        assert torch.equal(_full(idx), ir) and ir.tolist() == top, (ir.tolist(), top)
+    finally:
+        sharding.clear_mesh()
+        dist.destroy_process_group()

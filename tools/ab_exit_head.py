@@ -1,17 +1,22 @@
 """Time the exit-head kernel at every LM head of the registry on one GPU,
 against its library yardstick and, optionally, an earlier build.
 
-    python3 tools/ab_exit_head.py [BASELINE_CSRC_DIR] [--rounds 2] [--batches 1 8 32]
-                                  [--variants unit-8 l2-256] [--full-grid]
+    python3 tools/ab_exit_head.py [BASELINE_CSRC_DIR] [--same-abi] [--archs all]
+                                  [--shapes 3072x2004 3072x2000]
+                                  [--rounds 2] [--batches 1 8 32]
+                                  [--variants unit-8 l2-256 lag-full] [--full-grid]
 
-At each of the five registry LM heads (random bf16 w of the head's shape,
+At each of five registry LM heads (``--archs all``: all ten; ``--shapes``
+adds heads of the given d x V, such as a vocab shard; random bf16 w of the head's shape,
 made from a seed) and each batch size: the kernel of this checkout (through
 the port's wrapper), cuBLAS plus reductions (bf16 ``matmul`` then max,
 logsumexp and argmax in f32) and, when ``BASELINE_CSRC_DIR`` is given, the
 baseline build of ``exit_confidence.cu`` from that directory (for example
 the ``src/repro_torch/kernels/csrc`` of commit d927fbd unpacked with ``git
 archive``; its C entry must have that commit's signature: one call for every
-B, partials per 256-column tile), all timed in turns (baseline, current,
+B, partials per 256-column tile; with ``--same-abi`` the baseline's C entry
+has this checkout's signature, as since commit 1b9df30, and is called
+through the port's wrapper), all timed in turns (baseline, current,
 library, library, current, baseline per round) with ``chip_smoke.time_cold``
 (profiler device time, cold L2).  Each time is printed beside the bytes
 bound (one read of w at 3.35 TB/s) and its share of it.  Before timing, both
@@ -23,7 +28,9 @@ stablelm-1.6b's head, B 8.
 ``--variants`` adds builds of this checkout's ``exit_confidence.cu`` with
 text replacements (``VARIANTS``: the unit of the vocab split, whose edges
 are multiples of it; the L2 promotion of w's tensor map), each called
-through the same wrapper and timed in the same turns.  ``--full-grid`` adds
+through the same wrapper and timed in the same turns (``lag-full``: the
+cp.async path of a w whose rows are no whole 16-byte units signalling each
+stage a full ring late).  ``--full-grid`` adds
 the current kernel on one CTA per SM, in place of ``grid_ctas``' count.
 
 Prints the card's name and power limit; exits 1 if a check fails.
@@ -52,6 +59,8 @@ from repro_torch.kernels import exit_confidence as kexit  # noqa: E402
 from repro_torch.roofline.constants import HBM_BW  # noqa: E402
 
 ARCHS = ("stablelm-1.6b", "glm4-9b", "deepseek-v2-lite-16b", "internlm2-20b", "qwen2.5-32b")
+ALL_ARCHS = ARCHS + ("zamba2-2.7b", "xlstm-350m", "mixtral-8x7b", "phi-3-vision-4.2b",
+                     "musicgen-medium")
 # name -> [(text in csrc/exit_confidence.cu, its replacement)]
 _W_PROMO = "CU_TENSOR_MAP_L2_PROMOTION_L2_128B)) return nullptr;"
 _UNIT = "constexpr int UNIT = 64;"
@@ -61,6 +70,8 @@ VARIANTS = {
        for name, enum in (("none", "NONE"), ("64", "L2_64B"), ("256", "L2_256B"))},
 }
 VARIANTS["unit-8-l2-256"] = VARIANTS["unit-8"] + VARIANTS["l2-256"]
+VARIANTS["lag-full"] = [("      constexpr int LAG = STAGES / 2;",
+                         "      constexpr int LAG = STAGES - 1;")]
 
 
 def build_variant(name: str, tmp: Path):
@@ -117,6 +128,30 @@ class Baseline:
         return conf, idx
 
 
+class SameAbiBaseline:
+    """An earlier build whose C entry has this checkout's signature, called
+    through the port's wrapper (``exit_confidence._lib`` swapped for the
+    call)."""
+
+    def __init__(self, csrc: Path, tmp: Path):
+        out = tmp / "libexit_baseline.so"
+        cmd = [build._nvcc(), *build.NVCC_FLAGS, "-o", str(out), str(csrc / "exit_confidence.cu")]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on the baseline:\n{proc.stdout}{proc.stderr}")
+        self.fn = ctypes.CDLL(str(out)).exit_confidence_bf16
+        self.fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        self.fn.restype = ctypes.c_int
+
+    def __call__(self, h, w):
+        own = kexit._lib
+        kexit._lib = lambda: self.fn
+        try:
+            return kexit.exit_confidence(h, w)
+        finally:
+            kexit._lib = own
+
+
 def margin_inputs(gen, dev, B, d, V):
     """chip_smoke's head inputs: logits ~ N(0, 1), row b's target raised by 8."""
     h = torch.randn((B, d), generator=gen, device=dev)
@@ -142,6 +177,9 @@ def host_us(fn, n=200) -> float:
 def main() -> None:
     parser = argparse.ArgumentParser()
     parser.add_argument("baseline_csrc", type=Path, nargs="?")
+    parser.add_argument("--same-abi", action="store_true")
+    parser.add_argument("--archs", default="five", choices=["five", "all", "none"])
+    parser.add_argument("--shapes", nargs="+", default=[], help="extra heads, d x V")
     parser.add_argument("--rounds", type=int, default=2)
     parser.add_argument("--batches", type=int, nargs="+", default=[1, 8, 32])
     parser.add_argument("--variants", nargs="+", default=[], choices=sorted(VARIANTS))
@@ -155,7 +193,8 @@ def main() -> None:
     flush = chip_smoke.L2Flush(dev)
     print(f"nvidia-smi: {chip_smoke.nvidia_smi()}", flush=True)
     with tempfile.TemporaryDirectory() as tmp:
-        base = Baseline(args.baseline_csrc, Path(tmp)) if args.baseline_csrc else None
+        kind = SameAbiBaseline if args.same_abi else Baseline
+        base = kind(args.baseline_csrc, Path(tmp)) if args.baseline_csrc else None
         build.build_all(["exit_confidence"])
         libs = {"": None, **{v: build_variant(v, Path(tmp)) for v in args.variants}}
         own_lib, own_grid = kexit._lib, kexit.grid_ctas
@@ -163,9 +202,10 @@ def main() -> None:
             for kernel, used in chip_smoke.ptxas_lines(log):
                 print(f"  {kernel}: {used}")
         failed = []
-        for arch in ARCHS:
-            cfg = get_config(arch)
-            d, V = cfg.d_model, cfg.vocab_size
+        archs = {"five": ARCHS, "all": ALL_ARCHS, "none": ()}[args.archs]
+        heads = [(a, get_config(a).d_model, get_config(a).vocab_size) for a in archs]
+        heads += [(f"shape {s_}", *map(int, s_.split("x"))) for s_ in args.shapes]
+        for arch, d, V in heads:
             h, w = margin_inputs(gen, dev, 8, d, V)
             cr, ir = ref.exit_confidence_ref(h, w)
             builds = {"current": kexit.exit_confidence, **({"baseline": base} if base else {})}
