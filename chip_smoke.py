@@ -192,9 +192,11 @@ exits non-zero without the final result line:
      none's peak above its earlier reading, stablelm decode_32k's
      collective term under 5 ms and phi-3-vision-4.2b's under 0.1 ms (its
      vocab-split head no longer gathered) with a peak of at most 7.5 GB; and
-     xlstm-350m's train_4k and prefill_32k on pod16x16 through the CLI
-     (started with phase 9, both at once, 240 s each), which the counted
-     sLSTM scan lets finish.
+     xlstm-350m's train_4k, prefill_32k and decode_32k on pod16x16 through
+     the CLI (started with phase 9, all at once, 240 s each), which the
+     counted sLSTM scan lets finish, each with its all-to-all count, and
+     train_4k not bound by its collectives (sLSTM keeps its recurrent weight
+     in place and moves each step's activations).
   11. examples — ``examples/torch_quickstart.py`` (60 train steps) and
      ``examples/torch_failover_elastic.py`` on the card, each in a process
      of its own (the two at once), each ending in its closing line.
@@ -346,6 +348,9 @@ class L2Flush:
         self.buf.zero_()
 
 
+EMPTY_PROFILES = 5
+
+
 def time_cold(fn, iters: int, flush: L2Flush, tries: int = 3, stats: dict | None = None) -> float:
     """Mean device ms of ``fn`` over ``iters`` launches, each after the L2 is
     overwritten (the real caller finds it cold).  The time is the sum of the
@@ -363,9 +368,12 @@ def time_cold(fn, iters: int, flush: L2Flush, tries: int = 3, stats: dict | None
     reading.  Late in a long process a profile of the overwrites alone has
     recorded fewer than half of them three times in a row; the names of the
     last profile that did record them (``flush.names``, the same kernels
-    every time) then stand in.  ``stats``, when given, receives each timed
-    name's per-launch durations (us) and the number of overwrites the
-    profile recorded (see ``launch_summary``)."""
+    every time) then stand in.  A profile of the timed calls that recorded
+    no device event at all (three in a row once, in the split phase) is
+    taken again, up to ``EMPTY_PROFILES`` times, without counting as a try.
+    ``stats``, when given, receives each timed name's per-launch durations
+    (us) and the number of overwrites the profile recorded (see
+    ``launch_summary``)."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -392,8 +400,12 @@ def time_cold(fn, iters: int, flush: L2Flush, tries: int = 3, stats: dict | None
         print(f"  info time_cold: {tries} profiles of the overwrites alone recorded {recorded} of "
               f"{iters}; the names of an earlier profile stand in", flush=True)
         overwrites = flush.names
+    empty = 0
     for _ in range(tries):
         every = device_launches(both)
+        while not every and empty < EMPTY_PROFILES:
+            empty += 1
+            every = device_launches(both)
         timed = {key: v for key, v in every.items() if key not in overwrites}
         n_over = sum(len(v) for key, v in every.items() if key in overwrites)
         if timed and 2 * n_over >= iters and all(2 * len(v) >= iters for v in timed.values()):
@@ -404,7 +416,7 @@ def time_cold(fn, iters: int, flush: L2Flush, tries: int = 3, stats: dict | None
                 return t / 1e3
     raise RuntimeError(f"the profiler lost the timed function's device events {tries} times: "
                        f"{ {key: len(v) for key, v in timed.items()} } of {iters} calls, "
-                       f"{n_over} overwrites")
+                       f"{n_over} overwrites; {empty} empty profiles taken again")
 
 
 def bf16_close(a: torch.Tensor, b: torch.Tensor) -> tuple[bool, float, float]:
@@ -2574,7 +2586,7 @@ def main() -> None:
 
     del heads
     # phase 10 (d)'s dry runs: CPU only, beside phases 9 and 10 on the card
-    # (xlstm's two cells after the timed phases, whose profiles their load
+    # (xlstm's cells after the timed phases, whose profiles their load
     # would share the host with)
     dryrun_proc, xlstm_proc = start_dryrun(), start_xlstm_sweep()
     try:
@@ -3177,8 +3189,10 @@ DAGGER_DIR = "experiments/dryrun_torch/dagger"
 # exceed (its reading with the head gathered)
 DAGGER_COLL_MS = {("stablelm-1.6b", "decode_32k"): 5.0, ("phi-3-vision-4.2b", "decode_32k"): 0.1}
 DAGGER_PEAK_CAP = {("phi-3-vision-4.2b", "decode_32k"): 7.5}
-# xlstm-350m's cells that ran past 240 s before the counted sLSTM scan
-XLSTM_CELLS = ("train_4k", "prefill_32k")
+# xlstm-350m's cells that ran past 240 s before the counted sLSTM scan, and
+# its decode (each sLSTM block's recurrent weight swapped from its columns to
+# its heads at every token before the weight stayed in place)
+XLSTM_CELLS = ("train_4k", "prefill_32k", "decode_32k")
 XLSTM_LIMIT_S = 240
 XLSTM_DIR = "experiments/dryrun_torch/xlstm"
 
@@ -3207,9 +3221,9 @@ def start_dagger_sweep() -> subprocess.Popen:
 
 
 def start_xlstm_sweep() -> subprocess.Popen:
-    """xlstm-350m's train_4k and prefill_32k on pod16x16 through the dry
-    run's CLI (both at once, ``XLSTM_LIMIT_S`` each, on the host's CPU):
-    started with phase 9, read in 10 (d)."""
+    """xlstm-350m's ``XLSTM_CELLS`` on pod16x16 through the dry run's CLI
+    (all at once, ``XLSTM_LIMIT_S`` each, on the host's CPU): started with
+    phase 9, read in 10 (d)."""
     import atexit
     import os
 
@@ -3217,7 +3231,8 @@ def start_xlstm_sweep() -> subprocess.Popen:
     env = dict(os.environ, PYTHONPATH=str(root / "src"), CUDA_VISIBLE_DEVICES="",
                REPRO_DRYRUN_DIR=str(root / XLSTM_DIR))
     proc = subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-                             "xlstm-350m", "--shape", ",".join(XLSTM_CELLS), "--jobs", "2",
+                             "xlstm-350m", "--shape", ",".join(XLSTM_CELLS), "--jobs",
+                             str(len(XLSTM_CELLS)),
                              "--limit", str(XLSTM_LIMIT_S)], stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True, env=env, cwd=str(root),
                             start_new_session=True)
@@ -3226,11 +3241,13 @@ def start_xlstm_sweep() -> subprocess.Popen:
 
 
 def read_xlstm_sweep(proc: subprocess.Popen) -> None:
-    """Phase 10 (d), xlstm's cells: both finished within their limit, with
-    a roofline row."""
+    """Phase 10 (d), xlstm's cells: each finished within its limit, with a
+    roofline row and its all-to-all count printed; train_4k is not bound by
+    its collectives (it was, 29.6 s of them, while each sLSTM step swapped
+    the recurrent weight's shard)."""
     t0 = time.perf_counter()
     stdout, stderr = proc.communicate(timeout=XLSTM_LIMIT_S + 60)
-    check("multi-device (d): xlstm-350m's train_4k and prefill_32k finished on pod16x16",
+    check(f"multi-device (d): xlstm-350m's {', '.join(XLSTM_CELLS)} finished on pod16x16",
           proc.returncode == 0, f"rc {proc.returncode}; waited {time.perf_counter() - t0:.1f} s; "
           + (stdout[-1500:] + stderr[-1500:]).replace("\n", " | "))
     root = Path(__file__).resolve().parent / XLSTM_DIR
@@ -3239,10 +3256,15 @@ def read_xlstm_sweep(proc: subprocess.Popen) -> None:
         print(f"  xlstm {row['cell']}: counted in {row['run_s']} s; peak "
               f"{row['memory']['peak_gb_per_device']:.3f} GB a device, compute / memory / "
               f"collective {row['compute_ms']:.4g} / {row['memory_ms']:.4g} / "
-              f"{row['collective_ms']:.4g} ms, dominant {row['dominant']}; collectives "
+              f"{row['collective_ms']:.4g} ms, dominant {row['dominant']}; "
+              f"{row['collective_counts'].get('all-to-all', 0)} all-to-alls; collectives "
               f"{row['collective_counts']} (predictions on meta tensors)", flush=True)
         check(f"multi-device (d): xlstm-350m {shape} measured", row["gate"] == "ok"
               and row["hlo_gflops"] > 0 and row["run_s"] < XLSTM_LIMIT_S, row["cell"])
+        if shape == "train_4k":
+            check("multi-device (d): xlstm-350m train_4k not bound by its collectives",
+                  row["dominant"] != "collective", f"dominant {row['dominant']}, collective "
+                  f"{row['collective_ms']:.4g} ms, memory {row['memory_ms']:.4g} ms")
 
 
 def stop_group(proc: subprocess.Popen) -> None:

@@ -41,9 +41,11 @@ reference dies (a weakref callback), and the peak is the maximum of their sum.
 
 The kernel wrappers run their plain versions on meta tensors, so the counts
 are those of the plain attention and exit head, not of the kernels.  On a
-CPU mesh DTensor swaps a shard from one dim to another by all-gather and
-slice where NCCL would use all-to-all.  Artifacts go to
-``experiments/dryrun_torch/<cell>.json``.
+CPU mesh DTensor swaps a shard from one dim to another by an all-gather of
+the whole tensor and a slice; the count takes it for what NCCL runs there,
+one all-to-all of the local shard (``CollectiveRecorder``), and counts
+neither the fallback's local ops nor its whole-tensor transient.  Artifacts
+go to ``experiments/dryrun_torch/<cell>.json``.
 """
 from __future__ import annotations
 
@@ -140,7 +142,6 @@ class CostMode(CollectiveRecorder):
         self.full_scans = full_scans
         self._seen = WeakIdKeyDictionary()  # storage -> its serial number
         self._serial = 0
-        self._counting = True
         self._tracking = True
         self._outer_scans: list = []
 
@@ -182,10 +183,10 @@ class CostMode(CollectiveRecorder):
         if any(issubclass(t, FakeTensor) for t in types) or any(
                 isinstance(o, FakeTensor) for o in outs):
             return out  # DTensor's shape propagation, not the program
-        rec = c10d_record(func, args, out) if self._counting else None
+        rec = c10d_record(func, args, out) if self._recording else None
         if rec is not None:
             self.records.append(rec)
-        elif self._counting:
+        elif self._recording:
             packet = func._overloadpacket
             if packet in flop_registry:
                 f = float(flop_registry[packet](*args, **kwargs, out_val=out))
@@ -200,17 +201,31 @@ class CostMode(CollectiveRecorder):
                 self.track(o)
         return out
 
+    def _unrecorded(self, fn, *args):
+        """A shard swap's CPU fallback, neither counted nor tracked (its
+        all-gather holds the whole tensor for a moment, where the card's
+        all-to-all writes one shard); its result is tracked as a shard."""
+        tracking, self._tracking = self._tracking, False
+        try:
+            out = super()._unrecorded(fn, *args)
+            if out.untyped_storage().nbytes() > _nbytes(out):
+                out = super()._unrecorded(torch.clone, out)
+        finally:
+            self._tracking = tracking
+        self.track(out)
+        return out
+
     # -- counted scans --------------------------------------------------------
 
     @contextlib.contextmanager
     def _paused(self):
         """Ops run here are tracked but not counted (a step re-run for its
         backward: the loop's graph kept it)."""
-        self._counting = False
+        self._recording = False
         try:
             yield
         finally:
-            self._counting = True
+            self._recording = True
 
     def _snap(self) -> tuple:
         return self.flops, self.bytes, dict(self.flops_by_op), len(self.records)

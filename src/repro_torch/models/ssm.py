@@ -35,7 +35,7 @@ import torch
 
 from repro_torch.models import layers
 from repro_torch.models.layers import Params, matmul
-from repro_torch.sharding import local_map
+from repro_torch.sharding import local_map, local_shard, split_dims
 
 
 def _pick_chunk(seq_len: int, chunk: int) -> int:
@@ -563,12 +563,6 @@ def slstm_init(dims: XlstmDims, dense, normal, const, norm) -> Params:
     }
 
 
-def _flat_slstm(out):
-    """``((c, n, h, m), h_t)`` as ``(c, n, h, m, h_t)``."""
-    (c, n, h, m), h_t = out
-    return c, n, h, m, h_t
-
-
 def slstm_cell(
     w_x: torch.Tensor,  # [B, 4d] input pre-activations for this step
     r_gates: torch.Tensor,  # [H, P, 4P]
@@ -577,17 +571,20 @@ def slstm_cell(
     H: int,
     P: int,
 ):
-    if layers.is_dtensor(state[0]):  # each device's rows and heads of the state
-        bhp = ("b", "h", None)
-        c, n, h, m, h_new = local_map(
-            lambda c, n, h, m, w, r, g: _flat_slstm(slstm_cell(w, r, g, (c, n, h, m), r.shape[0], P)),
-            (*state, w_x, r_gates, gate_bias),
-            (bhp, bhp, bhp, bhp, ("b", "h"), ("h", None, None), ("h",)), (bhp,) * 5)
-        return (c, n, h, m), h_new
+    if layers.is_dtensor(w_x):  # one step under a mesh (``_slstm_mesh_scan``)
+        state, hs = _slstm_mesh_scan(w_x[:, None], r_gates, gate_bias, state, H, P)
+        return state, hs[:, 0]
     c, n, h, m = state
     rec = torch.einsum("bhp,hpq->bhq", h, r_gates.to(h.dtype))  # [B,H,4P]
     pre = layers.split_last(w_x, H, 4 * P).float() + rec.float()
     pre = pre + layers.split_last(gate_bias, H, 4 * P)[None]
+    return _slstm_gates(pre, (c, n, m))
+
+
+def _slstm_gates(pre: torch.Tensor, state: tuple):
+    """The cell's update from its f32 pre-activations ``pre [B,H,4P]`` (z, i,
+    f, o) and ``(c, n, m)``: ``((c, n, h, m), h)``."""
+    c, n, m = state
     z_p, i_p, f_p, o_p = torch.chunk(pre, 4, dim=-1)  # each [B,H,P]
     z = torch.tanh(z_p)
     o = torch.sigmoid(o_p)
@@ -599,6 +596,165 @@ def slstm_cell(
     n_new = f_w * n + i_w
     h_new = o * c_new / torch.clamp(n_new, min=1.0)
     return (c_new, n_new, h_new, m_new), h_new
+
+
+# -- sLSTM under a mesh: the step's activations move, the weight stays -------
+
+
+def _wait(t: torch.Tensor) -> torch.Tensor:
+    return torch.ops._c10d_functional.wait_tensor(t)
+
+
+def _all_gather0(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` of every device of ``group`` along dim 0."""
+    return _wait(torch.ops._c10d_functional.all_gather_into_tensor(
+        x.contiguous(), group.size(), group.group_name))
+
+
+def _reduce_scatter0(x: torch.Tensor, group) -> torch.Tensor:
+    """This device's part of dim 0 of ``x`` summed over ``group``."""
+    return _wait(torch.ops._c10d_functional.reduce_scatter_tensor(
+        x.contiguous(), "sum", group.size(), group.group_name))
+
+
+def _all_to_all0(x: torch.Tensor, group) -> torch.Tensor:
+    """Part ``j`` of dim 0 of ``x`` to device ``j`` of ``group``; the parts
+    received, in device order along dim 0."""
+    split = [x.shape[0] // group.size()] * group.size()
+    return _wait(torch.ops._c10d_functional.all_to_all_single(
+        x.contiguous(), split, split, group.group_name))
+
+
+def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` summed over ``group``."""
+    return _wait(torch.ops._c10d_functional.all_reduce(x.contiguous(), "sum", group.group_name))
+
+
+class _RecSplitHeads(torch.autograd.Function):
+    """``rec [B, H_l, 4P]`` of this device's heads, where ``group`` splits the
+    heads (``h [B, H_l, P]``) and ``r_gates``' columns (``r [H, P, c]``, this
+    device's ``c = 4P / m``) alike: every head's ``h`` gathered, this
+    device's columns of every head, then one all-to-all that brings each
+    head's columns to its device.  It saves its own heads and gathers them
+    again for its backward, which sends each device its columns' gradient,
+    computes ``r``'s and sums ``h``'s back to its heads' devices."""
+
+    @staticmethod
+    def forward(ctx, h, r, group):
+        ctx.group = group
+        ctx.save_for_backward(h, r)
+        m, (B, Hl, _), c = group.size(), h.shape, r.shape[-1]
+        rec = torch.einsum("hbp,hpq->hbq", _all_gather0(h.transpose(0, 1), group), r)
+        out = _all_to_all0(rec, group).view(m, Hl, B, c)  # [source's columns, head, row, q]
+        return out.permute(2, 1, 0, 3).reshape(B, Hl, m * c)
+
+    @staticmethod
+    def backward(ctx, g):
+        h, r = ctx.saved_tensors
+        group, m, (B, Hl, _), c = ctx.group, ctx.group.size(), h.shape, r.shape[-1]
+        g = g.reshape(B, Hl, m, c).permute(2, 1, 0, 3).reshape(m * Hl, B, c)
+        g = _all_to_all0(g, group)  # [H, B, c]: this device's columns of every head
+        d_r = d_h = None
+        if ctx.needs_input_grad[1]:
+            d_r = torch.einsum("hbp,hbq->hpq", _all_gather0(h.transpose(0, 1), group), g)
+        if ctx.needs_input_grad[0]:
+            d_h = _reduce_scatter0(torch.einsum("hbq,hpq->hbp", g, r), group).transpose(0, 1)
+        return d_h, d_r, None
+
+
+class _WholeColumns(torch.autograd.Function):
+    """``x [..., k]``, this device's ``k`` columns, as ``[..., m k]``, every
+    device's, by one all-gather over ``group`` (of ``m``).  Every device of
+    the group then runs the same cell on the same state, so the backward
+    keeps this device's columns of the gradient (each holds all of it)."""
+
+    @staticmethod
+    def forward(ctx, x, group, rank):
+        ctx.m, ctx.rank = group.size(), rank
+        return _all_gather0(x, group).unflatten(0, (ctx.m, -1)).movedim(0, -2).flatten(-2)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.unflatten(-1, (ctx.m, -1)).select(-2, ctx.rank).contiguous(), None, None
+
+
+class _SummedGrad(torch.autograd.Function):
+    """The identity, its gradient summed over ``group``: ``h`` meets each
+    device's own columns of ``r_gates``, so each device holds a part of
+    its gradient."""
+
+    @staticmethod
+    def forward(ctx, h, group):
+        ctx.group = group
+        return h.view_as(h)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group), None
+
+
+def _slstm_mesh_scan(w_x, r_gates, gate_bias, initial: tuple, H: int, P: int):
+    """sLSTM's time loop under a mesh: ``w_x [B, S, 4d]`` a DTensor, the
+    state ``(c, n, h, m)`` DTensors or plain tensors taken as replicated.
+    Returns ``((c, n, h, m), hs [B, S, H, P])`` as DTensors.
+
+    ``r_gates``, ``gate_bias`` and ``w_x`` stay in the layouts
+    ``param_specs`` and the projection give them: ``r_gates``' 4P columns
+    split over the mesh dim that splits them ("model"), ``w_x``'s and
+    ``gate_bias``' 4d columns alike, which is by heads.  Each step moves its
+    activations instead, the plan of the reference's compiled program.
+    Where that dim divides the heads, each device holds its heads' state:
+    ``h`` is gathered, each device computes its columns of every head's
+    ``rec`` and one all-to-all brings each head's columns to its device.
+    Where it does not (a "model" axis wider than the heads), the state is
+    whole on every device of that dim, which all-gather the step's columns
+    of ``w_x`` and of ``rec``.  The inputs are laid out once, before the
+    loop, and the loop runs on local tensors: nothing in it re-lays out a
+    tensor, and ``r_gates``' gradient is summed over the steps on each
+    device and reduced once, after the loop."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = w_x.device_mesh
+    cols = split_dims(r_gates, 2)
+    i = cols[0] if cols else None
+    m = mesh.size(i) if i is not None else 1
+    heads = i is not None and H % m == 0  # the state's heads split over dim i
+    rows = split_dims(w_x, 0)
+    Hl = H // m if heads else H
+
+    def layout(row: int, head: int, split: bool = heads) -> list:
+        return [Shard(row) if j in rows else Shard(head) if split and j == i else Replicate()
+                for j in range(mesh.ndim)]
+
+    def summed(target: list) -> list:  # a weight's gradient from this device's rows
+        return [Partial() if j in rows else p for j, p in enumerate(target)]
+
+    r_layout = [Shard(2) if j == i else Replicate() for j in range(mesh.ndim)]
+    g_layout = [Shard(0) if heads and j == i else Replicate() for j in range(mesh.ndim)]
+    xs = local_shard(w_x, mesh, layout(0, 2, i is not None))
+    r = local_shard(r_gates, mesh, r_layout, summed(r_layout)).float()
+    g = local_shard(gate_bias, mesh, g_layout, summed(g_layout))
+    carry = tuple(local_shard(t, mesh, layout(0, 1)) for t in initial)
+    if i is not None:
+        group, rank = mesh.get_group(i), mesh.get_local_rank(i)
+
+    def step(state, w_t):
+        c, n, h, m_ = state
+        if heads:
+            rec = _RecSplitHeads.apply(h, r, group)
+        elif i is not None:
+            w_t = _WholeColumns.apply(w_t, group, rank)
+            rec = torch.einsum("bhp,hpq->bhq", _SummedGrad.apply(h, group), r)
+            rec = _WholeColumns.apply(rec, group, rank)
+        else:
+            rec = torch.einsum("bhp,hpq->bhq", h, r)
+        pre = layers.split_last(w_t, Hl, 4 * P).float() + rec
+        pre = pre + layers.split_last(g, Hl, 4 * P)[None]
+        return _slstm_gates(pre, (c, n, m_))
+
+    state, hs = layers.scan(step, carry, xs, params=(r, g))
+    state = tuple(DTensor.from_local(t, mesh, layout(0, 1), run_check=False) for t in state)
+    return state, DTensor.from_local(hs, mesh, layout(0, 2), run_check=False)
 
 
 def slstm_forward(
@@ -617,8 +773,12 @@ def slstm_forward(
         initial = (zeros, zeros, zeros, torch.full((B, H, P), -1e30, dtype=torch.float32,
                                                    device=x.device))
     r_gates, gate_bias = params["r_gates"], params["gate_bias"]
-    state, hs = layers.scan(lambda state, w_t: slstm_cell(w_t, r_gates, gate_bias, state, H, P),
-                            initial, w_x, params=(r_gates, gate_bias))
+    if layers.is_dtensor(w_x):
+        state, hs = _slstm_mesh_scan(w_x, r_gates, gate_bias, initial, H, P)
+    else:
+        state, hs = layers.scan(
+            lambda state, w_t: slstm_cell(w_t, r_gates, gate_bias, state, H, P),
+            initial, w_x, params=(r_gates, gate_bias))
     h = layers.merge_last(hs).to(x.dtype)  # [B,S,d]
     h = layers.rmsnorm(params["norm_h"], h)
     out = h + layers.glu_ffn(params["ffn"], h)

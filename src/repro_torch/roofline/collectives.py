@@ -109,16 +109,68 @@ def c10d_record(func, args: tuple, out) -> tuple[str, int, int] | None:
     return kind, _tensor_bytes(out), _group_size(args, size_arg)
 
 
+def _swap_sites() -> list:
+    """The loaded DTensor modules that call ``shard_dim_alltoall`` by a name
+    of their own (``placement_types``' shard-to-shard swap)."""
+    import sys
+
+    from torch.distributed.tensor import _collective_utils
+
+    fn = _collective_utils.shard_dim_alltoall
+    return [m for name, m in list(sys.modules.items())
+            if name.startswith("torch.distributed.tensor") and m is not None
+            and (getattr(m, "shard_dim_alltoall", None) is fn
+                 or hasattr(getattr(m, "shard_dim_alltoall", None), "recorded_swap"))]
+
+
 class CollectiveRecorder(TorchDispatchMode):
-    """Records every functional c10d collective issued while active."""
+    """Records every functional c10d collective issued while active.
+
+    A DTensor swap of a shard from one tensor dim to another
+    (``shard_dim_alltoall``) is recorded as the one all-to-all of the local
+    shard that NCCL runs: on a CPU mesh DTensor runs it as an all-gather of
+    the whole tensor and a slice, which runs as before (the values are the
+    same) but is not recorded."""
 
     def __init__(self) -> None:
         super().__init__()
         self.records: list[tuple[str, int, int]] = []
+        self._recording = True
+        self._swapped: list = []
+
+    def __enter__(self):
+        sites = _swap_sites()
+        inner = sites[0].shard_dim_alltoall if sites else None
+
+        def swap(input, gather_dim, shard_dim, mesh, mesh_dim):
+            out = self._unrecorded(inner, input, gather_dim, shard_dim, mesh, mesh_dim)
+            if self._recording:
+                self.records.append(("all-to-all", _tensor_bytes(out), mesh.size(mesh_dim)))
+            return out
+
+        swap.recorded_swap = True
+        for m in sites:
+            m.shard_dim_alltoall = swap
+        self._swapped.append((sites, inner))
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        sites, inner = self._swapped.pop()
+        for m in sites:
+            m.shard_dim_alltoall = inner
+        return super().__exit__(*exc)
+
+    def _unrecorded(self, fn, *args):
+        """``fn(*args)`` with nothing it issues recorded."""
+        was, self._recording = self._recording, False
+        try:
+            return fn(*args)
+        finally:
+            self._recording = was
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
-        rec = c10d_record(func, args, out)
+        rec = c10d_record(func, args, out) if self._recording else None
         if rec is not None:
             self.records.append(rec)
         return out

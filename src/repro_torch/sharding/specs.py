@@ -262,6 +262,21 @@ class _ContiguousGrad(torch.autograd.Function):
         return g.contiguous()
 
 
+def local_shard(a, mesh, target: list, grad: list | None = None) -> torch.Tensor:
+    """This device's shard of ``a`` laid out as ``target`` (a DTensor is
+    redistributed there if it is not, a plain tensor, taken as replicated,
+    is cut here), its gradient coming back laid out as ``grad`` (default
+    ``target``)."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    if isinstance(a, DTensor):
+        a = a.redistribute(mesh, target) if list(a.placements) != list(target) else a
+    else:
+        a = distribute_tensor(a, mesh, target, src_data_rank=None)
+    a = a.to_local(grad_placements=grad or target)
+    return _ContiguousGrad.apply(a) if a.requires_grad else a
+
+
 def local_map(fn, args: tuple, roles: tuple, out_roles: tuple):
     """Run ``fn`` on the local shards of ``args`` (DTensors or plain
     tensors, the latter taken as replicated) and wrap its outputs.
@@ -278,7 +293,7 @@ def local_map(fn, args: tuple, roles: tuple, out_roles: tuple):
     leaves unsplit (a vocab-split head beside batch-split rows).
     ``out_roles`` names the outputs' dims.
     """
-    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard, distribute_tensor
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
     dts = [(a, r) for a, r in zip(args, roles) if isinstance(a, DTensor)]
     mesh = dts[0][0].device_mesh
@@ -304,15 +319,10 @@ def local_map(fn, args: tuple, roles: tuple, out_roles: tuple):
     local = []
     for a, r in zip(args, roles):
         target = layout(r)
-        if isinstance(a, DTensor):
-            a = a.redistribute(mesh, target) if list(a.placements) != target else a
-        else:
-            a = distribute_tensor(a, mesh, target, src_data_rank=None)
         # an argument replicated along a mesh dim that splits the others'
         # rows or heads gets only this device's part of its gradient there
         grad = [Partial() if k is not None and k not in r else p for k, p in zip(kept, target)]
-        a = a.to_local(grad_placements=grad)
-        local.append(_ContiguousGrad.apply(a) if a.requires_grad else a)
+        local.append(local_shard(a, mesh, target, grad))
     out = fn(*local)
     if isinstance(out, tuple):
         return tuple(DTensor.from_local(o, mesh, layout(r), run_check=False)

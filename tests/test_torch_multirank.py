@@ -6,10 +6,11 @@ in ``tests/torch_multirank_workers.py``; each holds the sharded path to the
 unsharded one computed on the same rank.  The compressed step at one pod
 is held to the JAX package's here, in this process (a world of one).
 
-The serve and train steps run here on (1,2) and (2,2), and the compressed
+The serve and train steps run here on (1,2) and (2,2), reduced xlstm-350m's
+on (2,2) (its sLSTM keeping ``r_gates`` split by columns), and the compressed
 step on (2,1,2); ``tests/test_torch_multirank_moe_pods.py`` runs the serve
 and train steps on (2,1,2) and reduced mixtral-8x7b's MoE on (2,2), so that
-each file stays near 90 s on one test worker."""
+each file stays near two minutes on one test worker."""
 import numpy as np
 import pytest
 import torch
@@ -25,6 +26,50 @@ def test_sharded_serve_steps_equal_unsharded(mesh_key, tmp_path):
 @pytest.mark.parametrize("mesh_key", ["1x2", "2x2"])
 def test_sharded_train_step_stream_and_restore(mesh_key, tmp_path):
     workers.spawn(workers.train_step, mesh_key, tmp_path)
+
+
+def test_sharded_xlstm_serve_steps_equal_unsharded(tmp_path):
+    """Reduced xlstm-350m on (2,2): the sharded prefill, and each sharded
+    decode step started from the unsharded step's token and caches, give
+    the unsharded steps' tokens and exits, confidences at atol 1e-3.  The
+    chained sharded run parts at the fifth decode step (a near-tie token),
+    where the random-weight recurrence has grown the sharded norms' f32
+    rounding (``test_reduced_xlstm_step_grows_one_rounding``)."""
+    workers.spawn(workers.serve_steps, "2x2", tmp_path, "xlstm-350m", False)
+
+
+def test_sharded_xlstm_train_step_equals_unsharded(tmp_path):
+    """Reduced xlstm-350m on (2,2): the sharded train step's loss, grad
+    norm and update, and each block's gradients fed the same inputs
+    (``r_gates``' among them, reduced once), against the unsharded port."""
+    workers.spawn(workers.xlstm_train, "2x2", tmp_path)
+
+
+def test_reduced_xlstm_step_grows_one_rounding():
+    """Why the xlstm tests above hold the sharded steps step by step and
+    block by block: unsharded, one train step of reduced xlstm-350m moves
+    its gradients by more than the workers' ``GRAD_RTOL`` when one norm
+    scale of the first block changes by 1e-6 (a few f32 ulps, the size of
+    the rounding a sharded norm's two partial sums make), so the chained
+    sharded step cannot meet it leaf by leaf."""
+    from torch.utils._pytree import tree_leaves
+
+    from repro_torch.data.pipeline import DataConfig, token_stream
+    from repro_torch.training import optimizer as opt_lib
+    from repro_torch.training.train_step import make_train_step
+
+    torch.set_num_threads(1)
+    c = workers.cfg("xlstm-350m")
+    batch = next(token_stream(c, DataConfig(batch_size=4, seq_len=16, seed=3), device="cpu"))
+
+    def moments(scale: float):
+        params = workers._params(c, master=True)
+        params["stages"][0]["blocks"][0]["mlstm"]["norm_h"]["scale"].mul_(scale)
+        state = make_train_step(c, workers.OPT)(params, opt_lib.init_opt_state(params), batch)[1]
+        return tree_leaves(state["m"])
+
+    gaps = [workers._rel(a, b) for a, b in zip(moments(1 + 1e-6), moments(1.0))]
+    assert max(gaps) > workers.GRAD_RTOL, max(gaps)
 
 
 def test_compressed_step_two_pods_equals_hand_computation(tmp_path):

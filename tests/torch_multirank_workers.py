@@ -3,6 +3,7 @@ its own (spawned), joins a gloo group through a ``FileStore`` and holds the
 port's sharded path to the unsharded one computed on the same rank from
 the same seed.  Imports torch and the port only (no JAX)."""
 import contextlib
+import dataclasses
 import os
 
 import numpy as np
@@ -14,7 +15,7 @@ from torch.utils._pytree import tree_leaves, tree_map
 from repro_torch import sharding
 from repro_torch.configs import get_config
 from repro_torch.data.pipeline import DataConfig, _batch_for_step, token_stream
-from repro_torch.models import model
+from repro_torch.models import layers, model
 from repro_torch.runtime import compression
 from repro_torch.runtime.checkpoint import CheckpointManager
 from repro_torch.serving.steps import make_decode_step, make_prefill_step
@@ -167,13 +168,17 @@ def check_planted_faults(p0, p1, state) -> None:
 # ---------------------------------------------------------------------------
 
 
-def serve_steps(rank, world, store_path, shape, names, arch="stablelm-1.6b"):
+def serve_steps(rank, world, store_path, shape, names, arch="stablelm-1.6b", chained=True):
     """Prefill + 6 decode steps sharded (params by ``as_serving`` specs, the
     batch by ``batch_specs``) against the same steps unsharded: tokens and
     exit stages equal, confidences at atol 1e-3.  For an MoE config the
     unsharded prefill must overflow an expert (choices dropped at the
     capacity of the whole batch), so the sharded steps are held to the same
-    drops."""
+    drops.  ``chained=False`` starts each sharded decode step from the
+    unsharded step's inputs (its token, and a copy of its caches laid out by
+    ``cache_specs``) instead of from the sharded step before it: for a
+    recurrence that grows a rounding without bound (reduced xlstm's, see
+    ``tests/test_torch_multirank.py``), each step is held to its own."""
     mesh = _init(rank, world, store_path, shape, names)
     try:
         c = cfg(arch)
@@ -189,25 +194,38 @@ def serve_steps(rank, world, store_path, shape, names, arch="stablelm-1.6b"):
         srt = torch.sort(conf, dim=0).values
         th = torch.stack([(srt[2, 0] + srt[3, 0]) / 2, (srt[1, 1] + srt[2, 1]) / 2])
 
-        def run(params, place):
+        def run(params, place, inputs=None):
+            """The steps; ``inputs`` (a list) collects each decode step's
+            token and a copy of its caches, or, from a run before, gives
+            them."""
             out = prefill(params, place({"tokens": tokens}), th)
             trace = [out]
-            for _ in range(n_dec):
-                out = decode(params, place({"tokens": _as_col(out["token"])}), out["caches"], th)
+            for k in range(n_dec):
+                tok, caches = out["token"], out["caches"]
+                if inputs is None or len(inputs) == k:
+                    if inputs is not None:
+                        inputs.append((tok, _clone(caches)))  # decode updates them in place
+                else:
+                    tok, caches = inputs[k]
+                    caches = sharding.distribute_tree(
+                        _clone(caches), sharding.cache_specs(caches), mesh)
+                out = decode(params, place({"tokens": _as_col(tok)}), caches, th)
                 trace.append(out)
             return trace
 
         def _as_col(tok):
             return tok[:, None]
 
+        inputs = None if chained else []
         with _count_drops() as drops:
-            ref = run(params, lambda b: b)
+            ref = run(params, lambda b: b, inputs)
         if c.moe is not None:
             assert drops[0] > 0, "no expert overflowed"
         rules = sharding.set_mesh(mesh)
         sparams = sharding.distribute_tree(
             params, sharding.param_specs(params, rules.as_serving()), mesh)
-        got = run(sparams, lambda b: sharding.distribute_tree(b, sharding.batch_specs(b), mesh))
+        got = run(sparams, lambda b: sharding.distribute_tree(b, sharding.batch_specs(b), mesh),
+                  inputs)
         for i, (r, g) in enumerate(zip(ref, got)):
             assert torch.equal(_full(g["token"]), r["token"]), (i, rank)
             assert torch.equal(_full(g["exit_stage"]), r["exit_stage"]), (i, rank)
@@ -303,6 +321,121 @@ def train_step(rank, world, store_path, shape, names, arch="stablelm-1.6b"):
     finally:
         sharding.clear_mesh()
         dist.destroy_process_group()
+
+
+def xlstm_train(rank, world, store_path, shape, names):
+    """Reduced xlstm-350m under a mesh in training, against the unsharded
+    port on the same rank.
+
+    One train step, chained as ``train_step`` runs it: loss at
+    ``SHARDED_LOSS_RTOL``, grad norm at ``GRAD_NORM_RTOL``, the updated
+    masters AdamW's step from the step's own moments (``check_update``,
+    which refuses a skipped or sign-flipped update).  Its per-leaf moments
+    are not held at ``GRAD_RTOL`` here: the random-weight model grows one
+    f32 rounding of the sharded norms' sums to a few percent of every
+    gradient, as the unsharded step does a 1e-6 change of one norm scale
+    (``tests/test_torch_multirank.py``).  So the gradients are held block by
+    block (``_xlstm_blocks``): stage 0's period on this mesh, whose "model"
+    axis splits the 4 heads, and an sLSTM block of 2 heads on a (1, 4) mesh
+    over the same ranks, whose "model" axis does not (each device then runs
+    every head, the columns of ``rec`` all-gathered)."""
+    mesh = _init(rank, world, store_path, shape, names)
+    try:
+        c = cfg("xlstm-350m")
+        dcfg = DataConfig(batch_size=4, seq_len=16, seed=3)
+        params = _params(c, master=True)
+        p0 = _clone(params)
+        batch = next(token_stream(c, dcfg, device="cpu"))
+        ref_m = make_train_step(c, OPT)(_clone(params), opt_lib.init_opt_state(params), batch)[2]
+
+        sharding.set_mesh(mesh)
+        sp = sharding.distribute_tree(_clone(params), sharding.param_specs(params), mesh)
+        ss = opt_lib.init_opt_state(params)
+        ss = sharding.distribute_tree(ss, sharding.param_specs(ss), mesh)
+        sp, ss, sm = make_train_step(c, OPT)(sp, ss, next(token_stream(c, dcfg, mesh=mesh)))
+        np.testing.assert_allclose(float(_full(sm["loss"])), float(ref_m["loss"]),
+                                   rtol=SHARDED_LOSS_RTOL)
+        np.testing.assert_allclose(float(_full(sm["grad_norm"])), float(ref_m["grad_norm"]),
+                                   rtol=GRAD_NORM_RTOL)
+        check_update(p0, sp, ss)
+        check_planted_faults(p0, sp, ss)
+
+        period = params["stages"][0]["blocks"]
+        _xlstm_blocks(mesh, c, [(kind, period[j][kind]) for j, kind in enumerate(c.period)])
+        from torch.distributed.device_mesh import init_device_mesh
+
+        wide = init_device_mesh("cpu", (1, world), mesh_dim_names=("data", "model"))
+        sharding.set_mesh(wide)
+        c2 = get_config("xlstm-350m").reduced(
+            vocab_size=VOCAB, xlstm=dataclasses.replace(c.xlstm, num_heads=2))
+        slstm = _params(c2, master=True)["stages"][0]["blocks"][1]["slstm"]
+        _xlstm_blocks(wide, c2, [("slstm", slstm)])
+    finally:
+        sharding.clear_mesh()
+        dist.destroy_process_group()
+
+
+def _xlstm_blocks(mesh, c, blocks) -> None:
+    """Each ``(kind, params)`` of ``blocks`` (stacked leaves: the first
+    period's) fed the same input and output gradient sharded (``param_specs``,
+    rows over "data") and unsharded: a prefill of B 4, S 16 through it, its
+    output norm-wise at 2^-7 (two bf16 ulps), the gradients of every
+    parameter and of the input at ``GRAD_RTOL``; then one decode token from
+    the prefill's state, its output and state at 2^-7.  ``r_gates``'
+    gradient comes out of an sLSTM block summed over its time steps on each
+    device and not yet over the rows' devices (``Partial``): the step
+    reduces it once."""
+    from torch.distributed.tensor import Partial
+
+    from repro_torch.models import ssm
+
+    g = torch.Generator().manual_seed(7)
+    x = torch.randn((4, 16, c.d_model), generator=g).bfloat16()
+    ct = torch.randn((4, 16, c.d_model), generator=g)
+    xd = torch.randn((4, 1, c.d_model), generator=g).bfloat16()
+    row = sharding.PartitionSpec("data", None, None)
+    for kind, block in blocks:
+        block = tree_map(lambda t: t[0].clone().requires_grad_(True), block)
+        fwd, dec = getattr(ssm, f"{kind}_forward"), getattr(ssm, f"{kind}_decode")
+        xr = x.clone().requires_grad_(True)
+        want, state = fwd(block, xr, c.xlstm, return_state=True)
+        (want.float() * ct).sum().backward()
+
+        sblock = sharding.distribute_tree(tree_map(lambda t: t.detach(), block),
+                                          sharding.param_specs(block), mesh)
+        sblock = tree_map(lambda t: t.requires_grad_(True), sblock)
+        sx = sharding.distribute(x, row, mesh).requires_grad_(True)
+        with sharding.mesh_scope(sblock):
+            got, sstate = fwd(sblock, sx, c.xlstm, return_state=True)
+            (got.float() * sharding.distribute(ct, row, mesh)).sum().backward()
+        assert _rel(got, want) <= 2.0**-7, (kind, _rel(got, want))
+        assert _rel(sx.grad, xr.grad) <= GRAD_RTOL, (kind, "x", _rel(sx.grad, xr.grad))
+        flat = torch.utils._pytree.tree_flatten_with_path(block)[0]
+        for (path, a), b in zip(flat, tree_leaves(sblock)):
+            err = _rel(b.grad, a.grad)
+            assert err <= GRAD_RTOL, (kind, path, err)
+        data = mesh.mesh_dim_names.index("data")
+        if kind == "slstm" and mesh.size(data) > 1:
+            assert isinstance(sblock["r_gates"].grad.placements[data], Partial), \
+                sblock["r_gates"].grad.placements
+
+        # one decode token from the prefill's state
+        with torch.no_grad():
+            names = ("c", "n", "h", "m") if kind == "slstm" else ("C", "n", "m")
+            cache = dict(zip(names, (t.detach() for t in state)))
+            scache = dict(zip(names, (t.detach() for t in sstate)))
+            for cc in (cache, scache):
+                cc["pos"] = torch.tensor(16, dtype=torch.int32)
+            if kind == "mlstm":
+                up = layers.matmul(x[:, -(c.xlstm.conv_kernel - 1):], block["up_proj"])
+                cache["conv"] = torch.chunk(up, 2, dim=-1)[0].to(torch.bfloat16)
+                scache["conv"] = sharding.distribute(cache["conv"], row, mesh)
+            out, new = dec(block, xd, cache, c.xlstm)
+            with sharding.mesh_scope(sblock):
+                sout, snew = dec(sblock, sharding.distribute(xd, row, mesh), scache, c.xlstm)
+        assert _rel(sout, out) <= 2.0**-7, (kind, "decode", _rel(sout, out))
+        for k in names:
+            assert _rel(snew[k], new[k]) <= 2.0**-7, (kind, "decode", k, _rel(snew[k], new[k]))
 
 
 def compressed_step(rank, world, store_path, shape, names):
