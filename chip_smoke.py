@@ -310,9 +310,17 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def device_launches(run) -> dict[str, list[float]]:
+# the elementwise kernels a backward writes zeros and sums gradients with,
+# by a substring of the profiler's kernel name
+BACKWARD_KINDS = {"fill": "FillFunctor", "add": "Functor_add"}
+
+
+def device_launches(run, backward: dict | None = None) -> dict[str, list[float]]:
     """The duration in us of each launch, by name, of the kernels, copies
-    and memsets that ``run`` enqueues, as the profiler records them."""
+    and memsets that ``run`` enqueues, as the profiler records them.  With
+    ``backward`` (a dict), it also gets, per kind of ``BACKWARD_KINDS``,
+    ``[launches, device ms]`` of the kernels that ops on the autograd
+    engine's threads launched (the backward, its recompute included)."""
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=activities) as prof:
         run()
@@ -323,6 +331,19 @@ def device_launches(run) -> dict[str, list[float]]:
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             out.setdefault(e.key, []).append(e.self_device_time_total)
+    if backward is not None:
+        engine = {e.thread for e in prof.events()
+                  if e.name.startswith("autograd::engine::evaluate_function")}
+        for kind in BACKWARD_KINDS:
+            backward[kind] = [0, 0.0]
+        for e in prof.events():
+            if e.device_type != torch.autograd.DeviceType.CPU or e.thread not in engine:
+                continue
+            for k in e.kernels:
+                for kind, sub in BACKWARD_KINDS.items():
+                    if sub in k.name:
+                        backward[kind][0] += 1
+                        backward[kind][1] += k.duration / 1e3
     return out
 
 
@@ -3040,7 +3061,8 @@ def train_phase(dev, read_counts, zero_counts) -> None:
     # (c): a 7th step under the profiler
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    names = device_launches(lambda: step_fn(params, opt_state, batches[TRAIN_STEPS]))
+    bwd: dict = {}
+    names = device_launches(lambda: step_fn(params, opt_state, batches[TRAIN_STEPS]), bwd)
     t_prof = time.perf_counter() - t1
     found = sorted({kernel_name(k) for k in names} & set(KERNEL_FUNCTIONS))
     n_dev = sum(len(v) for v in names.values())
@@ -3050,6 +3072,8 @@ def train_phase(dev, read_counts, zero_counts) -> None:
           f"of {t_prof * 1e3:.1f} ms wall (the profiler's overhead in the wall); by kernel: "
           + "; ".join(f"{kernel_name(k)[:48]} x{len(names[k])} {ms:.1f} ms" for k, ms in top),
           flush=True)
+    print("train: the backward's (its recompute included) " + "; ".join(
+        f"{kind} kernels x{n} {ms:.2f} ms" for kind, (n, ms) in bwd.items()), flush=True)
     check("train (c): a profiled step launches none of the kernels' device functions",
           n_dev > 0 and not found and sum(read_counts().values()) == 0,
           f"{n_dev} device launches recorded, of the kernels' {found}")

@@ -336,9 +336,11 @@ class _CountedScan(torch.autograd.Function):
     and counts its backward, from the last step down: the last step (no
     carry gradient from a later one), one steady step, whose counts stand
     for every steady step while its carry gradients keep their signature,
-    and the first steps run; the adds that sum the gradients of ``xs`` and
-    of ``params`` over the steps are counted with each step, as the loop's
-    autograd adds them.  It returns gradients of the full shapes."""
+    and the first steps run; the adds that sum the gradients of ``params``
+    over the steps are counted with each step, as the loop's autograd adds
+    them.  Each step's gradient of its slice of ``xs`` is the slice's own
+    (the loop unbinds ``xs`` once), and the S of them are stacked once, as
+    the unbind's backward does.  It returns gradients of the full shapes."""
 
     @staticmethod
     def forward(ctx, mode, body, n, params, *args):
@@ -366,49 +368,54 @@ class _CountedScan(torch.autograd.Function):
         mode, body, n, S, params = ctx.mode, ctx.body, ctx.n, ctx.S, ctx.params
         hold, xs, *flat = ctx.saved_tensors
         del hold
-        xs = xs.detach().requires_grad_(ctx.xs_grad)
+        xs = xs.detach()
         inputs = [flat[i * n:(i + 1) * n] for i in range(len(ctx.flags))]
         k = len(inputs) - 1  # the steady step (the last step run)
         g_carry, g_ys = grads[:n], grads[n]
-        acc: list = [None] * (1 + len(params))  # xs's and params' gradients
+        acc: list = [None] * len(params)  # params' gradients
+        g_xs = []  # the gradients of the slices of xs of the steps run
         t = S - 1
         while t >= 0:
             i = min(t, k)
             snap = mode._snap()
-            g_in = _step_backward(mode, body, inputs[i], ctx.flags[i], xs, t, params, g_carry,
-                                  None if g_ys is None else g_ys.select(1, t), acc)
+            g_in, g_x = _step_backward(mode, body, inputs[i], ctx.flags[i],
+                                       xs.select(1, t).requires_grad_(ctx.xs_grad), params,
+                                       g_carry, None if g_ys is None else g_ys.select(1, t), acc)
             delta = mode._since(snap)
+            g_xs.append(g_x)
             steady = k <= t < S - 1 and _signature(g_in) == _signature(g_carry)
             g_carry = g_in
             if steady and t > k:  # steps t-1 .. k run these ops again
                 mode._repeat(delta, t - k)
                 t = k
             t -= 1
-        return (None, None, None, None, *g_carry, acc[0], *acc[1:])
+        g_xs = mode._stack(g_xs, S) if ctx.xs_grad else None
+        return (None, None, None, None, *g_carry, g_xs, *acc)
 
 
-def _step_backward(mode, body, carry, flags, xs, t, params, g_carry, g_y, acc):
-    """Step ``t``'s backward: its forward re-run uncounted from ``carry``,
-    then autograd from its outputs' gradients to its carry, ``xs`` and
-    ``params``; the gradients of ``xs`` and ``params`` are added into
-    ``acc``.  Returns the carry's gradients (None where none flows)."""
+def _step_backward(mode, body, carry, flags, x_t, params, g_carry, g_y, acc):
+    """A step's backward: its forward re-run uncounted from ``carry`` on its
+    slice ``x_t`` of ``xs``, then autograd from its outputs' gradients to
+    its carry, ``x_t`` and ``params``; the gradients of ``params`` are
+    added into ``acc``.  Returns the carry's gradients (None where none
+    flows) and ``x_t``'s (None where ``xs`` takes none)."""
     with torch.enable_grad():
         carry = tuple(c.detach().requires_grad_(f) for c, f in zip(carry, flags))
         with mode._paused():
-            new, y = body(carry, xs[:, t])
+            new, y = body(carry, x_t)
         pairs = [(o, g) for o, g in zip((*new, y), (*g_carry, g_y))
                  if g is not None and o.requires_grad]
-        wrt = [c for c in carry if c.requires_grad]
-        wrt += [a for a in (xs, *params) if a.requires_grad]
+        wrt = [a for a in (*carry, x_t, *params) if a.requires_grad]
         got = list(torch.autograd.grad([o for o, _ in pairs], wrt, [g for _, g in pairs],
                                        allow_unused=True)) if pairs else [None] * len(wrt)
     g_in = tuple(got.pop(0) if c.requires_grad else None for c in carry)
-    for j, a in enumerate((xs, *params)):
+    g_x = got.pop(0) if x_t.requires_grad else None
+    for j, a in enumerate(params):
         if a.requires_grad:
             g = got.pop(0)
             if g is not None:
                 acc[j] = g if acc[j] is None else acc[j] + g
-    return g_in
+    return g_in, g_x
 
 
 def _serving_params(aparams):

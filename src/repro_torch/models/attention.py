@@ -212,11 +212,8 @@ def chunked_attention(
     if Sq % q_chunk != 0:  # one block for ragged tiny shapes, as the reference
         q_chunk = Sq
     outs = [
-        _attend_block(
-            q[:, i : i + q_chunk], k, v, q_positions[i : i + q_chunk], k_positions, groups,
-            window,
-        )
-        for i in range(0, Sq, q_chunk)
+        _attend_block(q_c, k, v, pos_c, k_positions, groups, window)
+        for q_c, pos_c in zip(layers.pieces(q, q_chunk), layers.pieces(q_positions, q_chunk, 0))
     ]
     return torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
 

@@ -215,11 +215,21 @@ def einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def pieces(t: torch.Tensor, size: int, dim: int = 1) -> tuple:
+    """``t`` cut along ``dim`` into pieces of ``size``, all at once
+    (``torch.split``, whose backward is one ``cat``; a slice per piece
+    would write a zero tensor of all of ``t`` in each piece's backward).
+    One piece is ``t`` itself: a DTensor's split would gather a split
+    ``dim`` that a whole slice keeps split."""
+    return (t,) if t.shape[dim] == size else torch.split(t, size, dim)
+
+
 def loop_scan(body, carry: tuple, xs: torch.Tensor, params: tuple = ()):
-    """``scan`` as a Python loop, one ``body`` call a step."""
+    """``scan`` as a Python loop, one ``body`` call a step; ``xs`` is
+    unbound once (its backward stacks the steps' gradients)."""
     ys = []
-    for t in range(xs.shape[1]):
-        carry, y = body(carry, xs[:, t])
+    for x_t in xs.unbind(1):
+        carry, y = body(carry, x_t)
         ys.append(y)
     return carry, torch.stack(ys, dim=1)
 

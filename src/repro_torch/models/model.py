@@ -20,7 +20,7 @@ state, mLSTM's conv tail and ``C``/``n``/``m``, sLSTM's ``c``/``n``/``h``/
 ``m``), and ``pos``; the monolithic steps' attention cache is a ring of
 ``sliding_window`` slots with its ``slot_pos`` when the window is shorter
 than ``max_len``.  The reference's ``lax.scan`` over periods is a Python
-loop here.
+loop here, over the stacked leaves unbound once (``_periods``).
 
 Training (``loss_fn``) runs the stages in mode ``"train"``: attention is
 the plain ``chunked_attention`` on every device (the CUDA kernels are
@@ -222,6 +222,17 @@ def _period(tree: Params, i: int) -> Params:
     return {k: (_period(v, i) if isinstance(v, dict) else v[i]) for k, v in tree.items()}
 
 
+def _periods(tree: Params) -> list[Params]:
+    """Every period of a stacked block dict, each leaf unbound once: the
+    backward stacks the periods' gradients into one tensor (the reference's
+    scan writes each as a slice), where indexing period by period would add
+    a zero tensor of the whole leaf for each."""
+    leaves, spec = torch.utils._pytree.tree_flatten(tree)
+    parts = [torch.unbind(t) for t in leaves]
+    return [torch.utils._pytree.tree_unflatten([p[i] for p in parts], spec)
+            for i in range(len(parts[0]))]
+
+
 # ---------------------------------------------------------------------------
 # Blocks and stages
 # ---------------------------------------------------------------------------
@@ -395,13 +406,14 @@ def _add_aux(total: torch.Tensor | None, a: torch.Tensor | None) -> torch.Tensor
     return a if total is None else total + a
 
 
-def _period_apply(blocks: tuple, i: int, x: torch.Tensor, aux: torch.Tensor | None,
+def _period_apply(blocks: tuple, x: torch.Tensor, aux: torch.Tensor | None,
                   cfg: ArchConfig, positions: torch.Tensor, mode: str, max_len: int):
-    """Period ``i`` of a stage (each kind's block in order): ``(x, aux,
-    the blocks' caches)``, ``aux`` carried through the blocks."""
+    """One period of a stage, ``blocks`` its block of each kind, run in
+    order: ``(x, aux, the blocks' caches)``, ``aux`` carried through the
+    blocks."""
     caches = []
-    for j, kind in enumerate(cfg.period):
-        x, cache, a = _block_apply(kind, _period(blocks[j], i), x, cfg, positions, mode, max_len)
+    for kind, p in zip(cfg.period, blocks):
+        x, cache, a = _block_apply(kind, p, x, cfg, positions, mode, max_len)
         caches.append(cache)
         aux = _add_aux(aux, a)
     # the residual stream between periods, sequence-parallel over the model
@@ -418,12 +430,13 @@ def _run_stage(
     None, the MoE blocks' summed aux loss or None).  In mode ``"train"``
     with grad enabled each period is recomputed in the backward pass
     (``torch.utils.checkpoint``; the reference's ``jax.checkpoint``): only
-    the periods' inputs are kept."""
+    the periods' inputs are kept.  The stacked weights are unbound once,
+    outside the recompute (``_periods``)."""
     caches: list[list[Params]] = [[] for _ in cfg.period]
     aux = None
     remat = mode == "train" and torch.is_grad_enabled()
-    for i in range(_num_periods(stage)):
-        args = (stage["blocks"], i, x, aux, cfg, positions, mode, max_len)
+    for blocks in zip(*(_periods(b) for b in stage["blocks"])):
+        args = (blocks, x, aux, cfg, positions, mode, max_len)
         if remat:
             x, aux, period_caches = torch.utils.checkpoint.checkpoint(
                 _period_apply, *args, use_reentrant=False)
@@ -648,9 +661,9 @@ def chunked_xent(
     if layers.is_dtensor(head):  # gathered (FSDP) once, not per chunk
         head = layers.gather_contraction(head)
     nll, cnt = [], []
-    for i in range(0, S, chunk):
-        y = labels[:, i:i + chunk].long()
-        logits = layers.matmul(hidden[:, i:i + chunk], head).float()  # [B, C, V]
+    for h, y in zip(layers.pieces(hidden, chunk), layers.pieces(labels, chunk)):
+        y = y.long()
+        logits = layers.matmul(h, head).float()  # [B, C, V]
         lse = torch.logsumexp(logits, dim=2)  # dims counted from 0: a DTensor's vocab split
         if layers.is_dtensor(logits):
             # a masked sum over the (vocab-sharded) logits, the vocab ids

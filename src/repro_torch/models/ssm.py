@@ -2,12 +2,13 @@
 
 The counterpart of ``repro.models.ssm``, op for op in plain torch: the
 reference has no kernel for these blocks.  Its ``lax.scan`` over chunks
-(``loop_scan``) is a Python loop here, and sLSTM's scan over time is
-``layers.scan`` (a loop, which the dry run counts without running every
-step).  Dtypes follow the reference's: the projections are bf16 products,
-the scans and gates f32, and mLSTM's queries f32 (the reference divides the
-bf16 product by a NumPy scalar, which promotes it to f32), so mLSTM's cell
-output stays f32 until the down-projection.
+(``loop_scan``) is a Python loop here over the operands unbound once into
+their chunks, and sLSTM's scan over time is ``layers.scan`` (a loop, which
+the dry run counts without running every step).  Dtypes follow the
+reference's: the projections are bf16 products, the scans and gates f32,
+and mLSTM's queries f32 (the reference divides the bf16 product by a NumPy
+scalar, which promotes it to f32), so mLSTM's cell output stays f32 until
+the down-projection.
 
   * Mamba2 runs the chunked SSD algorithm (quadratic within a chunk, a scan
     across chunk states); the token-by-token recurrence serves decode.
@@ -203,9 +204,9 @@ def ssd_chunked(
     h = (initial_state.float() if initial_state is not None
          else torch.zeros((B, H, P, N), dtype=torch.float32, device=x.device))
     h_prevs = []
-    for i in range(nC):  # the state entering chunk i, then its update
-        h_prevs.append(h)
-        h = h * chunk_decay[:, i, :, None, None] + bx[:, i]
+    for decay_c, bx_c in zip(chunk_decay.unbind(1), bx.unbind(1)):
+        h_prevs.append(h)  # the state entering the chunk, then its update
+        h = h * decay_c[:, :, None, None] + bx_c
     h_prevs = torch.stack(h_prevs, dim=1)  # [B,nC,H,P,N]
 
     # ---- inter-chunk output ------------------------------------------------
@@ -405,9 +406,11 @@ def mlstm_chunked(
         C_hat, n_hat, m = initial
 
     hs = []
-    for ci in range(nC):
-        qc, kc, vc = qr[:, ci].float(), kr[:, ci].float(), vr[:, ci].float()
-        Dc, imaxc, Fc, Ftotc, irc = D[:, ci], intra_max[:, ci], F[:, ci], F_total[:, ci], ir[:, ci]
+    # each operand unbound into its chunks once: the backward stacks the
+    # chunks' gradients once
+    chunks = zip(*(t.unbind(1) for t in (qr, kr, vr, D, intra_max, F, F_total, ir)))
+    for qc, kc, vc, Dc, imaxc, Fc, Ftotc, irc in chunks:
+        qc, kc, vc = qc.float(), kc.float(), vc.float()
         # new stabilizer per step: max(intra max, F_t + m_prev)
         m_t = torch.maximum(imaxc, Fc + m[:, None, :])  # [B,Q,H]
         w_intra = torch.exp(Dc - m_t[:, :, None, :])  # [B,t,s,H]

@@ -9,6 +9,12 @@ real tensors against the code it replaced.
     exactly, and its peak of live bytes is within 1% of the loop's.
   * On real CPU tensors ``layers.scan`` runs its body once a step, and the
     hook ``CostMode`` installs is there only while the mode is active.
+  * On one device (plain meta tensors), reduced xlstm's sLSTM forward and
+    its backward at S 8, 16 and 32: the counted scan's FLOPs and bytes
+    equal the loop's, each pass apart, and the backward's bytes are affine
+    in S (the loop unbinds ``xs`` once: each step writes its slice's
+    gradient and one stack joins them; an index a step wrote a zero tensor
+    of all of ``xs`` and added it, O(S^2)).
   * Reduced xlstm's prefill, decode and train steps give, bit for bit, what
     the sLSTM time loop and mLSTM's head merge as they were written before
     the scan helper give (copied below as ``_loop_slstm_forward`` and
@@ -17,7 +23,7 @@ real tensors against the code it replaced.
 import pytest
 import torch
 from torch.distributed.device_mesh import init_device_mesh
-from torch.utils._pytree import tree_leaves
+from torch.utils._pytree import tree_leaves, tree_map
 
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ShapeSpec
@@ -54,6 +60,30 @@ def test_counted_scan_equals_the_loop(mode_name, S):
     assert counted_st.counts == loop_st.counts
     assert sorted(counted.records) == sorted(loop.records)
     assert counted.peak == pytest.approx(loop.peak, rel=PEAK_RTOL)
+
+
+def _slstm_passes(S, full_scans):
+    """``((flops, bytes) of the forward, (flops, bytes) of the backward)`` of
+    reduced xlstm's sLSTM block on meta tensors (B 4) under ``CostMode``."""
+    cfg = get_config("xlstm-350m").reduced()
+    block = model._state_block_init("slstm", cfg, 1, None, "meta", torch.float32)
+    p = tree_map(lambda t: t.detach().requires_grad_(True), model._period(block, 0)["slstm"])
+    x = torch.empty((4, S, cfg.d_model), dtype=torch.bfloat16, device="meta", requires_grad=True)
+    ct = torch.empty((4, S, cfg.d_model), dtype=torch.bfloat16, device="meta")
+    with dryrun.CostMode(full_scans=full_scans) as mode:
+        out = ssm.slstm_forward(p, x, cfg.xlstm)
+        fwd = (mode.flops, mode.bytes)
+        torch.autograd.grad(out, [x, *tree_leaves(p)], ct)
+    return fwd, (mode.flops - fwd[0], mode.bytes - fwd[1])
+
+
+def test_counted_scan_backward_equals_the_loop_and_is_linear_in_s():
+    bwd_bytes = []
+    for S in (8, 16, 32):
+        counted = _slstm_passes(S, full_scans=False)
+        assert counted == _slstm_passes(S, full_scans=True), S
+        bwd_bytes.append(counted[1][1])
+    assert bwd_bytes[2] - bwd_bytes[1] == 2 * (bwd_bytes[1] - bwd_bytes[0]) > 0, bwd_bytes
 
 
 def test_scan_runs_the_body_once_a_step_on_real_tensors():
