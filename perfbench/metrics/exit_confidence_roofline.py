@@ -1,0 +1,11 @@
+"""exit_confidence_roofline: in the traced span, the least time the chip could take
+for every ``kernels.ops.exit_confidence`` call (the larger of its FLOPs over the
+bf16 peak and its bytes over HBM's rate, from its shapes: ``flops.py``),
+over the device time of the kernels those calls launched, in %."""
+
+
+def read(rec):
+    t = rec.trace
+    if t is None or not t["calls"]["exit_confidence"] or t["op_device_s"]["exit_confidence"] <= 0:
+        return None
+    return 100.0 * t["least_s"]["exit_confidence"] / t["op_device_s"]["exit_confidence"]
