@@ -41,13 +41,29 @@ ride along separately (``wants_wall_clock``) and feed the roofline join in
 When tracing is off the engine skips every emission (``stream is None``), so
 the disabled path is bitwise identical to an untraced build; :class:`NullTracer`
 is the explicit no-op stub for call sites that want an unconditional object.
+``wants_wall_clock`` is the only thing here that synchronizes the device.
+
+:class:`HostSpans` is the other record, of the host alone: REAL wall spans
+(``time.perf_counter_ns``) at the boundaries of the engine's work and of
+its stage programs (vocabulary :data:`HOST_SPANS`), each with its parent,
+kept in memory and read after the serve.  It never synchronizes the
+device: a ``stage.*`` span is the host's time to launch the stage's work,
+and ``engine.head_pull`` is where the host waits for the card, since a
+head batch's answer has to reach the host.  It is on where
+``CollaborativeEngine.host_spans`` holds one; off (None), each site costs
+one ``is None`` test, with no clock read and no append.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+import functools
+from time import perf_counter_ns
+from typing import Any, NamedTuple
 
-__all__ = ["Span", "SpanTracer", "NullTracer", "SimClock", "SPAN_KINDS"]
+__all__ = [
+    "Span", "SpanTracer", "NullTracer", "SimClock", "SPAN_KINDS",
+    "HOST_SPANS", "HostSpan", "HostSpans", "host_span",
+]
 
 #: the component vocabulary of the per-request tiling
 SPAN_KINDS = ("admission", "transfer", "queue", "batch_wait", "compute")
@@ -419,3 +435,126 @@ class NullTracer:
     @staticmethod
     def _noop(*args: Any, **kwargs: Any) -> None:
         return None
+
+
+# ---------------------------------------------------------------------------
+# Host spans
+# ---------------------------------------------------------------------------
+
+#: the host span vocabulary: the engine's work, then its stage programs'
+#: calls (the ``stage.*`` spans; ``stage.heads`` launches a head, and
+#: ``engine.head_pull`` brings its answer to the host)
+HOST_SPANS = (
+    "engine.configuration",  # a DTO-EE configuration phase
+    "engine.serve",  # one serve call
+    "engine.batch",  # one stage batch, formed to its heap push
+    "engine.input",  # the batch's input: tokens embedded, hidden rows stacked, slot vector
+    "engine.head_pull",  # the batch's confidences and tokens copied to the host
+    "stage.embed",
+    "stage.forward",
+    "stage.prefill",
+    "stage.decode",
+    "stage.slot_write",
+    "stage.gather",  # stage_decode: the batch's slot rows gathered
+    "stage.layers",  # stage_decode: the stage's layers on them
+    "stage.scatter",  # stage_decode: the rows written back
+    "stage.heads",
+)
+
+
+class HostSpan(NamedTuple):
+    name: str
+    t0: int  # time.perf_counter_ns
+    t1: int
+    parent: int  # index of the enclosing span; -1 at the root
+    #: ``engine.batch``: (stage, node, live rows, padded rows, decode 0/1)
+    attrs: tuple | None
+
+
+class HostSpans:
+    """Host wall spans of one engine, on ``time.perf_counter_ns``.
+
+    ``begin`` opens a span inside the innermost open one and returns its
+    index; ``end`` closes it (and any span an exception left open inside
+    it); ``switch`` closes one and opens its sibling at one clock reading.
+    A span costs a clock read and a list append at each end; nothing waits
+    for the device.  Read ``spans`` and ``self_ns`` after the serve.
+    """
+
+    BATCH_ATTRS = ("stage", "node", "live_rows", "padded_rows", "decode")
+
+    def __init__(self):
+        self._spans: list[list] = []  # [name, t0, t1, parent, attrs]
+        self._open = -1
+
+    def begin(self, name: str) -> int:
+        i = len(self._spans)
+        self._spans.append([name, perf_counter_ns(), 0, self._open, None])
+        self._open = i
+        return i
+
+    def end(self, i: int, attrs: tuple | None = None) -> None:
+        t = perf_counter_ns()
+        spans = self._spans
+        j = self._open
+        while j > i:  # left open inside span i by an exception
+            spans[j][2] = t
+            j = spans[j][3]
+        s = spans[i]
+        s[2] = t
+        if attrs is not None:
+            s[4] = attrs
+        self._open = s[3]
+
+    def switch(self, i: int, name: str) -> int:
+        t = perf_counter_ns()
+        s = self._spans[i]
+        s[2] = t
+        j = len(self._spans)
+        self._spans.append([name, t, 0, s[3], None])
+        self._open = j
+        return j
+
+    def start_ns(self, i: int) -> int:
+        return self._spans[i][1]
+
+    @property
+    def spans(self) -> list[HostSpan]:
+        return [HostSpan(*s) for s in self._spans]
+
+    def self_ns(self, lo: int = 0, hi: int | None = None) -> dict[str, int]:
+        """Self time by span name, every span clipped to ``[lo, hi]``: its
+        clipped wall less its children's.  The names' sum is the wall that
+        the outermost spans cover inside ``[lo, hi]``."""
+        out = dict.fromkeys(HOST_SPANS, 0)
+        spans = self._spans
+        for name, t0, t1, parent, _ in spans:
+            w = (t1 if hi is None else min(t1, hi)) - max(t0, lo)
+            if w <= 0:
+                continue
+            out[name] = out.get(name, 0) + w
+            if parent >= 0:
+                out[spans[parent][0]] -= w
+        return out
+
+
+def host_span(name: str):
+    """Method decorator: each call is one ``name`` span of
+    ``self.host_spans`` where that is set; where it is None the call costs
+    one ``is None`` test."""
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def method(self, *args, **kwargs):
+            hs = self.host_spans
+            if hs is None:
+                return fn(self, *args, **kwargs)
+            i = hs.begin(name)
+            try:
+                return fn(self, *args, **kwargs)
+            finally:
+                hs.end(i)
+
+        return method
+
+    return wrap

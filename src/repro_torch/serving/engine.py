@@ -34,6 +34,8 @@ times) and ``metrics`` subscribe to one instrumentation stream
 telemetry; a ``scenario`` perturbs a private copy of the topology
 (bursts, slowdowns, link degradation, fail-stop).  With no observer the
 stream is None and the serve adds no host work and no device sync.
+``host_spans`` (an ``obs.HostSpans``) records the host's own wall at the
+engine's and stage programs' boundaries, without a sync.
 """
 from __future__ import annotations
 
@@ -41,7 +43,7 @@ import dataclasses
 import heapq
 import itertools
 from collections import deque
-from time import perf_counter
+from time import perf_counter_ns
 from typing import Any
 
 import numpy as np
@@ -56,6 +58,7 @@ from repro_torch.core.types import DtoHyperParams, ModelProfile, Topology
 from repro_torch.models import model as model_lib
 from repro_torch.obs.attribution import decompose
 from repro_torch.obs.stream import build_stream
+from repro_torch.obs.trace import host_span
 from repro_torch.runtime import elastic
 from repro_torch.serving import steps
 from repro_torch.serving.batching import (
@@ -114,15 +117,20 @@ class StagePrograms:
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = model_lib.params_to(params, self.device)
+        # an obs.HostSpans the engine hands over for a serve, or None
+        self.host_spans = None
 
+    @host_span("stage.embed")
     def embed(self, tokens: np.ndarray) -> torch.Tensor:
         toks = torch.as_tensor(np.asarray(tokens, np.int64), device=self.device)
         return steps.embed_step(self.params, toks, self.cfg)
 
+    @host_span("stage.forward")
     def run_stage(self, stage_idx: int, x: torch.Tensor) -> torch.Tensor:
         """Forward hidden states through stage ``stage_idx`` (1-indexed)."""
         return steps.stage_forward(self.params, x, self.cfg, stage_idx)
 
+    @host_span("stage.prefill")
     def stage_prefill(self, stage_idx: int, x: torch.Tensor, max_len: int):
         """(x_out, stage caches [n_periods, B, max_len, ...]) for one stage."""
         return steps.stage_prefill(self.params, x, self.cfg, stage_idx, max_len)
@@ -130,11 +138,13 @@ class StagePrograms:
     def _index(self, idx: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(idx, dtype=torch.int64, device=self.device)
 
+    @host_span("stage.decode")
     def stage_decode(self, stage_idx: int, x, slot_caches, slots: np.ndarray) -> torch.Tensor:
         """One cached token per row against the replica's store (in place)."""
         return steps.stage_decode(self.params, x, slot_caches, self._index(slots), self.cfg,
-                                  stage_idx)
+                                  stage_idx, self.host_spans)
 
+    @host_span("stage.slot_write")
     def slot_write(self, slot_caches, new_caches, slots: np.ndarray) -> None:
         steps.slot_write(slot_caches, new_caches, self._index(slots))
 
@@ -151,25 +161,29 @@ class StagePrograms:
             self.cfg, stage_idx, num_slots, num_blocks, block_size, max_len, device=self.device
         )
 
+    @host_span("stage.slot_write")
     def paged_slot_write(self, pool, state, new_caches, wtab: np.ndarray,
                          slots: np.ndarray) -> None:
         steps.paged_slot_write(pool, state, new_caches, self._index(wtab), self._index(slots))
 
+    @host_span("stage.decode")
     def paged_stage_decode(self, stage_idx: int, x, pool, state, tables: np.ndarray,
                            slots: np.ndarray, seq_len: int) -> torch.Tensor:
         """One cached token per row through the block tables (pool and state
         updated in place)."""
         tab = torch.as_tensor(tables, dtype=torch.int32, device=self.device)
         return steps.paged_stage_decode(self.params, x, pool, state, tab, self._index(slots),
-                                        self.cfg, stage_idx, seq_len)
+                                        self.cfg, stage_idx, seq_len, self.host_spans)
 
     def block_copy(self, pool, src: np.ndarray, dst: np.ndarray) -> None:
         steps.block_copy(pool, self._index(src), self._index(dst))
 
+    @host_span("stage.heads")
     def exit_head(self, stage_idx: int, x_last: torch.Tensor):
         """(confidence, token) of the exit branch after stage ``stage_idx``."""
         return steps.exit_head_step(self.params, x_last, self.cfg, stage_idx)
 
+    @host_span("stage.heads")
     def final_head(self, x_last: torch.Tensor):
         """(confidence, token) of the final head — fused, no [B, vocab] logits."""
         return steps.final_head_step(self.params, x_last, self.cfg)
@@ -310,6 +324,8 @@ class CollaborativeEngine:
         # live capacity tracker: every stage batch folds its (GFLOPs, service
         # time) into the EWMA, the measurement half of the control loop
         self.straggler = elastic.StragglerMonitor.from_topology(topo)
+        # an obs.HostSpans to record the host's wall into, or None (off)
+        self.host_spans = None
 
     # -- control plane ------------------------------------------------------
     def update_topology(self, new_topo: Topology) -> None:
@@ -320,6 +336,7 @@ class CollaborativeEngine:
         self.topo = new_topo
         self._round_step = dto_ee.make_round_step(new_topo, self.profile, self.hyper)
 
+    @host_span("engine.configuration")
     def configuration_phase(self, adapt_thresholds: bool = True) -> None:
         """One time-slot configuration update (Algorithm 3)."""
         res = dto_ee.run_configuration_phase(
@@ -357,6 +374,7 @@ class CollaborativeEngine:
             return self.programs.embed(toks)
         return _cat_hidden(reqs, padded_batch_size(len(reqs), batch_size))
 
+    @host_span("engine.serve")
     def serve(
         self,
         prompts: list[np.ndarray],
@@ -405,6 +423,17 @@ class CollaborativeEngine:
         feeds a metrics registry.  With none attached every emission is
         skipped and nothing is synchronized.  Attached observers land on
         ``stats.trace`` / ``stats.metrics`` for ``ServeStats.report()``.
+        Only the tracer's wall clock (``wants_wall_clock``) synchronizes.
+
+        ``self.host_spans`` (an ``obs.HostSpans``, or None: off) records the
+        host's wall, never synchronizing: this call (``engine.serve``), one
+        ``engine.batch`` a stage batch from its formation to its heap push
+        (stage, node, live and padded rows, decode flag; its index reaches
+        ``on_batch`` as ``host_span``), the batch's input assembly
+        (``engine.input``), the stage programs' calls (``stage.*``) and the
+        heads' answers copied to the host (``engine.head_pull``).  Off, each
+        site costs one ``is None`` test.  With a tracer too, the batch's
+        ``wall_clock_s`` starts at its ``engine.batch`` span's start.
 
         ``controller`` (a ``ReconfigController``) plans a reconfiguration
         from its telemetry every ``controller.interval`` simulated seconds
@@ -517,6 +546,7 @@ class CollaborativeEngine:
         # nothing is attached, so the disabled path skips every emission
         stream = build_stream(telemetry, tracer, metrics)
         wants_wall = stream is not None and stream.wants_wall
+        hs = programs.host_spans = self.host_spans
 
         stats = ServeStats()
         stats.trace = tracer
@@ -579,14 +609,18 @@ class CollaborativeEngine:
 
         def run_prefill(node: int, reqs: list[Request], now: float) -> None:
             nonlocal live_reqs
-            wall_t0 = perf_counter() if wants_wall else 0.0
+            span, wall_t0 = begin_batch()
             h = int(topo.node_stage[node])
             # stateless decode passes run at a FIXED padded length: causal
             # masking makes the pad rows inert and the valid rows match the
             # fixed-size cached arena
             stateless_decode = not cached and reqs[0].phase == "decode"
             pad_to = max_len if stateless_decode else None
+            if hs is not None:
+                si = hs.begin("engine.input")
             x_in = self._stage_input(h, reqs, batch_size, pad_to=pad_to)
+            if hs is not None:
+                hs.end(si)
             if cached:
                 x, caches = programs.stage_prefill(h, x_in, max_len)
                 slots = np.full((int(x.shape[0]),), trash, np.int64)
@@ -629,13 +663,23 @@ class CollaborativeEngine:
                 x = programs.run_stage(h, x_in)
             last = int(reqs[0].all_tokens().shape[0]) if stateless_decode else None
             finish_pass(node, reqs, x, now, h, is_decode_pass=False, last_valid=last,
-                        wall_t0=wall_t0)
+                        wall_t0=wall_t0, span=span)
+
+        def begin_batch() -> tuple[int, int]:
+            """(the batch's ``engine.batch`` span or -1, its wall-clock start
+            in ns or 0)."""
+            if hs is not None:
+                span = hs.begin("engine.batch")
+                return span, hs.start_ns(span)
+            return -1, perf_counter_ns() if wants_wall else 0
 
         def run_decode(node: int, reqs: list[Request], now: float) -> None:
-            wall_t0 = perf_counter() if wants_wall else 0.0
+            span, wall_t0 = begin_batch()
             h = int(topo.node_stage[node])
             B = len(reqs)
             Bp = padded_batch_size(B, batch_size)
+            if hs is not None:
+                si = hs.begin("engine.input")
             slots = np.full((Bp,), trash, np.int64)
             for i, r in enumerate(reqs):
                 slots[i] = r.slots[node]
@@ -646,6 +690,8 @@ class CollaborativeEngine:
                 x_in = programs.embed(toks)
             else:
                 x_in = _cat_hidden(reqs, Bp)
+            if hs is not None:
+                hs.end(si)
             if paged:
                 alloc = allocators[node]
                 rtab = np.full((Bp, n_logical), trash_block, np.int32)
@@ -673,11 +719,11 @@ class CollaborativeEngine:
                     stream.on_pool(now, node, alloc.used_fraction)
             else:
                 x = programs.stage_decode(h, x_in, slot_store[node], slots)
-            finish_pass(node, reqs, x, now, h, is_decode_pass=True, wall_t0=wall_t0)
+            finish_pass(node, reqs, x, now, h, is_decode_pass=True, wall_t0=wall_t0, span=span)
 
         def finish_pass(node: int, reqs: list[Request], x: torch.Tensor, now: float, h: int,
                         is_decode_pass: bool, last_valid: int | None = None,
-                        wall_t0: float = 0.0) -> None:
+                        wall_t0: int = 0, span: int = -1) -> None:
             """Shared tail of a stage batch: heads, handoff rows, clock.
 
             ``last_valid`` points the heads at the last REAL position of a
@@ -694,8 +740,12 @@ class CollaborativeEngine:
                 for i, r in enumerate(reqs):
                     r.hidden = x[i : i + 1]
             if conf is not None:
+                if hs is not None:
+                    pull = hs.begin("engine.head_pull")
                 conf = conf.cpu().numpy()[: len(reqs)]
                 tok = tok.cpu().numpy()[: len(reqs)]
+                if hs is not None:
+                    hs.end(pull)
             if wants_wall and x.device.type == "cuda":
                 # the hidden states stay on the card and only a head batch
                 # pulls anything to the host: without this sync a batch with
@@ -734,9 +784,12 @@ class CollaborativeEngine:
                     n_rows=int(x.shape[0]),
                     n_tokens=int(x.shape[0]) * int(x.shape[1]),
                     is_decode=is_decode_pass,
-                    wall_clock_s=(perf_counter() - wall_t0) if wants_wall else 0.0,
+                    wall_clock_s=(perf_counter_ns() - wall_t0) * 1e-9 if wants_wall else 0.0,
+                    host_span=span,
                 )
             heapq.heappush(heap, (done, next(seq), 1, (node, reqs, conf, tok, is_decode_pass)))
+            if hs is not None:
+                hs.end(span, (h, node, len(reqs), int(x.shape[0]), int(is_decode_pass)))
 
         def dispatch(node: int, now: float) -> None:
             """If ``node`` is free, form one batch and run it: FIFO across

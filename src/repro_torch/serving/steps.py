@@ -74,16 +74,27 @@ def slot_write(slot_caches, new_caches, slots: torch.Tensor) -> None:
 
 
 def stage_decode(params: Any, x: torch.Tensor, slot_caches, slots: torch.Tensor,
-                 cfg: ArchConfig, stage_idx: int) -> torch.Tensor:
+                 cfg: ArchConfig, stage_idx: int, host_spans=None) -> torch.Tensor:
     """One cached decode token per row against the replica's slot store.
 
     Gathers the batch's rows (a copy of each row's whole ``max_len`` arena),
     runs the ragged decode on them, and scatters the updated rows back into
-    the store in place.  Returns the stage output.
+    the store in place.  Returns the stage output.  ``host_spans`` (an
+    ``obs.HostSpans``) records the three as ``stage.gather``,
+    ``stage.layers`` and ``stage.scatter``.
     """
+    hs = host_spans
+    if hs is not None:
+        i = hs.begin("stage.gather")
     gathered = tuple({k: a[:, slots] for k, a in d.items()} for d in slot_caches)
+    if hs is not None:
+        i = hs.switch(i, "stage.layers")
     x_out, new_rows = model_lib.decode_stage_ragged(params, stage_idx, x, gathered, cfg)
+    if hs is not None:
+        i = hs.switch(i, "stage.scatter")
     slot_write(slot_caches, new_rows, slots)
+    if hs is not None:
+        hs.end(i)
     return x_out
 
 
@@ -119,7 +130,7 @@ def paged_slot_write(pool_stage, state_stage, new_caches, wtab: torch.Tensor,
 
 def paged_stage_decode(params: Any, x: torch.Tensor, pool_stage, state_stage,
                        tables: torch.Tensor, slots: torch.Tensor, cfg: ArchConfig,
-                       stage_idx: int, seq_len: int) -> torch.Tensor:
+                       stage_idx: int, seq_len: int, host_spans=None) -> torch.Tensor:
     """One cached decode token per row against the replica's PAGED store.
 
     ``tables`` int32 [B, n_logical] maps each row's logical blocks to pool
@@ -127,14 +138,24 @@ def paged_stage_decode(params: Any, x: torch.Tensor, pool_stage, state_stage,
     names each row's state row.  Gathers the state rows, runs the ragged
     decode reading and writing K/V through the tables (the pool is updated
     in place), scatters the state rows back and returns the stage output.
+    ``host_spans`` records the three as ``stage_decode`` does.
     """
+    hs = host_spans
+    if hs is not None:
+        i = hs.begin("stage.gather")
     rows = tuple({k: a[:, slots] for k, a in d.items()} for d in state_stage)
+    if hs is not None:
+        i = hs.switch(i, "stage.layers")
     x_out, new_caches = model_lib.decode_stage_paged(
         params, stage_idx, x, pool_stage, rows, tables, cfg, seq_len
     )
+    if hs is not None:
+        i = hs.switch(i, "stage.scatter")
     for state_d, new_d in zip(state_stage, new_caches):
         for key, buf in state_d.items():
             buf[:, slots] = new_d[key].to(buf.dtype)
+    if hs is not None:
+        hs.end(i)
     return x_out
 
 
