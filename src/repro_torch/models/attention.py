@@ -325,8 +325,21 @@ def gqa_decode_ragged(
 
     The serving engine's slot-cache path: rope positions, the cache write and
     the validity mask are per row, and attention runs through
-    ``kernels.ops.decode_attention`` with ``lengths = pos + 1``.
+    ``kernels.ops.decode_attention`` with ``lengths = pos + 1``.  The step
+    is its two halves around that call (``gqa_decode_ragged_pre`` and
+    ``_post``), which the CUDA-graph decode (``serving.decode_graphs``)
+    replays with the same call between them.
     """
+    q, lengths = gqa_decode_ragged_pre(params, x, cache, dims)
+    out = kernel_ops.decode_attention(q[:, 0], cache["k"], cache["v"], lengths)
+    return gqa_decode_ragged_post(params, out), dict(cache, pos=lengths)
+
+
+def gqa_decode_ragged_pre(params: Params, x: torch.Tensor, cache: Params, dims: AttnDims):
+    """The half of ``gqa_decode_ragged`` before attention: the q/k/v
+    projections (and biases), RoPE at each row's ``cache["pos"]``, the
+    token's K/V written into ``cache`` in place, and ``(q [B, 1, H, hd],
+    lengths = pos + 1)``, the row's new position and valid prefix."""
     pos = cache["pos"]  # int32 [B]
     q, k_new, v_new = _project_qkv(params, x, dims)
     pos_b = pos[:, None]
@@ -334,10 +347,13 @@ def gqa_decode_ragged(
     k_new = apply_rope(k_new, pos_b, dims.rope_theta)
     _cache_write_ragged(cache["k"], k_new, pos)
     _cache_write_ragged(cache["v"], v_new, pos)
-    new_cache = dict(cache, pos=pos + 1)
-    out = kernel_ops.decode_attention(q[:, 0], cache["k"], cache["v"], pos + 1)
-    out = matmul(layers.merge_last(out)[:, None], params["w_o"])
-    return out, new_cache
+    return q, pos + 1
+
+
+def gqa_decode_ragged_post(params: Params, out: torch.Tensor) -> torch.Tensor:
+    """The half of ``gqa_decode_ragged`` after attention: the heads of
+    ``out`` [B, H, hd] merged and projected by ``w_o``, [B, 1, d]."""
+    return matmul(layers.merge_last(out)[:, None], params["w_o"])
 
 
 def _paged_token_write(

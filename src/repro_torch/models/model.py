@@ -382,9 +382,45 @@ def _block_decode(kind: str, p: Params, x: torch.Tensor, cache: Params, cfg: Arc
     else:
         decode = attention.gqa_decode_ragged if ragged else attention.gqa_decode
         out, cache = decode(p["attn"], h, cache, cfg.attn_dims())
+    return _attn_block_tail(kind, p, x, out, cfg), cache
+
+
+def _attn_block_tail(kind: str, p: Params, x: torch.Tensor, out: torch.Tensor,
+                     cfg: ArchConfig) -> torch.Tensor:
+    """An attention block after its attention: the residual, ``norm2``, the
+    FFN and its residual."""
     x = x + out
     h2 = layers.apply_norm(cfg.norm, p["norm2"], x)
-    return x + _ffn(kind, p, h2, cfg)[0], cache
+    return x + _ffn(kind, p, h2, cfg)[0]
+
+
+def attn_decode_open(p: Params, x: torch.Tensor, cache: Params, cfg: ArchConfig):
+    """A GQA block's ragged decode step (dense slot rows) up to its
+    attention: ``norm1`` and ``attention.gqa_decode_ragged_pre`` (the
+    token's K/V written into ``cache`` in place).  ``(q [B, 1, H, hd],
+    lengths [B])``, ``lengths`` also the rows' new ``pos``."""
+    h = layers.apply_norm(cfg.norm, p["norm1"], x)
+    return attention.gqa_decode_ragged_pre(p["attn"], h, cache, cfg.attn_dims())
+
+
+def attn_decode_close(kind: str, p: Params, x: torch.Tensor, attn: torch.Tensor,
+                      cfg: ArchConfig) -> torch.Tensor:
+    """The same block from its attention output ``attn`` [B, H, hd] on:
+    ``attention.gqa_decode_ragged_post`` and the block's tail.  Between
+    ``attn_decode_open`` and this half lies the one call to
+    ``kernels.ops.decode_attention``.  The CUDA-graph decode
+    (``serving.decode_graphs``) replays these halves with the call launched
+    eagerly between them; the eager step (``_block_decode``) runs the same
+    halves in the same order, through ``attention.gqa_decode_ragged``."""
+    return _attn_block_tail(kind, p, x, attention.gqa_decode_ragged_post(p["attn"], attn), cfg)
+
+
+def decode_layers(stage: Params, cfg: ArchConfig) -> list[tuple[str, int, int, Params]]:
+    """A stage's blocks in decode order, ``(kind, j, i, params)``: the
+    period kind ``kind`` at index ``j`` of ``cfg.period`` in period ``i``
+    (its caches are ``caches[j]`` at ``[i]``)."""
+    return [(kind, j, i, _period(stage["blocks"][j], i))
+            for i in range(_num_periods(stage)) for j, kind in enumerate(cfg.period)]
 
 
 def _stack_caches(per_period: list[Params]) -> Params:
@@ -453,15 +489,10 @@ def _decode_stage(stage: Params, x: torch.Tensor, caches, cfg: ArchConfig, ragge
                   paged_seq_len: int | None = None):
     """One token through a stage.  The stacked caches are updated in place;
     the returned tuple holds them with their advanced ``pos``."""
-    n_periods = _num_periods(stage)
     pos_out: list[list[torch.Tensor]] = [[] for _ in cfg.period]
-    for i in range(n_periods):
-        for j, kind in enumerate(cfg.period):
-            x, nc = _block_decode(
-                kind, _period(stage["blocks"][j], i), x, _period(caches[j], i), cfg, ragged,
-                paged_seq_len,
-            )
-            pos_out[j].append(nc["pos"])
+    for kind, j, i, p in decode_layers(stage, cfg):
+        x, nc = _block_decode(kind, p, x, _period(caches[j], i), cfg, ragged, paged_seq_len)
+        pos_out[j].append(nc["pos"])
     return x, tuple(dict(c, pos=torch.stack(p)) for c, p in zip(caches, pos_out))
 
 

@@ -455,9 +455,10 @@ HOST_SPANS = (
     "stage.prefill",
     "stage.decode",
     "stage.slot_write",
-    "stage.gather",  # stage_decode: the batch's slot rows gathered
-    "stage.layers",  # stage_decode: the stage's layers on them
-    "stage.scatter",  # stage_decode: the rows written back
+    "stage.capture",  # stage_decode: a (stage, batch) key's CUDA graphs captured
+    "stage.gather",  # stage_decode: the batch's slot rows gathered (and its input copied)
+    "stage.layers",  # stage_decode: the stage's layers on them (graph replays, attention calls)
+    "stage.scatter",  # stage_decode: the rows written back (and the output copied out)
     "stage.heads",
 )
 

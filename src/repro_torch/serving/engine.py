@@ -14,7 +14,9 @@ Data plane: ``serve(..., gen_len=N)`` decodes up to N tokens per request.
 The first pass is a prefill hop chain; in cached mode each stage writes its
 KV caches into a slot of the replica's resident store, the route is pinned
 per stage (``Request.path``), and every later token is a one-token cached
-step through the flash-decode kernel.  ``cache_layout="paged"`` keeps the
+step through the flash-decode kernel (on the card, dense decode replays
+each stage as a chain of CUDA graphs around that kernel:
+``serving.decode_graphs``).  ``cache_layout="paged"`` keeps the
 K/V in a per-replica pool of blocks instead, reached through per-request
 block tables (``serving.paging``), with prompt-prefix sharing; its decode
 runs the paged flash-decode kernel.  ``decode_mode="stateless"`` re-runs
@@ -60,7 +62,7 @@ from repro_torch.obs.attribution import decompose
 from repro_torch.obs.stream import build_stream
 from repro_torch.obs.trace import host_span
 from repro_torch.runtime import elastic
-from repro_torch.serving import steps
+from repro_torch.serving import decode_graphs, steps
 from repro_torch.serving.batching import (
     ExitPredictor,
     Request,
@@ -111,7 +113,15 @@ def _thinned_arrivals(
 
 class StagePrograms:
     """Per-stage forwards and fused heads of a partitioned model on one
-    device.  The parameters are moved to ``device`` (default ``cuda``)."""
+    device.  The parameters are moved to ``device`` (default ``cuda``).
+
+    Dense cached decode runs as CUDA graphs where ``decode_graphs.engages``
+    (``serving/decode_graphs.py``), eagerly otherwise; it counts the stage
+    batches each way (``decode_graph_replays``, ``decode_eager``) and the
+    graph chains captured (``decode_graph_captures``, in
+    ``decode_graph_capture_s`` seconds of host time).  A serve reserves the
+    graphs' workspace for its largest padded batch
+    (``reserve_decode_rows``)."""
 
     def __init__(self, params: Any, cfg: ArchConfig, device="cuda"):
         self.device = resolve_device(device)
@@ -119,6 +129,22 @@ class StagePrograms:
         self.params = model_lib.params_to(params, self.device)
         # an obs.HostSpans the engine hands over for a serve, or None
         self.host_spans = None
+        self.decode_graphs = decode_graphs.DecodeGraphs(self.params, cfg)
+        self.decode_graph_replays = 0
+        self.decode_eager = 0
+
+    @property
+    def decode_graph_captures(self) -> int:
+        return self.decode_graphs.captures
+
+    @property
+    def decode_graph_capture_s(self) -> float:
+        return self.decode_graphs.capture_s
+
+    def reserve_decode_rows(self, rows: int) -> None:
+        """Size the decode graphs' workspace for batches of up to ``rows``
+        rows, from the next dense decode batch on."""
+        self.decode_graphs.reserve(rows)
 
     @host_span("stage.embed")
     def embed(self, tokens: np.ndarray) -> torch.Tensor:
@@ -141,8 +167,13 @@ class StagePrograms:
     @host_span("stage.decode")
     def stage_decode(self, stage_idx: int, x, slot_caches, slots: np.ndarray) -> torch.Tensor:
         """One cached token per row against the replica's store (in place)."""
-        return steps.stage_decode(self.params, x, slot_caches, self._index(slots), self.cfg,
-                                  stage_idx, self.host_spans)
+        idx = self._index(slots)
+        if decode_graphs.engages(self.cfg, x, slot_caches):
+            self.decode_graph_replays += 1
+            return self.decode_graphs.run(stage_idx, x, slot_caches, idx, self.host_spans)
+        self.decode_eager += 1
+        return steps.stage_decode(self.params, x, slot_caches, idx, self.cfg, stage_idx,
+                                  self.host_spans)
 
     @host_span("stage.slot_write")
     def slot_write(self, slot_caches, new_caches, slots: np.ndarray) -> None:
@@ -582,6 +613,8 @@ class CollaborativeEngine:
         if cached:
             n_slots = num_slots if num_slots is not None else max(2 * batch_size, 4)
             trash = n_slots  # extra store row absorbing padded-row writes
+            if not paged:  # no padded batch holds more than batch_size rows
+                programs.reserve_decode_rows(batch_size)
             if paged:
                 n_logical = -(-max_len // block_size)
                 # default pool: the dense layout's footprint, block-granular

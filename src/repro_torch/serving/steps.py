@@ -11,7 +11,8 @@ store tensors:
     replica's slot store;
   * ``stage_decode``  — one token per row against the slot store: gather
     the batch's slots, run the ragged cached decode (per-row positions,
-    flash-decode kernel), scatter the rows back;
+    flash-decode kernel), scatter the rows back (on the card the stage
+    programs replay the same step as CUDA graphs: ``decode_graphs``);
   * ``paged_slot_write`` / ``paged_stage_decode`` / ``block_copy`` — the
     same for the paged layout, whose sequence leaves (K/V, or MLA's latent
     rows) live in a pool of blocks reached through per-request block tables;
